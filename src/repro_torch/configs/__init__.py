@@ -1,0 +1,76 @@
+"""Architecture configs (port of ``repro.configs``).
+
+The port keeps its own copy of ``ArchConfig`` so it never imports the JAX
+package.  The registry lists only the configurations whose family the port
+runs; ``get_config`` raises on every other name.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from dataclasses import dataclass
+
+@dataclass(frozen=True)
+class ArchConfig:
+    """A backbone architecture: the fields of the JAX package's
+    ``ArchConfig`` that the dense family reads (the MoE, SSM, audio and
+    TPU execution fields come with the families and tiers that use them)."""
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // num_heads
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.resolved_head_dim()
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.resolved_head_dim()
+
+    def with_overrides(self, **kw) -> "ArchConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# Only the configurations of the families the port runs (dense).
+_REGISTRY = {
+    "llama3.2-3b": "llama3_2_3b",
+}
+
+ARCH_NAMES = tuple(_REGISTRY)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"configuration {name!r} is not ported to repro_torch yet; "
+            f"ported: {', '.join(ARCH_NAMES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[name]}")
+    return mod.CONFIG
+
+
+def smoke_config(name: str) -> ArchConfig:
+    """A reduced config of the same family for CPU tests (the JAX package's
+    ``smoke_config`` overrides for the dense family)."""
+    cfg = get_config(name)
+    return cfg.with_overrides(
+        num_layers=2,
+        d_model=64,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+    )

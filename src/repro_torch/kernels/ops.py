@@ -1,0 +1,139 @@
+"""Dispatch of the hot-path ops by the tensor's device (port of
+``repro.kernels.ops``).
+
+A tensor on the CPU goes to the op's plain PyTorch version.  A tensor on a
+CUDA device goes to the hand-written kernel: a failed build or launch
+raises, nothing falls back.  :func:`force_plain` runs the plain versions on
+the card as well; it exists only for the comparison of each kernel with its
+plain version, and nothing on the serving path uses it.
+
+The signatures follow the JAX package's ops: ``grouped_lora`` takes
+``x [B, S, d_in]`` with one task per batch row, ``packed_attention`` builds
+the prefix key rows (``ops.py:181-214`` there, without the tile padding
+that existed for the TPU), ``decode_attention`` takes scalar or per-row
+window bounds.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import grouped_lora as _gl
+from repro_torch.kernels import packed_attention as _pa
+
+_KERNELS = {"grouped_lora": _gl, "packed_attention": _pa, "decode_attention": _da}
+_force_plain = False
+
+
+@contextlib.contextmanager
+def force_plain():
+    """Run the plain versions on CUDA tensors too (kernel comparisons only)."""
+    global _force_plain
+    prev, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = prev
+
+
+def _use_kernel(t: torch.Tensor) -> bool:
+    return t.is_cuda and not _force_plain
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each CUDA kernel since the last reset."""
+    return {name: mod.launch_count for name, mod in _KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in _KERNELS.values():
+        mod.launch_count = 0
+
+
+# ---------------------------------------------------------------------------
+# grouped LoRA
+# ---------------------------------------------------------------------------
+
+
+def grouped_lora(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                 row_task: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d_in], a [T, d_in, r], b [T, r, d_out], row_task [B] (-1 = no
+    adapter), scale [T] -> [B, S, d_out] in x's type."""
+    B, S, d_in = x.shape
+    x2 = x.reshape(B * S, d_in)
+    rows = row_task.to(torch.int32).repeat_interleave(S)
+    if _use_kernel(x):
+        y = _gl.grouped_lora_cuda(x2.contiguous(), a, b, rows, scale.float())
+    else:
+        y = _gl.grouped_lora_plain(x2, a, b, rows, scale)
+    return y.reshape(B, S, -1)
+
+
+# ---------------------------------------------------------------------------
+# packed (segment-masked) flash attention
+# ---------------------------------------------------------------------------
+
+
+def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     segment_ids: Optional[torch.Tensor] = None,
+                     positions: Optional[torch.Tensor] = None,
+                     causal: bool = True, *,
+                     prefix_kv: Optional[tuple] = None,
+                     prefix_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Segment-masked attention over q [B, S, H, dh] and k/v [B, S, Hkv, dh];
+    optionally with learned prefix k/v rows ``prefix_kv = (pk, pv)``
+    [B, P, Hkv, dh] that every query of a batch row sees when
+    ``prefix_keep`` [B, P] gates them on (default: all on)."""
+    B, S = q.shape[0], q.shape[1]
+    dev = q.device
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    if segment_ids is None:
+        segment_ids = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    positions = positions.to(torch.int32).contiguous()
+    segment_ids = segment_ids.to(torch.int32).contiguous()
+    k_positions, k_segment_ids = positions, segment_ids
+    if prefix_kv is not None:
+        pk, pv = prefix_kv
+        P = pk.shape[1]
+        keep = prefix_keep if prefix_keep is not None else torch.ones((B, P), device=dev)
+        # prefix rows: position -1 (always causally visible), segment -1
+        # where the row owns the prefix (wildcard) and -2 where it does not
+        k = torch.cat([pk.to(k.dtype), k], dim=1)
+        v = torch.cat([pv.to(v.dtype), v], dim=1)
+        k_positions = torch.cat(
+            [torch.full((B, P), -1, dtype=torch.int32, device=dev), positions], dim=1)
+        k_segment_ids = torch.cat(
+            [torch.where(keep > 0, -1, -2).to(torch.int32), segment_ids], dim=1)
+    if _use_kernel(q):
+        return _pa.packed_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         positions, segment_ids, k_positions,
+                                         k_segment_ids, causal)
+    return _pa.packed_attention_plain(q, k, v, positions, segment_ids, k_positions,
+                                      k_segment_ids, causal)
+
+
+# ---------------------------------------------------------------------------
+# split-KV decode attention
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     cache_len: torch.Tensor,
+                     cache_start: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One-token attention of q [B, 1, H, dh] over each row's cache window
+    ``[cache_start, cache_len)`` ([] or [B] int each; start defaults to 0).
+    Empty windows give zeros."""
+    B = q.shape[0]
+    dev = q.device
+    cache_len = torch.as_tensor(cache_len, device=dev).to(torch.int32).reshape(-1).expand(B)
+    if cache_start is None:
+        cache_start = torch.zeros((B,), dtype=torch.int32, device=dev)
+    cache_start = torch.as_tensor(cache_start, device=dev).to(torch.int32).reshape(-1).expand(B)
+    if _use_kernel(q):
+        return _da.decode_attention_cuda(q.contiguous(), k_cache, v_cache,
+                                         cache_len.contiguous(), cache_start.contiguous())
+    return _da.decode_attention_plain(q, k_cache, v_cache, cache_len, cache_start)

@@ -1,0 +1,71 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on CUDA unless the caller names the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_import_leaves_jax_and_repro_out():
+    code = ("import sys, repro_torch, repro_torch.core.engine, repro_torch.convert, "
+            "repro_torch.launch.steps, repro_torch.kernels.ops; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+
+
+def test_entry_points_need_cuda_unless_cpu_is_named(monkeypatch):
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.engine import PEFTEngine
+    from repro_torch.models.transformer import Model
+    from repro_torch.peft.methods import AdapterConfig
+    from repro_torch.peft.multitask import MultiTaskAdapters
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = smoke_config("llama3.2-3b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MultiTaskAdapters(cfg, [AdapterConfig("lora")])
+    model = Model(cfg, device="cpu")
+    mta = MultiTaskAdapters(cfg, [AdapterConfig("lora")], device="cpu")
+    g = torch.Generator().manual_seed(0)
+    backbone, adapters = model.init(g), mta.init(g)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PEFTEngine(model, backbone, mta, adapters)
+    eng = PEFTEngine(model, backbone, mta, adapters, device="cpu")
+    assert eng.ensure_decode_pool(2, 8, 2)["cur"].device.type == "cpu"
+
+
+def test_registry_lists_only_ported_configs():
+    from repro_torch.configs import ARCH_NAMES, get_config
+
+    assert ARCH_NAMES == ("llama3.2-3b",)
+    assert get_config("llama3.2-3b").num_layers == 28
+    with pytest.raises(KeyError, match="not ported"):
+        get_config("zamba2-2.7b")
