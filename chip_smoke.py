@@ -1,26 +1,40 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's multi-tenant LoRA co-serving decode path on one
-NVIDIA GPU and check it.
+"""Run the PyTorch port's two main paths on one NVIDIA GPU and check them:
+multi-tenant LoRA co-serving decode, and multi-task LoRA/Adapter/IA3
+fine-tuning.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
-Phases, one JSON line each:
+Phases, one JSON line each (several for the kernel phases):
 
-1. device   -- nvidia-smi name and power limit, torch and CUDA versions;
-2. build    -- nvcc builds every kernel under src/repro_torch/csrc;
-3. kernels  -- each kernel against its plain PyTorch version on the card at
-               the serving path's full-width bf16 shapes, with times (CUDA
-               events, median of 25 runs, L2 flushed before each);
-4. serve    -- llama3.2-3b at full width and depth, random weights from a
-               seed, four LoRA tenants on one stacked adapter set; eight
-               greedy requests bound by one batched prefill and generated to
-               completion through PEFTEngine, with the kernels' launch counts
-               checked; then a teacher-forced rerun on the kernels and on the
-               plain versions, logits compared at every step.
+1. device        -- nvidia-smi name and power limit, torch and CUDA versions;
+2. build         -- nvcc builds every kernel under src/repro_torch/csrc;
+3. kernels       -- each forward kernel against its plain PyTorch version at
+                    the serving path's full-width bf16 shapes, with times
+                    (CUDA events, median of 25 runs, L2 flushed before each);
+4. train_kernels -- at the training path's shapes (llama3.2-3b, one fused
+                    micro-batch of 11 rows x 256 from the planner): the
+                    forwards that save h / the logsumexp, the grouped LoRA
+                    backward and the packed attention dq and dk/dv kernels,
+                    each against autograd of the plain version, with times;
+5. serve         -- llama3.2-3b at full width and depth, random weights from
+                    a seed, four LoRA tenants on one stacked adapter set;
+                    eight greedy requests bound by one batched prefill and
+                    generated to completion through PEFTEngine, with the
+                    kernels' launch counts checked and a profile of three
+                    micro steps; then serve_check, a teacher-forced rerun on
+                    the kernels and on the plain versions, logits compared;
+6. train         -- llama3.2-3b at full width and depth, seed-0 backbone,
+                    tenants sst2:lora:8, qa:lora:16, rte:adapter:8, sst2:ia3
+                    planned into one hTask; one warm-up and six timed
+                    PEFTEngine.run_iteration calls, launch counts checked
+                    against the plan, one iteration profiled;
+7. train_check   -- one step's per-task losses and adapter gradients from one
+                    state, on the kernels and on the plain versions.
 
-Then a {"kernels": [...]} line, the raw nvidia-smi line, and last
-{"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
-and prints no ok line.  Without a CUDA device it exits 1 at once.
+Then a {"kernels": [...]} line and last {"ok": true, "device": {...}}.  Any
+failure raises: the script exits non-zero and prints no ok line.  Without a
+CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
@@ -38,6 +52,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_gate", "mlp_up", "mlp_down")
+TRAIN_TASKS = "sst2:lora:8,qa:lora:16,rte:adapter:8,sst2:ia3"
+TRAIN_MICRO_BATCH = 8
+TRAIN_LR = 2e-3
+TRAIN_ITERS = 6
 # bf16 keeps 8 significant bits: a kernel and its plain version that sum in
 # f32 in different orders may round one output a unit in the last place
 # apart, i.e. up to 2**-8 of its magnitude.  Two such units at the largest
@@ -49,6 +67,28 @@ KERNEL_TOL = 2 * 2.0 ** -8
 # place compound.  5% of the largest logit stays far below what a routing,
 # masking or cache fault gives (an error of the order of the logits).
 LOGIT_TOL = 0.05
+# Kernel gradients against autograd of the plain versions, per output: two
+# bf16 units as above, doubled for packed attention, whose backward reads
+# D = rowsum(do * o) from the forward's bf16 o (as the Pallas kernel does)
+# where autograd differentiates the plain version's f32 o: a relative 2**-9
+# error in D enters every ds.
+GRAD_TOL = {"grouped_lora_bwd": KERNEL_TOL, "packed_attention_dq": 2 * KERNEL_TOL,
+            "packed_attention_dkv": 2 * KERNEL_TOL}
+# f32 outputs (h, lse): sums in another order, a few f32 units of the largest
+# magnitude.
+F32_TOL = 1e-5
+# One training step through 28 bf16 layers, kernels against plain versions.
+# The per-task losses are means over ~500 tokens of log-softmax values
+# whose logits differ by bf16 roundings compounded over the layers (as
+# LOGIT_TOL): 1% of the loss.  An adapter leaf's gradient carries those
+# roundings forward and then back through the layers, in each of the two
+# bf16 paths, so their difference may reach the sum of two such spreads:
+# 10% of the leaf's largest |g|.  A third run, the plain versions on f32
+# weights, is the reference both bf16 paths are measured against: the
+# kernel path's worst leaf must stay within twice the plain path's.  A
+# routing, masking or slot fault gives errors of the order of the value.
+LOSS_TOL = 0.01
+GRAD_PATH_TOL = 0.10
 
 
 def emit(obj) -> None:
@@ -85,10 +125,10 @@ class Timer:
         return statistics.median(times)
 
 
-def compare(out, ref, what: str):
+def compare(out, ref, what: str, rel_tol: float = KERNEL_TOL):
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    tol = KERNEL_TOL * scale
+    tol = rel_tol * scale
     ok = err <= tol
     if not ok:
         raise AssertionError(f"{what}: max abs err {err} > tol {tol}")
@@ -101,18 +141,19 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def profile_micro_steps(torch, engine, slots, scales, n: int = 3):
-    """Device time by kernel over ``n`` fused micro steps of the finished
-    pool (idle rows compute the same work as live ones), and the device's
-    busy share of the wall time."""
+def profile_device(torch, fn, n: int, groups):
+    """Device time by kernel over ``n`` calls of ``fn``, the device's busy
+    share of the wall time, and launches per call.  ``groups`` maps a group
+    name to substrings of kernel names; the rest is "matmul" (cuBLAS) or
+    "other"."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                                  acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            engine.dispatch_decode_micro(slots, scales)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     kernels = {}
@@ -121,24 +162,21 @@ def profile_micro_steps(torch, engine, slots, scales, n: int = 3):
             continue
         us = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
         kernels[e.key] = (us / 1e3 / n, e.count / n)
-    groups = {"grouped_lora": 0.0, "decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    by_group = {g: 0.0 for g in list(groups) + ["matmul", "other"]}
     for name, (ms, _) in kernels.items():
-        if "grouped_lora" in name:
-            groups["grouped_lora"] += ms
-        elif "decode_stage" in name:
-            groups["decode_attention"] += ms
-        elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
-    device_ms = sum(groups.values())
+        g = next((g for g, keys in groups.items() if any(k in name for k in keys)), None)
+        if g is None:
+            g = "matmul" if any(w in name.lower() for w in
+                                ("gemm", "gemv", "cutlass", "xmma", "nvjet")) else "other"
+        by_group[g] += ms
+    device_ms = sum(by_group.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    return {"steps": n, "wall_ms_per_step": wall_ms,
-            "device_ms_per_step": device_ms if kernels else None,
+    return {"calls": n, "wall_ms_per_call": wall_ms,
+            "device_ms_per_call": device_ms if kernels else None,
             "device_busy_share": device_ms / wall_ms if kernels else None,
-            "kernel_launches_per_step": sum(c for _, c in kernels.values()),
-            "device_ms_by_group": groups,
-            "top_kernels": [{"name": k[:80], "ms_per_step": v[0], "calls_per_step": v[1]}
+            "kernel_launches_per_call": sum(c for _, c in kernels.values()),
+            "device_ms_by_group": by_group,
+            "top_kernels": [{"name": k[:80], "ms_per_call": v[0], "calls_per_call": v[1]}
                             for k, v in top]}
 
 
@@ -286,24 +324,31 @@ def serve_phase(torch):
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core.engine import PEFTEngine
+    from repro_torch.core import (
+        ExecutionPlanner,
+        ModelGenerator,
+        ParallelismSpec,
+        PEFTEngine,
+        PEFTTask,
+    )
     from repro_torch.kernels import ops
-    from repro_torch.models.transformer import Model
     from repro_torch.peft.methods import AdapterConfig
-    from repro_torch.peft.multitask import MultiTaskAdapters
 
     cfg = get_config("llama3.2-3b")
     L = cfg.num_layers
-    g = torch.Generator(device="cuda").manual_seed(0)
-    model = Model(cfg)
-    backbone = model.init(g)
     tenants = [AdapterConfig("lora", rank=rk, alpha=al, targets=SITES)
                for rk, al in ((8, 16.0), (16, 16.0), (32, 64.0), (64, 32.0))]
-    mta = MultiTaskAdapters(cfg, tenants)
-    adapters = mta.init(g)
+    tasks = [PEFTTask(f"tenant{i}", tc, (512,), 1) for i, tc in enumerate(tenants)]
+    gen = ModelGenerator(cfg, seed=0)
+    backbone = gen.init_backbone()
+    reg = gen.register_tasks(tasks)
+    mta, adapters = reg.mta, reg.adapter_params
     for site in adapters["lora"].values():  # LoRA's B starts at 0: fill it
-        site["b"].copy_(torch.randn(site["b"].shape, generator=g, device="cuda") * 0.02)
-    engine = PEFTEngine(model, backbone, mta, adapters)
+        site["b"].copy_(torch.randn(site["b"].shape, generator=gen.generator,
+                                    device="cuda") * 0.02)
+    plan = ExecutionPlanner(cfg, ParallelismSpec()).plan(tasks)
+    engine = PEFTEngine(gen, plan)
+    model = engine.model
     rows, max_len, cap, Lp = 8, 1024, 64, 512
     engine.ensure_decode_pool(rows, max_len, cap)
 
@@ -339,8 +384,9 @@ def serve_phase(torch):
     if list(acct["n_out"]) != list(max_new):
         raise AssertionError(f"requests did not complete: n_out {acct['n_out']} "
                              f"max_new {max_new}")
-    want = {"grouped_lora": len(SITES) * L * (1 + n_micro), "packed_attention": L,
-            "decode_attention": L * n_micro}
+    want = dict.fromkeys(counts, 0)
+    want.update({"grouped_lora": len(SITES) * L * (1 + n_micro), "packed_attention": L,
+                 "decode_attention": L * n_micro})
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the path implies {want}")
     gen = [engine.decode_outputs(i)[:max_new[i]] for i in range(rows)]
@@ -356,8 +402,13 @@ def serve_phase(torch):
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     torch.cuda.synchronize()
 
-    prof = profile_micro_steps(torch, engine, slots, scales)
-    emit({"phase": "profile", **prof})
+    with torch.no_grad():
+        prof = profile_device(torch, lambda: engine.dispatch_decode_micro(slots, scales), 3,
+                              {"grouped_lora": ("grouped_lora",),
+                               "decode_attention": ("decode_stage",)})
+    emit({"phase": "profile", "path": "serve micro step", **prof,
+          "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
+              statistics.median(step_s) * 1e3) if prof["device_ms_per_call"] else None})
 
     # ---- teacher-forced rerun: kernels vs plain versions, every step ----
     # A third run, the plain versions on float32 weights and caches, is the
@@ -428,6 +479,337 @@ def serve_phase(torch):
     return counts
 
 
+def train_plan():
+    """The training path's configuration, tenants and plan (host-side)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecutionPlanner, ParallelismSpec
+    from repro_torch.launch.train import parse_tasks
+
+    cfg = get_config("llama3.2-3b")
+    tasks = parse_tasks(TRAIN_TASKS, TRAIN_MICRO_BATCH)
+    plan = ExecutionPlanner(cfg, ParallelismSpec(num_stages=1)).plan(tasks, n_micro=1)
+    return cfg, tasks, plan
+
+
+def _autograd_ms(torch, timer, out, inputs, grad):
+    """Time of the backward of an autograd graph built once."""
+    return timer(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True))
+
+
+def train_kernel_phase(torch, timer, cfg, tasks, plan):
+    """Each training kernel against autograd of its plain version at the
+    training path's shapes: the first hTask of the plan (rows x row_len
+    tokens), the LoRA stack of its tenants, llama3.2-3b's attention."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import grouped_lora as gl
+    from repro_torch.kernels import packed_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    bf16, dev = torch.bfloat16, "cuda"
+    h0 = plan.htasks[0]
+    B, S = h0.rows, h0.row_len
+    M = B * S
+    results = {}
+
+    # ---- grouped LoRA: the LoRA tenants' rows, stack rank, capacity ----
+    lora = [i for i, t in enumerate(tasks) if t.adapter.kind == "lora"]
+    T, r = 2, max(tasks[i].adapter.rank for i in lora)  # capacity 1 -> 2 for two tenants
+    slot = {t: s for s, t in enumerate(lora)}
+    row_task = [slot.get(t, -1) for t in plan.segments_for(0).row_task]
+    rt = torch.tensor(row_task, dtype=torch.int32, device=dev).repeat_interleave(S)
+    scale = torch.tensor([tasks[i].adapter.scale for i in lora], dtype=torch.float32,
+                         device=dev)
+    active = int((rt >= 0).sum().item())
+    per_shape = {}
+    for d_in, d_out in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)):
+        x = torch.randn((M, d_in), generator=g, device=dev).to(bf16)
+        gy = torch.randn((M, d_out), generator=g, device=dev).to(bf16)
+        a = (torch.randn((T, d_in, r), generator=g, device=dev) * 0.02).to(bf16)
+        b = (torch.randn((T, r, d_out), generator=g, device=dev) * 0.02).to(bf16)
+        y, h = gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True)
+        xr, ar, br = (t.clone().requires_grad_(True) for t in (x, a, b))
+        y_ref = gl.grouped_lora_plain(xr, ar, br, rt, scale)
+        h_ref = torch.zeros((M, r), device=dev)
+        for t in range(T):
+            h_ref = torch.where((rt == t)[:, None], x.float() @ a[t].float(), h_ref)
+        dx, da, db = gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)
+        refs = torch.autograd.grad(y_ref, (xr, ar, br), gy, retain_graph=True)
+        torch.cuda.synchronize()
+        if y[rt < 0].abs().max().item() != 0.0 or dx[rt < 0].abs().max().item() != 0.0:
+            raise AssertionError("grouped_lora: a row_task = -1 row is not exactly 0")
+        where = f"grouped_lora train M={M} {d_in}x{d_out}"
+        err_f = max(compare(y, y_ref, where)[0],
+                    compare(h, h_ref, where + " h", F32_TOL)[0])
+        err_b = max(compare(o, ref, f"{where} {n}", GRAD_TOL["grouped_lora_bwd"])[0]
+                    for n, o, ref in zip(("dx", "dA", "dB"), (dx, da, db), refs))
+        ms_f = timer(lambda: gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True))
+        plain_f = timer(lambda: gl.grouped_lora_plain(x, a, b, rt, scale))
+        ms_b = timer(lambda: gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy))
+        plain_b = _autograd_ms(torch, timer, y_ref, (xr, ar, br), gy)
+        ab = 2 * T * r * (d_in + d_out)
+        work = {"fwd": (2 * (M * d_in + M * d_out) + ab + 4 * (M * r + M + T),
+                        2.0 * active * r * (d_in + d_out)),
+                "bwd": (2 * (2 * M * d_in + M * d_out) + 2 * ab + 4 * (M * r + M + T),
+                        4.0 * active * r * (d_in + d_out))}
+        bf, byf = bound_ms(*work["fwd"])
+        bb, byb = bound_ms(*work["bwd"])
+        per_shape[(d_in, d_out)] = {"fwd": (ms_f, plain_f, err_f) + work["fwd"],
+                                    "bwd": (ms_b, plain_b, err_b) + work["bwd"]}
+        emit({"phase": "train_kernels", "kernel": "grouped_lora", "M": M, "rows_with_lora":
+              active, "d_in": d_in, "d_out": d_out, "T": T, "r": r,
+              "fwd_save_h": {"ms": ms_f, "plain_ms": plain_f, "bound_ms": bf, "bound_by": byf,
+                             "max_abs_err": err_f},
+              "bwd": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bb, "bound_by": byb,
+                      "max_abs_err": err_b, "tol_rel": GRAD_TOL["grouped_lora_bwd"]}})
+    # a capacity slot no row routes to gets exact zeros
+    a3 = (torch.randn((3, 3072, r), generator=g, device=dev) * 0.02).to(bf16)
+    b3 = (torch.randn((3, r, 1024), generator=g, device=dev) * 0.02).to(bf16)
+    x3 = torch.randn((M, 3072), generator=g, device=dev).to(bf16)
+    g3 = torch.randn((M, 1024), generator=g, device=dev).to(bf16)
+    s3 = torch.cat([scale, torch.ones(1, device=dev)])
+    _, h3 = gl.grouped_lora_cuda(x3, a3, b3, rt, s3, save_h=True)
+    _, da3, db3 = gl.grouped_lora_bwd_cuda(x3, a3, b3, rt, s3, h3, g3)
+    if da3[2].abs().max().item() != 0.0 or db3[2].abs().max().item() != 0.0:
+        raise AssertionError("grouped_lora backward: an unused slot's gradient is not 0")
+    # the four LoRA sites of one layer (attn q, k, v, o)
+    layer = [(3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072)]
+    for key, name in (("fwd", "grouped_lora_train"), ("bwd", "grouped_lora_bwd")):
+        ms, plain, nbytes, flops = (sum(per_shape[sh][key][i] for sh in layer)
+                                    for i in (0, 1, 3, 4))
+        bms, by = bound_ms(nbytes, flops)
+        results[name] = {
+            "shape": f"M={M}, T={T}, r={r}: the four LoRA sites of one layer of one "
+                     f"training micro step (sum)",
+            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "max_abs_err": max(v[key][2] for v in per_shape.values())}
+
+    # ---- packed attention on the plan's loader layout ----
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    arr = plan.alignment[0].arrays()
+    pos = torch.as_tensor(arr["positions"], device=dev)
+    seg = torch.as_tensor(arr["segment_ids"], device=dev)
+    ints = (pos, seg, pos, seg)
+    q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+    k = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(bf16)
+    v = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(bf16)
+    do = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+    path_tiles = pa.tile_sizes(S, S, cfg.attn_q_block)
+    # the model's tiles, and the ops default (128), where the tile rule cuts
+    for case, (bq, bk) in (("path", path_tiles), ("tile128", pa.tile_sizes(S, S))):
+        o, lse = pa.packed_attention_cuda(q, k, v, *ints, True, bq, bk, save_lse=True)
+        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o_ref = pa.packed_attention_plain(qr, kr, vr, *ints, True, bq, bk)
+        mask = pa.visible_mask(*ints, True, bq, bk)
+        sc = torch.einsum("bqkgd,bpkd->bqkgp", q.float().reshape(B, S, Hkv, H // Hkv, dh),
+                          k.float()) / dh ** 0.5
+        sc = sc.masked_fill(~mask[:, :, None, None, :], float("-inf"))
+        lse_ref = torch.logsumexp(sc, dim=-1).reshape(B, S, H).permute(0, 2, 1)
+        dq = pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
+        dk, dv = pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
+        dq_ref, dk_ref, dv_ref = torch.autograd.grad(o_ref, (qr, kr, vr), do, retain_graph=True)
+        torch.cuda.synchronize()
+        where = f"packed_attention train {case} (bq={bq}, bk={bk})"
+        err_f = max(compare(o, o_ref, where)[0],
+                    compare(lse, lse_ref, where + " lse", F32_TOL)[0])
+        err_dq = compare(dq, dq_ref, where + " dq", GRAD_TOL["packed_attention_dq"])[0]
+        err_dkv = max(compare(dk, dk_ref, where + " dk", GRAD_TOL["packed_attention_dkv"])[0],
+                      compare(dv, dv_ref, where + " dv", GRAD_TOL["packed_attention_dkv"])[0])
+        line = {"phase": "train_kernels", "kernel": "packed_attention", "case": case,
+                "B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh, "bq": bq, "bk": bk,
+                "fwd_lse_max_abs_err": err_f, "dq_max_abs_err": err_dq,
+                "dkv_max_abs_err": err_dkv}
+        if case == "path":
+            pairs = int(mask.sum().item()) * H  # visible (query, key, head) triples
+            qo = 2 * B * S * H * dh
+            kv = 2 * B * S * Hkv * dh
+            ib = 4 * 4 * B * S + 4 * B * H * S
+            ms_f = timer(lambda: pa.packed_attention_cuda(q, k, v, *ints, True, bq, bk,
+                                                          save_lse=True))
+            plain_f = timer(lambda: pa.packed_attention_plain(q, k, v, *ints, True, bq, bk))
+            ms_dq = timer(lambda: pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do,
+                                                              True, bq, bk))
+            plain_dq = _autograd_ms(torch, timer, o_ref, (qr,), do)
+            ms_dkv = timer(lambda: pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do,
+                                                                True, bq, bk))
+            plain_dkv = _autograd_ms(torch, timer, o_ref, (kr, vr), do)
+            qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+            dot = do.transpose(1, 2).contiguous()
+            lib_f = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                 enable_gqa=True))
+            o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+            lib_dq = _autograd_ms(torch, timer, o_lib, (qt,), dot)
+            lib_dkv = _autograd_ms(torch, timer, o_lib, (kt, vt), dot)
+            bounds = {"fwd": bound_ms(2 * qo + 2 * kv + ib, 4.0 * dh * pairs),
+                      "dq": bound_ms(4 * qo + 2 * kv + ib, 6.0 * dh * pairs),
+                      "dkv": bound_ms(3 * qo + 4 * kv + ib, 8.0 * dh * pairs)}
+            shape = (f"B={B}, S={S}, H={H}, Hkv={Hkv}, dh={dh}, causal, loader layout, "
+                     f"{pairs} visible (query, key, head) triples")
+            for name, ms, plain, lib, key, err in (
+                    ("packed_attention_train", ms_f, plain_f, lib_f, "fwd", err_f),
+                    ("packed_attention_dq", ms_dq, plain_dq, lib_dq, "dq", err_dq),
+                    ("packed_attention_dkv", ms_dkv, plain_dkv, lib_dkv, "dkv", err_dkv)):
+                results[name] = {"shape": shape, "ms": ms, "plain_ms": plain,
+                                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                                 "library_ms": lib, "max_abs_err": err}
+                line[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bounds[key][0],
+                             "bound_by": bounds[key][1], "library_ms": lib}
+        emit(line)
+    return results
+
+
+def train_phase(torch, cfg, tasks, plan):
+    """The training path: PEFTEngine.run_iteration on llama3.2-3b."""
+    import numpy as np
+
+    from repro_torch.core import ModelGenerator, PEFTEngine
+    from repro_torch.data import HTaskLoader
+    from repro_torch.kernels import ops
+
+    L = cfg.num_layers
+    gen = ModelGenerator(cfg, seed=0)
+    gen.init_backbone()
+    reg = gen.register_tasks(tasks)
+    engine = PEFTEngine(gen, plan, lr=TRAIN_LR)
+    loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size)
+               for i in range(len(plan.htasks))}
+    summary = plan.summary()
+    emit({"phase": "train_plan", **summary,
+          "htasks": [{"task_ids": list(h.task_ids), "rows": h.rows, "row_len": h.row_len,
+                      "tokens": h.tokens, "effective_tokens": h.effective_tokens}
+                     for h in plan.htasks],
+          "kind_capacity": reg.mta.kind_capacity, "kind_rank": reg.mta.kind_rank})
+    warm = engine.run_iteration(loaders)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    iters = []
+    for i in range(TRAIN_ITERS):
+        m = engine.run_iteration(loaders)
+        tp = engine.throughput(m)
+        if not (np.isfinite(m.loss) and np.all(np.isfinite(m.per_task_loss))):
+            raise AssertionError(f"iteration {i}: non-finite loss {m.per_task_loss}")
+        iters.append((m, tp))
+        emit({"phase": "train_iteration", "iteration": i, "loss": m.loss,
+              "per_task_loss": m.per_task_loss.tolist(), "seconds": m.wall_seconds,
+              "tokens_per_s": tp["tokens_per_s"],
+              "effective_tokens_per_s": tp["effective_tokens_per_s"]})
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    steps_per_iter = len(engine._schedule(None))
+    sites = len(reg.mta.kind_sites("lora"))
+    n = TRAIN_ITERS * steps_per_iter
+    want = dict.fromkeys(counts, 0)
+    want.update({"grouped_lora": n * sites * L, "grouped_lora_bwd": n * sites * L,
+                 "packed_attention": n * L, "packed_attention_dq": n * L,
+                 "packed_attention_dkv": n * L})
+    if counts != want:
+        raise AssertionError(f"kernel launches {counts}, the plan implies {want}")
+    secs = [m.wall_seconds for m, _ in iters]
+    emit({"phase": "train", "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+          "tasks": TRAIN_TASKS, "micro_batch": TRAIN_MICRO_BATCH, "lr": TRAIN_LR,
+          "warmup_seconds": warm.wall_seconds, "iterations": TRAIN_ITERS,
+          "micro_steps_per_iteration": steps_per_iter, "launches": counts,
+          "seconds_per_iteration_median": statistics.median(secs),
+          "tokens_per_s_median": statistics.median(tp["tokens_per_s"] for _, tp in iters),
+          "effective_tokens_per_s_median": statistics.median(
+              tp["effective_tokens_per_s"] for _, tp in iters),
+          "first_per_task_loss": iters[0][0].per_task_loss.tolist(),
+          "last_per_task_loss": iters[-1][0].per_task_loss.tolist(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    prof = profile_device(torch, lambda: engine.run_iteration(loaders), 1,
+                          {"grouped_lora": ("grouped_lora",),
+                           "packed_attention": ("packed_attention",)})
+    # the profiler slows the host: the device's busy share of an unprofiled
+    # iteration is its device time over the timed iterations' median
+    emit({"phase": "profile", "path": "train iteration", **prof,
+          "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
+              statistics.median(secs) * 1e3) if prof["device_ms_per_call"] else None})
+    return counts, engine
+
+
+def _seeded_stream(seed: int, vocab: int):
+    """Tokens from a numpy seed.  The synthetic corpora seed from Python's
+    per-process salted ``hash``, so their batches differ from run to run;
+    train_check's tolerances are held on one batch that every run sees."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    while True:
+        yield int(rng.randint(1, vocab))
+
+
+def train_check(torch, engine):
+    """One step's per-task losses and adapter gradients from one state, on
+    the kernels, under ops.force_plain(), and under ops.force_plain() on
+    f32 copies of the weights (the reference).  LoRA B, Adapter up and IA3 s
+    start at zero, which would leave dA and the adapters' down gradients
+    exactly zero: they are filled from a seed first."""
+    from repro_torch.data import HTaskLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import device_put_batch
+    from repro_torch.train.optimizer import tree_leaves
+
+    dev = engine.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    params = {kind: {site: {leaf: (torch.randn(t.shape, generator=g, device=dev)
+                                   * 0.02).to(t.dtype) if leaf in ("b", "up", "s") else t
+                            for leaf, t in leaves.items()}
+                     for site, leaves in sites.items()}
+              for kind, sites in engine.reg.adapter_params.items()}
+    plan, vocab = engine.plan, engine.model.cfg.vocab_size
+    loader = HTaskLoader(plan.tasks, plan.alignment[0], vocab,
+                         streams={i: _seeded_stream(100 + i, vocab)
+                                  for i in range(len(plan.tasks))})
+    batch = device_put_batch(next(loader), dev)
+    fn = engine._loss_and_grads_fn(0)
+    runs = {"kernel": (params, engine.backbone, contextlib.nullcontext),
+            "plain": (params, engine.backbone, ops.force_plain),
+            "f32": (tree_map(lambda t: t.float(), params),
+                    tree_map(lambda t: t.float(), engine.backbone), ops.force_plain)}
+    pt, grads = {}, {}
+    for mode, (ad, bb, ctx) in runs.items():
+        with ctx():
+            _, pt[mode], gr = fn(ad, bb, batch)
+        grads[mode] = tree_leaves(gr)
+    torch.cuda.synchronize()
+    loss_err = ((pt["kernel"] - pt["plain"]).abs() / pt["plain"].abs()).max().item()
+    if not loss_err <= LOSS_TOL:
+        raise AssertionError(f"train_check: per-task losses {pt['kernel'].tolist()} vs plain "
+                             f"{pt['plain'].tolist()}: relative {loss_err} > {LOSS_TOL}")
+    names = [".".join(path) for path in _leaf_paths(params)]
+    worst = {"kernel_vs_plain": (0.0, ""), "kernel_vs_f32": (0.0, ""),
+             "plain_vs_f32": (0.0, "")}
+    for i, name in enumerate(names):
+        k, p, r = (grads[m][i].float() for m in ("kernel", "plain", "f32"))
+        scale = r.abs().max().item()
+        if scale == 0.0:
+            raise AssertionError(f"train_check: {name} has an all-zero gradient")
+        for key, (a, b) in (("kernel_vs_plain", (k, p)), ("kernel_vs_f32", (k, r)),
+                            ("plain_vs_f32", (p, r))):
+            err = (a - b).abs().max().item() / scale
+            if err > worst[key][0]:
+                worst[key] = (err, name)
+    if not worst["kernel_vs_plain"][0] <= GRAD_PATH_TOL:
+        raise AssertionError(f"train_check: {worst['kernel_vs_plain'][1]} kernel vs plain "
+                             f"off by {worst['kernel_vs_plain'][0]} of its max > {GRAD_PATH_TOL}")
+    if not worst["kernel_vs_f32"][0] <= 2 * worst["plain_vs_f32"][0]:
+        raise AssertionError(f"train_check: the kernel path is further from the f32 "
+                             f"reference ({worst['kernel_vs_f32']}) than twice the plain "
+                             f"path ({worst['plain_vs_f32']})")
+    emit({"phase": "train_check", "per_task_loss_kernel": pt["kernel"].tolist(),
+          "per_task_loss_plain": pt["plain"].tolist(), "per_task_loss_f32": pt["f32"].tolist(),
+          "loss_max_rel_err": loss_err, "loss_tol_rel": LOSS_TOL, "grad_leaves": len(names),
+          "grad_err_rel_to_leaf_max": {k: {"max": v[0], "leaf": v[1]} for k, v in worst.items()},
+          "grad_tol": GRAD_PATH_TOL})
+
+
+def _leaf_paths(tree, prefix=()):
+    """Paths of a nested dict's leaves, in ``tree_leaves`` order."""
+    return [p for k, v in tree.items()
+            for p in (_leaf_paths(v, prefix + (k,)) if isinstance(v, dict) else [prefix + (k,)])]
+
+
 def main() -> int:
     import torch
 
@@ -454,21 +836,31 @@ def main() -> int:
     timer = Timer(torch)
     with torch.no_grad():
         kern = kernel_phase(torch, timer)
+    cfg, tasks, plan = train_plan()
+    kern.update(train_kernel_phase(torch, timer, cfg, tasks, plan))
     torch.cuda.synchronize()
 
-    counts = serve_phase(torch)
+    # the two main paths, each with the launch counts set to 0 just before
+    counts = {"serve": serve_phase(torch)}
+    counts["train"], engine = train_phase(torch, cfg, tasks, plan)
+    train_check(torch, engine)
 
-    sources = {"grouped_lora": ("src/repro_torch/csrc/grouped_lora.cu",
-                                "src/repro/kernels/grouped_lora.py:49"),
-               "packed_attention": ("src/repro_torch/csrc/packed_attention.cu",
-                                    "src/repro/kernels/packed_attention.py:60"),
-               "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:40")}
+    csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"
+    kernels = [
+        ("grouped_lora", "grouped_lora.cu", "grouped_lora.py:49", "grouped_lora_train"),
+        ("grouped_lora_bwd", "grouped_lora.cu", "grouped_lora.py:91", None),
+        ("packed_attention", "packed_attention.cu", "packed_attention.py:60",
+         "packed_attention_train"),
+        ("packed_attention_dq", "packed_attention.cu", "packed_attention.py:128", None),
+        ("packed_attention_dkv", "packed_attention.cu", "packed_attention.py:185", None),
+        ("decode_attention", "decode_attention.cu", "decode_attention.py:40", None),
+    ]
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[name], **kern[name]}
-        for name, (src, rep) in sources.items()]})
-    print(smi, flush=True)
+        {"name": name, "route": "cuda", "source": csrc + src, "replaces": jax_k + rep,
+         "launches": sum(c[name] for c in counts.values()),
+         "launches_by_path": {path: c[name] for path, c in counts.items()},
+         **kern[name], **({"train_variant": kern[variant]} if variant else {})}
+        for name, src, rep, variant in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

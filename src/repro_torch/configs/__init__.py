@@ -13,8 +13,9 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     """A backbone architecture: the fields of the JAX package's
-    ``ArchConfig`` that the dense family reads (the MoE, SSM, audio and
-    TPU execution fields come with the families and tiers that use them)."""
+    ``ArchConfig`` that the dense family and the planner read (the MoE, SSM,
+    audio and TPU execution fields come with the families and tiers that use
+    them)."""
 
     name: str
     family: str
@@ -28,6 +29,12 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    # the cost model's activation-memory assumption (Eq. 5): True counts one
+    # activation copy per layer, as with rematerialisation
+    remat: bool = True
+    # query block of packed attention: its tile-visibility rule uses
+    # gcd(S, min(attn_q_block, S)) as the JAX package's model does
+    attn_q_block: int = 512
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
@@ -43,10 +50,19 @@ class ArchConfig:
     def with_overrides(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
+    def param_count(self) -> int:
+        """Backbone parameter count of the dense family (gated MLP)."""
+        d = self.d_model
+        n_attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
+        per_layer = n_attn + 3 * d * self.d_ff + 2 * d
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return self.num_layers * per_layer + embed + d  # final norm
+
 
 # Only the configurations of the families the port runs (dense).
 _REGISTRY = {
     "llama3.2-3b": "llama3_2_3b",
+    "smollm-360m": "smollm_360m",
 }
 
 ARCH_NAMES = tuple(_REGISTRY)
@@ -73,4 +89,6 @@ def smoke_config(name: str) -> ArchConfig:
         head_dim=16,
         d_ff=128,
         vocab_size=256,
+        attn_q_block=32,
+        remat=False,
     )

@@ -7,7 +7,9 @@ package lays them out, and return the same layout as torch tensors:
   (``embed.tok``, ``final_norm.w``, ``layers.{ln1,ln2}.w``,
   ``layers.attn.w_{q,k,v,o}``, ``layers.mlp.w_{gate,up,down}``);
 * ``adapters_from_numpy``: the ``MultiTaskAdapters`` tree
-  ``{kind: {site: {leaf: [L, T, ...]}}}``.
+  ``{kind: {site: {leaf: [L, capacity, ...]}}}`` of any ported kind (LoRA,
+  Adapter, IA3), with stacks whose capacity exceeds the live task count as
+  ``ModelGenerator`` sizes them.
 
 Every leaf the port's spec declares must be present with its shape, and
 every leaf given must be used: anything else raises.  ``torch.from_numpy``

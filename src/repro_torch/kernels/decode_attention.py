@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-launch_count = 0  # launches of the CUDA kernel (plain calls are not counted)
+launch_counts = {"decode_attention": 0}  # CUDA launches (plain calls are not counted)
 
 SPLIT = 128  # cache rows per stage-1 block
 
@@ -70,7 +70,6 @@ def _check(q, k_cache, v_cache, cache_len, cache_start):
 def decode_attention_cuda(q, k_cache, v_cache, cache_len, cache_start) -> torch.Tensor:
     """The CUDA kernel on the same arguments as :func:`decode_attention_plain`
     (bf16 q/caches, int32 [B] window bounds, all contiguous on one card)."""
-    global launch_count
     _check(q, k_cache, v_cache, cache_len, cache_start)
     B, _, H, dh = q.shape
     Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -87,5 +86,5 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_len, cache_start) -> torch.
              out.data_ptr(), B, Smax, H, Hkv, dh, SPLIT,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check("decode_attention", err)
-    launch_count += 1
+    launch_counts["decode_attention"] += 1
     return out

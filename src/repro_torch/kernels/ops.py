@@ -1,17 +1,21 @@
 """Dispatch of the hot-path ops by the tensor's device (port of
 ``repro.kernels.ops``).
 
-A tensor on the CPU goes to the op's plain PyTorch version.  A tensor on a
-CUDA device goes to the hand-written kernel: a failed build or launch
-raises, nothing falls back.  :func:`force_plain` runs the plain versions on
-the card as well; it exists only for the comparison of each kernel with its
-plain version, and nothing on the serving path uses it.
+A tensor on the CPU goes to the op's plain PyTorch version, which autograd
+differentiates.  A tensor on a CUDA device goes to the hand-written
+kernels: through the op's ``torch.autograd.Function`` (forward kernel
+saving what the backward kernels need) when a gradient is to be taken, to
+the forward-only kernel otherwise.  A failed build or launch raises,
+nothing falls back.  :func:`force_plain` runs the plain versions on the
+card as well; it exists only for the comparison of each kernel with its
+plain version, and nothing on the serving or training path uses it.
 
 The signatures follow the JAX package's ops: ``grouped_lora`` takes
 ``x [B, S, d_in]`` with one task per batch row, ``packed_attention`` builds
 the prefix key rows (``ops.py:181-214`` there, without the tile padding
-that existed for the TPU), ``decode_attention`` takes scalar or per-row
-window bounds.
+that existed for the TPU) and takes the Pallas wrapper's ``block_q`` /
+``block_k``, which set its tile-visibility rule, ``decode_attention`` takes
+scalar or per-row window bounds.
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import grouped_lora as _gl
 from repro_torch.kernels import packed_attention as _pa
 
-_KERNELS = {"grouped_lora": _gl, "packed_attention": _pa, "decode_attention": _da}
+_KERNELS = (_gl, _pa, _da)
 _force_plain = False
 
 
@@ -43,14 +47,19 @@ def _use_kernel(t: torch.Tensor) -> bool:
     return t.is_cuda and not _force_plain
 
 
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def launch_counts() -> Dict[str, int]:
-    """Launches of each CUDA kernel since the last reset."""
-    return {name: mod.launch_count for name, mod in _KERNELS.items()}
+    """Launches of each CUDA kernel wrapper since the last reset."""
+    return {name: n for mod in _KERNELS for name, n in mod.launch_counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launch_count = 0
+    for mod in _KERNELS:
+        for name in mod.launch_counts:
+            mod.launch_counts[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -66,7 +75,11 @@ def grouped_lora(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     x2 = x.reshape(B * S, d_in)
     rows = row_task.to(torch.int32).repeat_interleave(S)
     if _use_kernel(x):
-        y = _gl.grouped_lora_cuda(x2.contiguous(), a, b, rows, scale.float())
+        args = (x2.contiguous(), a.contiguous(), b.contiguous(), rows, scale.float())
+        if _needs_grad(x, a, b):
+            y = _gl.GroupedLoRAFunction.apply(*args)
+        else:
+            y = _gl.grouped_lora_cuda(*args)
     else:
         y = _gl.grouped_lora_plain(x2, a, b, rows, scale)
     return y.reshape(B, S, -1)
@@ -82,11 +95,13 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      positions: Optional[torch.Tensor] = None,
                      causal: bool = True, *,
                      prefix_kv: Optional[tuple] = None,
-                     prefix_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     prefix_keep: Optional[torch.Tensor] = None,
+                     block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """Segment-masked attention over q [B, S, H, dh] and k/v [B, S, Hkv, dh];
     optionally with learned prefix k/v rows ``prefix_kv = (pk, pv)``
     [B, P, Hkv, dh] that every query of a batch row sees when
-    ``prefix_keep`` [B, P] gates them on (default: all on)."""
+    ``prefix_keep`` [B, P] gates them on (default: all on).  ``block_q`` /
+    ``block_k`` give the tile rule's tiles (``packed_attention.tile_sizes``)."""
     B, S = q.shape[0], q.shape[1]
     dev = q.device
     if positions is None:
@@ -108,12 +123,15 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             [torch.full((B, P), -1, dtype=torch.int32, device=dev), positions], dim=1)
         k_segment_ids = torch.cat(
             [torch.where(keep > 0, -1, -2).to(torch.int32), segment_ids], dim=1)
+    bq, bk = _pa.tile_sizes(S, k.shape[1], block_q, block_k)
     if _use_kernel(q):
-        return _pa.packed_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
-                                         positions, segment_ids, k_positions,
-                                         k_segment_ids, causal)
+        args = (q.contiguous(), k.contiguous(), v.contiguous(), positions, segment_ids,
+                k_positions.contiguous(), k_segment_ids.contiguous(), causal, bq, bk)
+        if _needs_grad(q, k, v):
+            return _pa.PackedAttentionFunction.apply(*args)
+        return _pa.packed_attention_cuda(*args)
     return _pa.packed_attention_plain(q, k, v, positions, segment_ids, k_positions,
-                                      k_segment_ids, causal)
+                                      k_segment_ids, causal, bq, bk)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Task-aware decode pool: bind, generation micro-step and sampling (port of
-the decode half of ``repro.launch.steps``).
+"""Task-aware decode pool: bind, generation micro-step and sampling, and the
+training loop's host-to-device batch queue (port of ``repro.launch.steps``).
 
 The pool is a fixed-geometry fused decode batch: ``rows`` independent
 requests share one micro-step, each row bound to a tenant's adapter slot
@@ -16,8 +16,10 @@ seeds; ``temp <= 0`` rows are an exact argmax with no draw.
 """
 from __future__ import annotations
 
-from typing import Dict
+from collections import deque
+from typing import Dict, Iterable, Iterator
 
+import numpy as np
 import torch
 
 from repro_torch.models.transformer import Model
@@ -25,6 +27,39 @@ from repro_torch.peft.methods import get_method
 from repro_torch.peft.multitask import MultiTaskAdapters
 
 _SEED_MAX = 2 ** 62
+
+
+def device_put_batch(batch: Dict[str, np.ndarray], device: torch.device
+                     ) -> Dict[str, torch.Tensor]:
+    """Start the copy of one host batch to the device.  On a CUDA device
+    each array goes through pinned host memory with a non-blocking copy, so
+    the call returns with the transfer in flight on the current stream."""
+    if device.type != "cuda":
+        return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(device, non_blocking=True)
+            for k, v in batch.items()}
+
+
+def prefetch_to_device(it: Iterable[Dict[str, np.ndarray]], device: torch.device,
+                       size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+    """Wrap a host batch iterator with a ``size``-deep device queue: the
+    next batches' copies are in flight while the current step computes.
+    Yields batches in order; safe for finite or infinite iterators."""
+    it = iter(it)
+    buf: deque = deque()
+
+    def fill() -> None:
+        while len(buf) < size:
+            try:
+                buf.append(device_put_batch(next(it), device))
+            except StopIteration:
+                return
+
+    fill()
+    while buf:
+        out = buf.popleft()
+        fill()
+        yield out
 
 
 def decode_prefix_reserve(mta: MultiTaskAdapters) -> int:

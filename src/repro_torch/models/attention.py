@@ -48,7 +48,8 @@ def attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, cfg, positions)
-    out = kops.packed_attention(q, k, v, segment_ids=segment_ids, positions=positions)
+    out = kops.packed_attention(q, k, v, segment_ids=segment_ids, positions=positions,
+                                block_q=cfg.attn_q_block)
     y = apply_base_op("attn_o", out, p["w_o"], "bshk,hkd->bsd")
     if return_kv:
         return y, (k, v)

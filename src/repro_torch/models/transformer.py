@@ -104,18 +104,34 @@ class Model:
                 return_logits: bool = False, collect_kv: bool = False) -> Dict[str, Any]:
         """Forward over ``batch["tokens"]`` [B, S] (optional ``positions`` and
         ``segment_ids``).  ``collect_kv`` adds ``out["kv"] = (k, v)``, each
-        [L, B, S, Hkv, dh] post-RoPE."""
+        [L, B, S, Hkv, dh] post-RoPE.  With ``batch["labels"]`` (and an
+        optional ``loss_mask``) ``out["per_token_loss"]`` [B, S] f32 is the
+        masked next-token cross-entropy.  ``out["aux"]`` holds auxiliary
+        losses (none in the dense family)."""
         x = embed_apply(params["embed"], batch["tokens"])
         x, kv = self._run_stack(params["layers"], x, adapters, ctx_factory,
                                 collect_kv=collect_kv, positions=batch.get("positions"),
                                 segment_ids=batch.get("segment_ids"))
         x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
-        out: Dict[str, Any] = {}
+        out: Dict[str, Any] = {"aux": {}}
         if collect_kv:
             out["kv"] = kv
-        if return_logits:
-            out["logits"] = self._logits(params, x)
+        if return_logits or "labels" in batch:
+            logits = self._logits(params, x)
+            if return_logits:
+                out["logits"] = logits
+            if "labels" in batch:
+                out["per_token_loss"] = self._per_token_loss(logits, batch)
         return out
+
+    def _per_token_loss(self, logits, batch):
+        """f32 logsumexp over the padded vocab minus the label's logit,
+        times ``loss_mask`` (1 where absent)."""
+        lf = logits.float()
+        ll = lf.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        loss = torch.logsumexp(lf, dim=-1) - ll
+        mask = batch.get("loss_mask")
+        return loss if mask is None else loss * mask.float()
 
     def _logits(self, params, x):
         logits = unembed_apply(params["embed"], x)

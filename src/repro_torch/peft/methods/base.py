@@ -1,9 +1,11 @@
 """The ``PEFTMethod`` protocol (port of ``repro.peft.methods.base``): what a
 method declares so that it can be multiplexed against a shared backbone.
 
-The port carries the parts the serving path reads: attach sites, stacked
-parameter specs, the slot scale and the Dispatch/Aggregate rule.  The
-planner's cost hooks and the checkpoint schema come with the training slice.
+A method declares its attach sites and stacked parameter specs, its
+Dispatch/Aggregate rule over a fused batch, its per-task footprint for the
+planner (``param_count``, ``flops_per_token``), its slot scale, and which
+leaves carry no task axis (``shared_params``: frozen and shared by every
+tenant of the kind).  The checkpoint schema comes with the checkpoint store.
 """
 from __future__ import annotations
 
@@ -25,20 +27,41 @@ class ApplyContext:
     gate: torch.Tensor             # [B] f32: 1.0 where slots >= 0
     scale: torch.Tensor            # [capacity] f32 per-slot aggregate scale
 
+    @property
+    def rows(self) -> torch.Tensor:
+        """Gather-safe slot index per batch row (clamped; mask via gate)."""
+        return self.slots.clamp_min(0).long()
+
 
 class PEFTMethod:
     """Base class / protocol for a PEFT method plugin."""
 
     name: str = ""
+    #: adapter leaf names WITHOUT a task axis (frozen, shared by the kind)
+    shared_params: frozenset = frozenset()
     #: True if the method injects learned k/v rows into attention
     uses_attention_prefix: bool = False
 
-    def sites(self, targets: Sequence[str], dims: SiteDims) -> SiteDims:
+    def sites(self, targets: Sequence[str], dims: SiteDims,
+              attention: bool = True) -> SiteDims:
         """Attach at every requested target the architecture has."""
         return {n: dims[n] for n in targets if n in dims}
 
     def param_specs(self, rank: int, d_in: int, d_out: int,
                     capacity: int) -> Dict[str, ParamSpec]:
+        raise NotImplementedError
+
+    def param_count(self, rank: int, d_in: int, d_out: int) -> int:
+        """Trainable params per task per site (drives Eq. 5 memory)."""
+        raise NotImplementedError
+
+    def shared_param_count(self, rank: int, d_in: int, d_out: int) -> int:
+        """Params of the ``shared_params`` leaves per site, paid once per
+        kind stack."""
+        return 0
+
+    def flops_per_token(self, rank: int, d_in: int, d_out: int) -> float:
+        """Forward FLOPs per token of one adapter application."""
         raise NotImplementedError
 
     def slot_scale(self, adapter: Any) -> float:

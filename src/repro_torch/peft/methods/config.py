@@ -16,6 +16,7 @@ class AdapterConfig:
     rank: int = 8
     alpha: float = 16.0
     targets: Tuple[str, ...] = DEFAULT_TARGETS
+    lr: float = 1e-4         # per-task learning rate (per-task optimizer isolation)
 
     def __post_init__(self):
         from repro_torch.peft.methods import resolve_kind
@@ -24,6 +25,12 @@ class AdapterConfig:
     @property
     def scale(self) -> float:
         return self.alpha / max(self.rank, 1)
+
+
+def supports_attention_prefix(cfg: ArchConfig) -> bool:
+    """Whether the backbone has softmax attention that learned prefix k/v
+    rows can enter: every family the port runs (dense) has."""
+    return cfg.family == "dense"
 
 
 def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:

@@ -25,6 +25,12 @@ class LoRA(PEFTMethod):
             "b": ParamSpec(t + (rank, d_out), init="zeros"),
         }
 
+    def param_count(self, rank, d_in, d_out) -> int:
+        return d_in * rank + rank * d_out
+
+    def flops_per_token(self, rank, d_in, d_out) -> float:
+        return 2.0 * rank * (d_in + d_out)
+
     def slot_scale(self, adapter) -> float:
         return adapter.scale
 

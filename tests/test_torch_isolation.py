@@ -14,8 +14,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chi
 
 
 def test_import_leaves_jax_and_repro_out():
-    code = ("import sys, repro_torch, repro_torch.core.engine, repro_torch.convert, "
-            "repro_torch.launch.steps, repro_torch.kernels.ops; "
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
+            "repro_torch.launch.train, repro_torch.kernels.ops; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -41,7 +41,8 @@ def test_no_jax_or_repro_import(path):
 
 def test_entry_points_need_cuda_unless_cpu_is_named(monkeypatch):
     from repro_torch.configs import smoke_config
-    from repro_torch.core.engine import PEFTEngine
+    from repro_torch.core import ExecutionPlanner, ModelGenerator, ParallelismSpec, PEFTEngine
+    from repro_torch.data import make_task
     from repro_torch.models.transformer import Model
     from repro_torch.peft.methods import AdapterConfig
     from repro_torch.peft.multitask import MultiTaskAdapters
@@ -52,20 +53,23 @@ def test_entry_points_need_cuda_unless_cpu_is_named(monkeypatch):
         Model(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         MultiTaskAdapters(cfg, [AdapterConfig("lora")])
-    model = Model(cfg, device="cpu")
-    mta = MultiTaskAdapters(cfg, [AdapterConfig("lora")], device="cpu")
-    g = torch.Generator().manual_seed(0)
-    backbone, adapters = model.init(g), mta.init(g)
     with pytest.raises(RuntimeError, match="CUDA"):
-        PEFTEngine(model, backbone, mta, adapters)
-    eng = PEFTEngine(model, backbone, mta, adapters, device="cpu")
+        ModelGenerator(cfg)
+    tasks = [make_task("t0", "sst2", 2)]
+    gen = ModelGenerator(cfg, device="cpu")
+    gen.register_tasks(tasks)
+    plan = ExecutionPlanner(cfg, ParallelismSpec()).plan(tasks)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PEFTEngine(gen, plan)
+    eng = PEFTEngine(gen, plan, device="cpu")
     assert eng.ensure_decode_pool(2, 8, 2)["cur"].device.type == "cpu"
 
 
 def test_registry_lists_only_ported_configs():
     from repro_torch.configs import ARCH_NAMES, get_config
 
-    assert ARCH_NAMES == ("llama3.2-3b",)
+    assert ARCH_NAMES == ("llama3.2-3b", "smollm-360m")
     assert get_config("llama3.2-3b").num_layers == 28
+    assert get_config("smollm-360m").num_layers == 32
     with pytest.raises(KeyError, match="not ported"):
         get_config("zamba2-2.7b")

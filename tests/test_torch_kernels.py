@@ -4,12 +4,19 @@
 Inputs come from a numpy seed and go through both frameworks as numpy.
 f32 cases compare at rtol/atol 1e-5; one bf16 case per op at atol 4e-2.
 On CPU tensors the ops never launch a CUDA kernel: the launch counters stay 0.
+
+Packed attention's tile-visibility rule is checked on layouts the loader
+makes (``align_tasks``, chunked): a packed segment's padding sits at
+position 0 with the segment's id, so which of those keys a real query sees
+depends on the Pallas kernel's key-tile cut.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.alignment import align_tasks
+from repro.data import make_task
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.decode_attention import decode_attention_pallas
@@ -34,8 +41,9 @@ def _np(t):
 def _counters_stay_zero():
     ops.reset_launch_counts()
     yield
-    assert ops.launch_counts() == {"grouped_lora": 0, "packed_attention": 0,
-                                   "decode_attention": 0}
+    assert ops.launch_counts() == {
+        "grouped_lora": 0, "grouped_lora_bwd": 0, "packed_attention": 0,
+        "packed_attention_dq": 0, "packed_attention_dkv": 0, "decode_attention": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -189,6 +197,51 @@ def test_packed_attention_fully_masked_row_gives_zero():
     np.testing.assert_allclose(pal[0, 3, 0], v[0, :8, 0].mean(0), rtol=1e-5, atol=1e-5)
 
 
+def loader_layout(S, datasets, micro_batch=4):
+    """segment_ids / positions of one fused hTask batch of row length S."""
+    tasks = [make_task(f"t{i}", ds, micro_batch, seed=i) for i, ds in enumerate(datasets)]
+    arr = align_tasks(tasks, list(range(len(tasks))), "chunked", row_len=S).arrays()
+    return arr["segment_ids"], arr["positions"]
+
+
+def test_packed_attention_tile_rule_on_loader_layout():
+    """S = 256: the port, the JAX xla tier and the Pallas-interpret tier
+    agree (tiles of 128 on both sides), and all differ from ``ref.py``'s
+    plain position/segment mask on real tokens."""
+    seg, pos = loader_layout(256, ("sst2", "qa", "rte", "sst2"))
+    rs = np.random.RandomState(9)
+    q, k, v = _attn_inputs(rs, seg.shape[0], 256, 256, 4, 2, 16)
+    out = _np(ops.packed_attention(_t(q), _t(k), _t(v), segment_ids=_t(seg), positions=_t(pos)))
+    for impl in ("xla", "pallas_interpret"):
+        jops.set_impl(impl)
+        try:
+            want = np.asarray(jops.packed_attention(q, k, v, segment_ids=seg, positions=pos))
+        finally:
+            jops.set_impl("xla")
+        np.testing.assert_allclose(out, want, err_msg=impl, **F32)
+    ref = np.asarray(jref.packed_attention_ref(q, k, v, segment_ids=seg, positions=pos))
+    assert np.abs(out - ref).max() > 0.1  # the tile rule is live on this layout
+
+
+def test_packed_attention_tile_rule_follows_pallas_at_192():
+    """S = 192: the JAX tiers disagree (the xla tier cuts at _fit_block's 96,
+    the Pallas kernel at gcd(192, 128) = 64).  The port follows the Pallas
+    tier: its kernels replace the Pallas kernels, and its plain version is
+    held to them."""
+    seg, pos = loader_layout(192, ("sst2", "qa", "qa"))
+    rs = np.random.RandomState(10)
+    q, k, v = _attn_inputs(rs, seg.shape[0], 192, 192, 4, 2, 16)
+    out = _np(ops.packed_attention(_t(q), _t(k), _t(v), segment_ids=_t(seg), positions=_t(pos)))
+    jops.set_impl("pallas_interpret")
+    try:
+        pal = np.asarray(jops.packed_attention(q, k, v, segment_ids=seg, positions=pos))
+    finally:
+        jops.set_impl("xla")
+    np.testing.assert_allclose(out, pal, **F32)
+    xla = np.asarray(jops.packed_attention(q, k, v, segment_ids=seg, positions=pos))
+    assert np.abs(out - xla).max() > 0.1  # the tiers' disagreement is live here
+
+
 def test_packed_attention_bf16():
     rs = np.random.RandomState(6)
     q, k, v = _attn_inputs(rs, 2, 32, 32, 4, 2, 16)
@@ -239,19 +292,26 @@ def test_decode_attention_bf16():
     np.testing.assert_allclose(out, np.asarray(pal, np.float32), **BF16)
 
 
-@pytest.mark.parametrize("name", ["grouped_lora", "packed_attention", "decode_attention"])
+@pytest.mark.parametrize("name", ["grouped_lora", "grouped_lora_bwd", "packed_attention",
+                                  "packed_attention_dq", "packed_attention_dkv",
+                                  "decode_attention"])
 def test_cuda_wrapper_refuses_cpu_tensors(name):
     """The kernel wrappers take CUDA tensors only; the CPU path is ops'."""
     import importlib
 
-    mod = importlib.import_module(f"repro_torch.kernels.{name}")
     x = torch.zeros((2, 4, 2, 16))
-    args = {
-        "grouped_lora": (torch.zeros(4, 8), torch.zeros(1, 8, 2), torch.zeros(1, 2, 8),
-                         torch.zeros(4, dtype=torch.int32), torch.ones(1)),
-        "packed_attention": (x, x, x) + (torch.zeros(2, 4, dtype=torch.int32),) * 4,
-        "decode_attention": (x[:, :1], x, x, torch.ones(2, dtype=torch.int32),
-                             torch.zeros(2, dtype=torch.int32)),
+    lora = (torch.zeros(4, 8), torch.zeros(1, 8, 2), torch.zeros(1, 2, 8),
+            torch.zeros(4, dtype=torch.int32), torch.ones(1))
+    attn = (x, x, x) + (torch.zeros(2, 4, dtype=torch.int32),) * 4
+    module, args = {
+        "grouped_lora": ("grouped_lora", lora),
+        "grouped_lora_bwd": ("grouped_lora", lora + (torch.zeros(4, 2), torch.zeros(4, 8))),
+        "packed_attention": ("packed_attention", attn),
+        "packed_attention_dq": ("packed_attention", attn + (x, torch.zeros(2, 2, 4), x)),
+        "packed_attention_dkv": ("packed_attention", attn + (x, torch.zeros(2, 2, 4), x)),
+        "decode_attention": ("decode_attention", (x[:, :1], x, x, torch.ones(2, dtype=torch.int32),
+                                                  torch.zeros(2, dtype=torch.int32))),
     }[name]
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
     with pytest.raises(ValueError, match="CUDA"):
         getattr(mod, f"{name}_cuda")(*args)

@@ -19,7 +19,13 @@ from repro.peft.methods import AdapterConfig as JaxAdapterConfig
 from repro.peft.multitask import MultiTaskAdapters as JaxMultiTaskAdapters
 from repro_torch.configs import smoke_config
 from repro_torch.convert import adapters_from_numpy, backbone_from_numpy
-from repro_torch.core.engine import PEFTEngine
+from repro_torch.core import (
+    ExecutionPlanner,
+    ModelGenerator,
+    ParallelismSpec,
+    PEFTEngine,
+    PEFTTask,
+)
 from repro_torch.launch import steps
 from repro_torch.models.transformer import Model
 from repro_torch.peft.methods import AdapterConfig
@@ -174,10 +180,25 @@ def test_batched_bind_equals_single_binds(setup):
 
 
 def test_engine_entry_points_serve_the_pool(setup):
-    """PEFTEngine (bf16 caches, as it allocates them) binds and generates to
-    completion; its outputs match the steps it wraps on the same pool."""
+    """PEFTEngine, built through the ModelGenerator (bf16 caches, as it
+    allocates them), binds and generates to completion; its outputs match
+    the steps it wraps on the same pool.  Three LoRA tenants get a stack of
+    four slots (capacity doubles 1 -> 2 -> 4); the fourth is never routed."""
     s = setup
-    eng = PEFTEngine(s["model_t"], s["bb_t"], s["mta_t"], s["ad_t"], device="cpu")
+    cfg_t = smoke_config("llama3.2-3b")
+    tasks = [PEFTTask(f"t{i}", AdapterConfig("lora", rank=r, alpha=a, targets=SITES), (LP,), 1)
+             for i, (r, a) in enumerate(TENANTS)]
+    gen = ModelGenerator(cfg_t, device="cpu")
+    reg = gen.register_tasks(tasks)
+    assert reg.mta.kind_capacity == {"lora": 4}
+    gen.backbone_params = s["bb_t"]
+    ad_np = jax.tree.map(lambda a: np.asarray(a, np.float32), s["ad"])
+    for site in ad_np["lora"].values():  # pad the JAX stack of 3 to 4 slots
+        for leaf, a in site.items():
+            site[leaf] = np.concatenate([a, np.zeros_like(a[:, :1])], axis=1)
+    reg.adapter_params = adapters_from_numpy(ad_np, reg.mta, "cpu")
+    plan = ExecutionPlanner(cfg_t, ParallelismSpec()).plan(tasks)
+    eng = PEFTEngine(gen, plan, device="cpu")
     eng.ensure_decode_pool(ROWS, MAX_LEN, CAP)
     assert eng.decode_pool_gen == 1 and eng.decode_prefix_reserve() == 0
     slots, scales = eng.decode_row_ctx(BIND_TASKS)
