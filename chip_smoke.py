@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's two main paths on one NVIDIA GPU and check them:
 multi-tenant LoRA co-serving decode, and multi-task LoRA/Adapter/IA3
-fine-tuning.
+fine-tuning, each on a bf16 backbone and on the int8 backbone tier.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -12,6 +12,10 @@ Phases, one JSON line each (several for the kernel phases):
 3. kernels       -- each forward kernel against its plain PyTorch version at
                     the serving path's full-width bf16 shapes, with times
                     (CUDA events, median of 25 runs, L2 flushed before each);
+                    quant_matmul at every BaseOp shape of the decode step
+                    (M = 8), the bind prefill (4096) and the training step
+                    (2816), and a ragged one, with the backward's plain dx
+                    product timed at the training shapes;
 4. train_kernels -- at the training path's shapes (llama3.2-3b, one fused
                     micro-batch of 11 rows x 256 from the planner): the
                     forwards that save h / the logsumexp, the grouped LoRA
@@ -30,7 +34,15 @@ Phases, one JSON line each (several for the kernel phases):
                     PEFTEngine.run_iteration calls, launch counts checked
                     against the plan, one iteration profiled;
 7. train_check   -- one step's per-task losses and adapter gradients from one
-                    state, on the kernels and on the plain versions.
+                    state, on the kernels and on the plain versions;
+8. serve_int8, train_int8, train_check_int8 -- phases 5-7 again with
+                    ``backbone_dtype="int8"``: every BaseOp product goes
+                    through the quant_matmul kernel; the serve phase also
+                    reports the backbone's bytes and how many greedy tokens
+                    agree with the bf16 run's; both checks also run a second
+                    plain path (the scale applied before the sum) whose
+                    distance from the first is their noise floor, and the
+                    train check runs on six seeded states.
 
 Then a {"kernels": [...]} line and last {"ok": true, "device": {...}}.  Any
 failure raises: the script exits non-zero and prints no ok line.  Without a
@@ -39,6 +51,7 @@ CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import statistics
@@ -67,6 +80,16 @@ KERNEL_TOL = 2 * 2.0 ** -8
 # place compound.  5% of the largest logit stays far below what a routing,
 # masking or cache fault gives (an error of the order of the logits).
 LOGIT_TOL = 0.05
+# On the int8 backbone the BaseOp products differ between the two paths too
+# (kernel vs plain int8 product, where the bf16 paths share one cuBLAS
+# product), so more roundings compound.  Two plain int8 paths that differ
+# only in where the scale is applied (after the sum, as the Pallas kernel
+# does, or before it, as the JAX xla tier does) came 5.3% of the largest
+# logit apart over serve_check_int8's 64 steps on an H100, the kernel path
+# 5.0% from the plain one: LOGIT_TOL lies inside the noise of two right
+# answers.  10% bounds the sum of two such spreads and stays far below a
+# fault; the f32 guard holds the kernel path to the plain path's accuracy.
+INT8_LOGIT_TOL = 0.10
 # Kernel gradients against autograd of the plain versions, per output: two
 # bf16 units as above, doubled for packed attention, whose backward reads
 # D = rowsum(do * o) from the forward's bf16 o (as the Pallas kernel does)
@@ -89,6 +112,20 @@ F32_TOL = 1e-5
 # routing, masking or slot fault gives errors of the order of the value.
 LOSS_TOL = 0.01
 GRAD_PATH_TOL = 0.10
+# On the int8 backbone the forward's BaseOp products differ between the two
+# paths as well (see INT8_LOGIT_TOL).  Over the six seeded states of
+# train_check_int8 on an H100 two plain int8 paths that differ only in where
+# the scale is applied came 5.8-11.0% of a leaf's largest |g| apart, and the
+# kernel path 5.8-7.7% from the plain one: GRAD_PATH_TOL lies inside that
+# noise.  20% bounds the sum of two such spreads; the f32 guard holds the
+# kernel path to the plain path's accuracy.  The int8 check runs on each of
+# INT8_CHECK_SEEDS.
+INT8_GRAD_PATH_TOL = 0.20
+INT8_CHECK_SEEDS = (3, 4, 5, 6, 7, 8)
+# The int8 backbone's bytes against the cost model's Eq. 5 term, which
+# counts the BaseOp weights at one byte and the rest at two but not the f32
+# scales (0.1% of the backbone at full width).
+BACKBONE_BYTES_TOL = 0.02
 
 
 def emit(obj) -> None:
@@ -178,6 +215,26 @@ def profile_device(torch, fn, n: int, groups):
             "device_ms_by_group": by_group,
             "top_kernels": [{"name": k[:80], "ms_per_call": v[0], "calls_per_call": v[1]}
                             for k, v in top]}
+
+
+def kernel_device_ms(torch, timer, fn, key: str, n: int = 5) -> float:
+    """Device time per call of the kernels whose names hold ``key``, from
+    the profiler, L2 flushed before each call.  Where a kernel takes less
+    time than the host needs to launch it, the CUDA-event time of a call
+    (``Timer``) counts the device's wait for the launch; this does not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key)
+    return us / 1e3 / n
 
 
 def kernel_phase(torch, timer):
@@ -319,8 +376,124 @@ def kernel_phase(torch, timer):
     return results
 
 
-def serve_phase(torch):
-    """The main path: PEFTEngine serving 8 requests of 4 LoRA tenants."""
+QMM_SHAPES = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))  # (K, N)
+# one layer's BaseOp sites: q, k, v, o, gate, up, down
+QMM_LAYER = ((3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072), (3072, 8192),
+             (3072, 8192), (8192, 3072))
+QMM_M = {"decode": 8, "prefill": 4096, "train": 2816}
+
+
+def quant_kernel_phase(torch, timer):
+    """quant_matmul against its plain version at every (M, K, N) of the int8
+    paths, and a ragged shape; the backward's dx product at the training
+    shapes.  The yardstick is ``torch._weight_int8pack_mm`` where the card's
+    PyTorch has it, else cuBLAS bf16 on the dequantized weight, which is
+    timed beside it in any case (the bf16 backbone's product)."""
+    from repro_torch.kernels import quant_matmul as qm
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    dev, bf16 = "cuda", torch.bfloat16
+    library = None
+    per_shape = {}
+    for path, M in QMM_M.items():
+        for K, N in QMM_SHAPES + ((40, 72),) * (path == "decode"):
+            Mx = 5 if K == 40 else M
+            x = torch.randn((Mx, K), generator=g, device=dev).to(bf16)
+            q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+            scale = torch.rand((N,), generator=g, device=dev) * 2e-4 + 1e-4
+            out = qm.quant_matmul_cuda(x, q, scale)
+            ref = qm.quant_matmul_plain(x, q, scale)
+            torch.cuda.synchronize()
+            err, rel, tol = compare(out, ref, f"quant_matmul M={Mx} K={K} N={N}")
+            line = {"phase": "kernels", "kernel": "quant_matmul", "path": path, "M": Mx,
+                    "K": K, "N": N, "plan": list(qm.launch_plan(Mx, K, N)),
+                    "max_abs_err": err, "max_rel_err": rel, "tol": tol}
+            if K == 40:  # the ragged case: checked only
+                ragged_err = err
+                emit(line)
+                continue
+            ms = timer(lambda: qm.quant_matmul_cuda(x, q, scale))
+            dev_ms = kernel_device_ms(torch, timer, lambda: qm.quant_matmul_cuda(x, q, scale),
+                                      "qmm_")
+            plain_ms = timer(lambda: qm.quant_matmul_plain(x, q, scale))
+            if library is None:
+                try:
+                    torch._weight_int8pack_mm(x, q.t().contiguous(), scale.to(bf16))
+                    torch.cuda.synchronize()
+                    library = "torch._weight_int8pack_mm"
+                except (RuntimeError, NotImplementedError):
+                    library = "torch.matmul bf16 on the dequantized weight"
+            w = (q.float() * scale).to(bf16)
+            cublas_ms = timer(lambda: torch.matmul(x, w))
+            del w
+            if library.startswith("torch._weight"):
+                # far slower than the kernel at large M: fewer runs there
+                qt, sb = q.t().contiguous(), scale.to(bf16)
+                lib_ms = timer(lambda: torch._weight_int8pack_mm(x, qt, sb),
+                               *((25, 3) if Mx <= 64 else (5, 1)))
+            else:
+                lib_ms = cublas_ms
+            work = {"bytes": K * N + 2 * Mx * (K + N) + 4 * N, "flops": 2.0 * Mx * K * N}
+            bms, by = bound_ms(work["bytes"], work["flops"])
+            times = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "cublas_bf16_dequantized_ms": cublas_ms}
+            line.update({**times, "bound_ms": bms, "bound_by": by, "library": library})
+            if path == "train":  # the backward's plain contraction, as the path runs it
+                gy = torch.randn((Mx, N), generator=g, device=dev).to(bf16)
+                line["dx_plain_ms"] = timer(lambda: qm.quant_matmul_dx(gy, q, scale, bf16))
+            per_shape[(path, K, N)] = {**times, **work, "max_abs_err": err}
+            emit(line)
+    results = {}
+    for path in QMM_M:
+        layer = [per_shape[(path, K, N)] for K, N in QMM_LAYER]
+        total = {key: sum(v[key] for v in layer) for key in layer[0]}
+        bms, by = bound_ms(total.pop("bytes"), total.pop("flops"))
+        total["max_abs_err"] = max(v["max_abs_err"] for (p, _, _), v in per_shape.items()
+                                   if p == path)
+        results[path] = {
+            "shape": f"M={QMM_M[path]}: the seven BaseOp products of one layer (sum)",
+            **total, "bound_ms": bms, "bound_by": by, "library": library}
+    out = results["decode"]
+    out["max_abs_err"] = max(out["max_abs_err"], ragged_err)
+    out["prefill_variant"], out["train_variant"] = results["prefill"], results["train"]
+    return {"quant_matmul": out}
+
+
+@contextlib.contextmanager
+def plain_scale_first():
+    """The plain versions, with the int8 product's scale applied to the
+    weight before the sum (the JAX xla tier's order) where the kernel and
+    its plain version apply it after (the Pallas kernel's).  The two are
+    equally right: their distance is the noise floor of the int8 checks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
+
+    plain = qm.quant_matmul_plain
+    qm.quant_matmul_plain = lambda x, q, s: (x.float() @ (q.float() * s)).to(x.dtype)
+    try:
+        with ops.force_plain():
+            yield
+    finally:
+        qm.quant_matmul_plain = plain
+
+
+def densify(torch, tree):
+    """An f32 copy of a backbone tree with every int8 node dequantized: the
+    reference weights of the f32 runs."""
+    from repro_torch.models.quantize import dequantize, is_quantized
+
+    if is_quantized(tree):
+        return dequantize(tree, torch.float32)
+    if isinstance(tree, dict):
+        return {k: densify(torch, v) for k, v in tree.items()}
+    return tree.float()
+
+
+def serve_phase(torch, backbone_dtype="bfloat16", bf16_run=None):
+    """The main path: PEFTEngine serving 8 requests of 4 LoRA tenants on a
+    backbone stored as ``backbone_dtype``.  ``bf16_run`` is what the bf16
+    run returned: the int8 run reports its greedy tokens' agreement with it.
+    Returns the launch counts and what a later run compares with."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -331,10 +504,14 @@ def serve_phase(torch):
         PEFTEngine,
         PEFTTask,
     )
+    from repro_torch.core.cost_model import CostModel
     from repro_torch.kernels import ops
-    from repro_torch.peft.methods import AdapterConfig
+    from repro_torch.models.quantize import tensor_bytes
+    from repro_torch.peft.methods import AdapterConfig, base_op_dims
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config("llama3.2-3b").with_overrides(backbone_dtype=backbone_dtype)
+    int8 = backbone_dtype == "int8"
+    suffix = "_int8" if int8 else ""
     L = cfg.num_layers
     tenants = [AdapterConfig("lora", rank=rk, alpha=al, targets=SITES)
                for rk, al in ((8, 16.0), (16, 16.0), (32, 64.0), (64, 32.0))]
@@ -387,11 +564,27 @@ def serve_phase(torch):
     want = dict.fromkeys(counts, 0)
     want.update({"grouped_lora": len(SITES) * L * (1 + n_micro), "packed_attention": L,
                  "decode_attention": L * n_micro})
+    if int8:  # every BaseOp of every layer, in the bind and in each micro step
+        want["quant_matmul"] = len(base_op_dims(cfg)) * L * (1 + n_micro)
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the path implies {want}")
     gen = [engine.decode_outputs(i)[:max_new[i]] for i in range(rows)]
     decode_tokens = int(sum(max_new) - rows)
-    emit({"phase": "serve", "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+    nbytes = tensor_bytes(backbone)
+    extra = {}
+    if int8:
+        # the cost model's Eq. 5 backbone term is what the planner sees
+        want_bytes = CostModel(cfg, [], ParallelismSpec()).stage_memory([])
+        if abs(nbytes - want_bytes) > BACKBONE_BYTES_TOL * want_bytes:
+            raise AssertionError(f"int8 backbone holds {nbytes} bytes, the cost model "
+                                 f"{want_bytes}")
+        agree = [int((a == b).sum()) for a, b in zip(gen, bf16_run["tokens"])]
+        extra = {"bf16_backbone_bytes": bf16_run["backbone_bytes"],
+                 "cost_model_backbone_bytes": want_bytes,
+                 "greedy_tokens_agreeing_with_bf16": sum(agree) / float(sum(max_new)),
+                 "greedy_agreement_by_row": [a / float(m) for a, m in zip(agree, max_new)]}
+    emit({"phase": "serve" + suffix, "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+          "backbone_dtype": backbone_dtype, "backbone_bytes": nbytes, **extra,
           "tenants": [{"rank": t.rank, "alpha": t.alpha} for t in tenants],
           "requests": rows, "prompt_lengths": lengths.tolist(),
           "max_new": max_new.tolist(), "bucket": Lp, "micro_steps": n_micro,
@@ -405,8 +598,9 @@ def serve_phase(torch):
     with torch.no_grad():
         prof = profile_device(torch, lambda: engine.dispatch_decode_micro(slots, scales), 3,
                               {"grouped_lora": ("grouped_lora",),
-                               "decode_attention": ("decode_stage",)})
-    emit({"phase": "profile", "path": "serve micro step", **prof,
+                               "decode_attention": ("decode_stage",),
+                               "quant_matmul": ("qmm_",)})
+    emit({"phase": "profile", "path": "serve micro step" + suffix, **prof,
           "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
               statistics.median(step_s) * 1e3) if prof["device_ms_per_call"] else None})
 
@@ -424,24 +618,26 @@ def serve_phase(torch):
     modes = {
         "kernel": (backbone, adapters, torch.bfloat16, contextlib.nullcontext),
         "plain": (backbone, adapters, torch.bfloat16, ops.force_plain),
-        "f32": (tree_map(lambda t: t.float(), backbone),
+        "f32": (densify(torch, backbone),
                 tree_map(lambda t: t.float(), adapters), torch.float32, ops.force_plain),
     }
-    worst = {"kernel_vs_plain": 0.0, "kernel_vs_f32": 0.0, "plain_vs_f32": 0.0,
-             "scale": 0.0, "argmax_agree": 1.0}
+    if int8:
+        modes["plain_scale_first"] = (backbone, adapters, torch.bfloat16, plain_scale_first)
+    # per step: max |difference| over the live rows, relative to the largest
+    # |logit| of the second path of the pair
+    steps_rel = {"kernel_vs_plain": [], "kernel_vs_f32": [], "plain_vs_f32": []}
+    if int8:
+        steps_rel["plain_scale_first_vs_plain"] = []
+    worst = {"scale": 0.0, "argmax_agree": 1.0}
 
-    def check(logits, live, where):
-        lk, lp, lr = (logits[m][live].float() for m in ("kernel", "plain", "f32"))
-        err = (lk - lp).abs().max().item()
-        scale = lp.abs().max().item()
-        if not err <= LOGIT_TOL * scale:
-            raise AssertionError(f"{where}: logits kernel vs plain max abs {err} "
-                                 f"> {LOGIT_TOL} x {scale}")
-        worst["kernel_vs_plain"] = max(worst["kernel_vs_plain"], err)
-        worst["kernel_vs_f32"] = max(worst["kernel_vs_f32"], (lk - lr).abs().max().item())
-        worst["plain_vs_f32"] = max(worst["plain_vs_f32"], (lp - lr).abs().max().item())
-        worst["scale"] = max(worst["scale"], scale)
-        agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    def check(logits, live):
+        lg = {m: logits[m][live].float() for m in modes}
+        for key in steps_rel:
+            a, b = key.split("_vs_")
+            steps_rel[key].append(
+                (lg[a] - lg[b]).abs().max().item() / lg[b].abs().max().item())
+        worst["scale"] = max(worst["scale"], lg["plain"].abs().max().item())
+        agree = (lg["kernel"].argmax(-1) == lg["plain"].argmax(-1)).float().mean().item()
         worst["argmax_agree"] = min(worst["argmax_agree"], agree)
 
     with torch.no_grad():
@@ -454,7 +650,7 @@ def serve_phase(torch):
                 logits[mode] = lg[ar, (len_t - 1).long()]
         if not torch.equal(logits["kernel"].float().argmax(-1).to(torch.int32), out_t[:, 0]):
             raise AssertionError("teacher-forced prefill does not give the served first tokens")
-        check(logits, torch.ones(rows, dtype=torch.bool, device=dev), "prefill")
+        check(logits, torch.ones(rows, dtype=torch.bool, device=dev))
         for i in range(n_micro):
             live = (i + 1) < mx_t
             cur = out_t[ar, torch.minimum(torch.tensor(i, device=dev), mx_t - 1).long()][:, None]
@@ -469,23 +665,37 @@ def serve_phase(torch):
             if not torch.equal(tf[live], served[live]):
                 raise AssertionError(f"step {i}: teacher-forced kernel tokens differ from "
                                      f"the served tokens")
-            check(logits, live, f"decode step {i}")
+            check(logits, live)
     torch.cuda.synchronize()
-    emit({"phase": "serve_check", "steps": n_micro + 1,
-          "logit_max_abs_err": worst["kernel_vs_plain"], "logit_scale": worst["scale"],
-          "tol": LOGIT_TOL * worst["scale"], "argmax_agreement_min": worst["argmax_agree"],
-          "kernel_vs_f32_max_abs": worst["kernel_vs_f32"],
-          "plain_vs_f32_max_abs": worst["plain_vs_f32"]})
-    return counts
+    top = {k: max(v) for k, v in steps_rel.items()}
+    tol = INT8_LOGIT_TOL if int8 else LOGIT_TOL
+    emit({"phase": "serve_check" + suffix, "steps": n_micro + 1,
+          "logit_max_rel_err": top["kernel_vs_plain"],
+          "logit_worst_step": steps_rel["kernel_vs_plain"].index(top["kernel_vs_plain"]),
+          "tol_rel": tol, "logit_scale": worst["scale"],
+          "argmax_agreement_min": worst["argmax_agree"],
+          "kernel_vs_f32_max_rel": top["kernel_vs_f32"],
+          "plain_vs_f32_max_rel": top["plain_vs_f32"],
+          "plain_scale_first_vs_plain_max_rel": top.get("plain_scale_first_vs_plain"),
+          "rel_err_by_step": {k: [round(x, 5) for x in v] for k, v in steps_rel.items()}})
+    if not top["kernel_vs_plain"] <= tol:
+        raise AssertionError(f"serve_check{suffix}: logits kernel vs plain off by "
+                             f"{top['kernel_vs_plain']} of the largest logit > {tol}")
+    if not top["kernel_vs_f32"] <= 2 * top["plain_vs_f32"]:
+        raise AssertionError(f"serve_check{suffix}: the kernel path is further from the f32 "
+                             f"run ({top['kernel_vs_f32']}) than twice the plain path "
+                             f"({top['plain_vs_f32']})")
+    return counts, {"tokens": gen, "backbone_bytes": nbytes}
 
 
-def train_plan():
-    """The training path's configuration, tenants and plan (host-side)."""
+def train_plan(backbone_dtype="bfloat16"):
+    """The training path's configuration, tenants and plan (host-side); the
+    planner's cost model prices the backbone at ``backbone_dtype``."""
     from repro_torch.configs import get_config
     from repro_torch.core import ExecutionPlanner, ParallelismSpec
     from repro_torch.launch.train import parse_tasks
 
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config("llama3.2-3b").with_overrides(backbone_dtype=backbone_dtype)
     tasks = parse_tasks(TRAIN_TASKS, TRAIN_MICRO_BATCH)
     plan = ExecutionPlanner(cfg, ParallelismSpec(num_stages=1)).plan(tasks, n_micro=1)
     return cfg, tasks, plan
@@ -659,13 +869,17 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
 
 
 def train_phase(torch, cfg, tasks, plan):
-    """The training path: PEFTEngine.run_iteration on llama3.2-3b."""
+    """The training path: PEFTEngine.run_iteration on llama3.2-3b, its
+    backbone stored as ``cfg.backbone_dtype``."""
     import numpy as np
 
     from repro_torch.core import ModelGenerator, PEFTEngine
     from repro_torch.data import HTaskLoader
     from repro_torch.kernels import ops
+    from repro_torch.peft.methods import base_op_dims
 
+    int8 = cfg.backbone_dtype == "int8"
+    suffix = "_int8" if int8 else ""
     L = cfg.num_layers
     gen = ModelGenerator(cfg, seed=0)
     gen.init_backbone()
@@ -674,7 +888,7 @@ def train_phase(torch, cfg, tasks, plan):
     loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size)
                for i in range(len(plan.htasks))}
     summary = plan.summary()
-    emit({"phase": "train_plan", **summary,
+    emit({"phase": "train_plan" + suffix, "backbone_dtype": cfg.backbone_dtype, **summary,
           "htasks": [{"task_ids": list(h.task_ids), "rows": h.rows, "row_len": h.row_len,
                       "tokens": h.tokens, "effective_tokens": h.effective_tokens}
                      for h in plan.htasks],
@@ -690,7 +904,7 @@ def train_phase(torch, cfg, tasks, plan):
         if not (np.isfinite(m.loss) and np.all(np.isfinite(m.per_task_loss))):
             raise AssertionError(f"iteration {i}: non-finite loss {m.per_task_loss}")
         iters.append((m, tp))
-        emit({"phase": "train_iteration", "iteration": i, "loss": m.loss,
+        emit({"phase": "train_iteration" + suffix, "iteration": i, "loss": m.loss,
               "per_task_loss": m.per_task_loss.tolist(), "seconds": m.wall_seconds,
               "tokens_per_s": tp["tokens_per_s"],
               "effective_tokens_per_s": tp["effective_tokens_per_s"]})
@@ -703,10 +917,12 @@ def train_phase(torch, cfg, tasks, plan):
     want.update({"grouped_lora": n * sites * L, "grouped_lora_bwd": n * sites * L,
                  "packed_attention": n * L, "packed_attention_dq": n * L,
                  "packed_attention_dkv": n * L})
+    if int8:  # every BaseOp of every layer, once per micro step (forward)
+        want["quant_matmul"] = n * len(base_op_dims(cfg)) * L
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the plan implies {want}")
     secs = [m.wall_seconds for m, _ in iters]
-    emit({"phase": "train", "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+    emit({"phase": "train" + suffix, "backbone_dtype": cfg.backbone_dtype, "model": cfg.name, "layers": L, "d_model": cfg.d_model,
           "tasks": TRAIN_TASKS, "micro_batch": TRAIN_MICRO_BATCH, "lr": TRAIN_LR,
           "warmup_seconds": warm.wall_seconds, "iterations": TRAIN_ITERS,
           "micro_steps_per_iteration": steps_per_iter, "launches": counts,
@@ -719,10 +935,12 @@ def train_phase(torch, cfg, tasks, plan):
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     prof = profile_device(torch, lambda: engine.run_iteration(loaders), 1,
                           {"grouped_lora": ("grouped_lora",),
-                           "packed_attention": ("packed_attention",)})
+                           "packed_attention": ("packed_attention",),
+                           "quant_matmul": ("qmm_",),
+                           "f32_matmul (quant_matmul dx)": ("sgemm", "f32f32")})
     # the profiler slows the host: the device's busy share of an unprofiled
     # iteration is its device time over the timed iterations' median
-    emit({"phase": "profile", "path": "train iteration", **prof,
+    emit({"phase": "profile", "path": "train iteration" + suffix, **prof,
           "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
               statistics.median(secs) * 1e3) if prof["device_ms_per_call"] else None})
     return counts, engine
@@ -739,19 +957,21 @@ def _seeded_stream(seed: int, vocab: int):
         yield int(rng.randint(1, vocab))
 
 
-def train_check(torch, engine):
+def train_check(torch, engine, seed=3):
     """One step's per-task losses and adapter gradients from one state, on
     the kernels, under ops.force_plain(), and under ops.force_plain() on
-    f32 copies of the weights (the reference).  LoRA B, Adapter up and IA3 s
-    start at zero, which would leave dA and the adapters' down gradients
-    exactly zero: they are filled from a seed first."""
+    f32 copies of the weights, int8 nodes dequantized (the reference); on an
+    int8 backbone also under plain_scale_first(), the checks' noise floor.
+    LoRA B, Adapter up and IA3 s start at zero, which would leave dA and the
+    adapters' down gradients exactly zero: they are filled from ``seed``
+    first, and the batch's tokens come from ``seed`` too."""
     from repro_torch.data import HTaskLoader
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import device_put_batch
     from repro_torch.train.optimizer import tree_leaves
 
     dev = engine.device
-    g = torch.Generator(device=dev).manual_seed(3)
+    g = torch.Generator(device=dev).manual_seed(seed)
     params = {kind: {site: {leaf: (torch.randn(t.shape, generator=g, device=dev)
                                    * 0.02).to(t.dtype) if leaf in ("b", "up", "s") else t
                             for leaf, t in leaves.items()}
@@ -759,14 +979,17 @@ def train_check(torch, engine):
               for kind, sites in engine.reg.adapter_params.items()}
     plan, vocab = engine.plan, engine.model.cfg.vocab_size
     loader = HTaskLoader(plan.tasks, plan.alignment[0], vocab,
-                         streams={i: _seeded_stream(100 + i, vocab)
+                         streams={i: _seeded_stream(97 + seed + i, vocab)
                                   for i in range(len(plan.tasks))})
     batch = device_put_batch(next(loader), dev)
     fn = engine._loss_and_grads_fn(0)
     runs = {"kernel": (params, engine.backbone, contextlib.nullcontext),
             "plain": (params, engine.backbone, ops.force_plain),
-            "f32": (tree_map(lambda t: t.float(), params),
-                    tree_map(lambda t: t.float(), engine.backbone), ops.force_plain)}
+            "f32": (tree_map(lambda t: t.float(), params), densify(torch, engine.backbone),
+                    ops.force_plain)}
+    int8 = engine.model.cfg.backbone_dtype == "int8"
+    if int8:
+        runs["plain_scale_first"] = (params, engine.backbone, plain_scale_first)
     pt, grads = {}, {}
     for mode, (ad, bb, ctx) in runs.items():
         with ctx():
@@ -778,30 +1001,32 @@ def train_check(torch, engine):
         raise AssertionError(f"train_check: per-task losses {pt['kernel'].tolist()} vs plain "
                              f"{pt['plain'].tolist()}: relative {loss_err} > {LOSS_TOL}")
     names = [".".join(path) for path in _leaf_paths(params)]
-    worst = {"kernel_vs_plain": (0.0, ""), "kernel_vs_f32": (0.0, ""),
-             "plain_vs_f32": (0.0, "")}
+    pairs = [("kernel", "plain"), ("kernel", "f32"), ("plain", "f32")]
+    if int8:
+        pairs.append(("plain_scale_first", "plain"))
+    worst = {f"{a}_vs_{b}": (0.0, "") for a, b in pairs}
     for i, name in enumerate(names):
-        k, p, r = (grads[m][i].float() for m in ("kernel", "plain", "f32"))
-        scale = r.abs().max().item()
+        scale = grads["f32"][i].float().abs().max().item()
         if scale == 0.0:
             raise AssertionError(f"train_check: {name} has an all-zero gradient")
-        for key, (a, b) in (("kernel_vs_plain", (k, p)), ("kernel_vs_f32", (k, r)),
-                            ("plain_vs_f32", (p, r))):
-            err = (a - b).abs().max().item() / scale
-            if err > worst[key][0]:
-                worst[key] = (err, name)
-    if not worst["kernel_vs_plain"][0] <= GRAD_PATH_TOL:
+        for a, b in pairs:
+            err = (grads[a][i].float() - grads[b][i].float()).abs().max().item() / scale
+            if err > worst[f"{a}_vs_{b}"][0]:
+                worst[f"{a}_vs_{b}"] = (err, name)
+    tol = INT8_GRAD_PATH_TOL if int8 else GRAD_PATH_TOL
+    emit({"phase": "train_check" + ("_int8" if int8 else ""), "seed": seed,
+          "per_task_loss_kernel": pt["kernel"].tolist(),
+          "per_task_loss_plain": pt["plain"].tolist(), "per_task_loss_f32": pt["f32"].tolist(),
+          "loss_max_rel_err": loss_err, "loss_tol_rel": LOSS_TOL, "grad_leaves": len(names),
+          "grad_err_rel_to_leaf_max": {k: {"max": v[0], "leaf": v[1]} for k, v in worst.items()},
+          "grad_tol": tol})
+    if not worst["kernel_vs_plain"][0] <= tol:
         raise AssertionError(f"train_check: {worst['kernel_vs_plain'][1]} kernel vs plain "
-                             f"off by {worst['kernel_vs_plain'][0]} of its max > {GRAD_PATH_TOL}")
+                             f"off by {worst['kernel_vs_plain'][0]} of its max > {tol}")
     if not worst["kernel_vs_f32"][0] <= 2 * worst["plain_vs_f32"][0]:
         raise AssertionError(f"train_check: the kernel path is further from the f32 "
                              f"reference ({worst['kernel_vs_f32']}) than twice the plain "
                              f"path ({worst['plain_vs_f32']})")
-    emit({"phase": "train_check", "per_task_loss_kernel": pt["kernel"].tolist(),
-          "per_task_loss_plain": pt["plain"].tolist(), "per_task_loss_f32": pt["f32"].tolist(),
-          "loss_max_rel_err": loss_err, "loss_tol_rel": LOSS_TOL, "grad_leaves": len(names),
-          "grad_err_rel_to_leaf_max": {k: {"max": v[0], "leaf": v[1]} for k, v in worst.items()},
-          "grad_tol": GRAD_PATH_TOL})
 
 
 def _leaf_paths(tree, prefix=()):
@@ -836,14 +1061,30 @@ def main() -> int:
     timer = Timer(torch)
     with torch.no_grad():
         kern = kernel_phase(torch, timer)
+        kern.update(quant_kernel_phase(torch, timer))
     cfg, tasks, plan = train_plan()
     kern.update(train_kernel_phase(torch, timer, cfg, tasks, plan))
     torch.cuda.synchronize()
 
-    # the two main paths, each with the launch counts set to 0 just before
-    counts = {"serve": serve_phase(torch)}
+    # the main paths, bf16 and int8 backbones, each with the launch counts
+    # set to 0 just before it
+    counts = {}
+    # (the engine's step closures refer to it: collect the cycle, so that
+    # each phase's memory peak holds its own backbone only)
+    counts["serve"], bf16_run = serve_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["serve_int8"], _ = serve_phase(torch, "int8", bf16_run)
+    gc.collect()
+    torch.cuda.empty_cache()
     counts["train"], engine = train_phase(torch, cfg, tasks, plan)
     train_check(torch, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["train_int8"], engine = train_phase(torch, *train_plan("int8"))
+    for seed in INT8_CHECK_SEEDS:
+        train_check(torch, engine, seed)
 
     csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"
     kernels = [
@@ -854,6 +1095,7 @@ def main() -> int:
         ("packed_attention_dq", "packed_attention.cu", "packed_attention.py:128", None),
         ("packed_attention_dkv", "packed_attention.cu", "packed_attention.py:185", None),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:40", None),
+        ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", None),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src, "replaces": jax_k + rep,

@@ -35,9 +35,20 @@ class ArchConfig:
     # query block of packed attention: its tile-visibility rule uses
     # gcd(S, min(attn_q_block, S)) as the JAX package's model does
     attn_q_block: int = 512
+    # frozen-backbone storage ("bfloat16" | "float32" | "int8"): "int8"
+    # quantizes every adapter-capable BaseOp weight at model build
+    # (symmetric, per-output-channel scale), read by the quant_matmul kernel
+    # (``repro_torch.models.quantize``, ``kernels/quant_matmul.py``)
+    backbone_dtype: str = "bfloat16"
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
+
+    def backbone_dtype_bytes(self) -> int:
+        """Bytes per resident backbone weight: the precision axis of the
+        cost model (Eq. 5 and the weight-read terms)."""
+        return {"int8": 1, "float8": 1, "bfloat16": 2, "float16": 2,
+                "float32": 4}[self.backbone_dtype]
 
     @property
     def q_dim(self) -> int:

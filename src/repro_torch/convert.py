@@ -5,7 +5,8 @@ package lays them out, and return the same layout as torch tensors:
 
 * ``backbone_from_numpy``: the ``Model`` tree, layers stacked on axis 0
   (``embed.tok``, ``final_norm.w``, ``layers.{ln1,ln2}.w``,
-  ``layers.attn.w_{q,k,v,o}``, ``layers.mlp.w_{gate,up,down}``);
+  ``layers.attn.w_{q,k,v,o}``, ``layers.mlp.w_{gate,up,down}``), the last
+  seven as ``{"q": int8, "scale": f32}`` nodes for an int8 backbone;
 * ``adapters_from_numpy``: the ``MultiTaskAdapters`` tree
   ``{kind: {site: {leaf: [L, capacity, ...]}}}`` of any ported kind (LoRA,
   Adapter, IA3), with stacks whose capacity exceeds the live task count as
@@ -24,6 +25,7 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.models.layers import ParamSpec
+from repro_torch.models.quantize import quantized_spec
 from repro_torch.models.transformer import Model
 from repro_torch.peft.multitask import MultiTaskAdapters
 
@@ -34,6 +36,10 @@ def _convert(spec: Any, tree: Any, path: str, device, dtype) -> Any:
         if tuple(arr.shape) != tuple(spec.shape):
             raise ValueError(f"leaf {path}: shape {arr.shape}, expected {spec.shape}")
         t = torch.from_numpy(np.ascontiguousarray(arr))
+        if spec.dtype is not None:
+            if t.dtype != spec.dtype:
+                raise TypeError(f"leaf {path}: {t.dtype}, expected {spec.dtype}")
+            return t.to(device=device)
         return t.to(device=device, dtype=dtype or t.dtype)
     if not isinstance(tree, dict):
         raise TypeError(f"{path or 'tree'}: expected a dict of leaves, got {type(tree)}")
@@ -49,8 +55,13 @@ def _convert(spec: Any, tree: Any, path: str, device, dtype) -> Any:
 
 def backbone_from_numpy(tree: Dict[str, Any], cfg: ArchConfig, device,
                         dtype: torch.dtype) -> Dict[str, Any]:
-    """The JAX backbone tree of ``cfg`` as the port's parameter dict."""
-    return _convert(Model(cfg, device=device).spec(), tree, "", device, dtype)
+    """The JAX backbone tree of ``cfg`` as the port's parameter dict.  With
+    ``cfg.backbone_dtype == "int8"`` each BaseOp weight is the JAX package's
+    quantized node ``{"q": int8, "scale": f32}``, which keeps its types."""
+    spec = Model(cfg, device=device).spec()
+    if cfg.backbone_dtype == "int8":
+        spec = quantized_spec(spec)
+    return _convert(spec, tree, "", device, dtype)
 
 
 def adapters_from_numpy(tree: Dict[str, Any], mta: MultiTaskAdapters,

@@ -17,9 +17,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
-
 from repro_torch.configs import ArchConfig
 from repro_torch.core.task import HTask, ParallelismSpec, PEFTTask
+from repro_torch.models.quantize import quantized_param_count
 from repro_torch.peft.methods import base_op_dims, supports_attention_prefix
 from repro_torch.peft.methods import adapter_shared_params, adapter_sites
 
@@ -95,17 +95,15 @@ class CostModel:
     parallelism: ParallelismSpec
     hw: HardwareProfile = field(default_factory=HardwareProfile)
     dtype_bytes: int = 2  # activation / compute precision
-    # Resident-backbone-weight precision (None -> the activation precision;
-    # the port's backbone is bf16, the int8 tier is not ported yet)
+    # Resident-backbone-weight precision.  None -> resolved from
+    # ``cfg.backbone_dtype_bytes()``, so an int8 backbone reprices Eq. 5
+    # memory and the weight-read latency terms, and the planner sees it.
     weight_bytes: Optional[int] = None
     comm_overlapped: bool = True  # §3.4.2 orchestration hides intra-stage comm
 
     def __post_init__(self) -> None:
         if self.weight_bytes is None:
-            self.weight_bytes = self.dtype_bytes
-        if self.weight_bytes != self.dtype_bytes:
-            raise NotImplementedError("a backbone stored below the compute precision "
-                                      "(the int8 tier) is not ported yet")
+            self.weight_bytes = self.cfg.backbone_dtype_bytes()
         self._ops = backbone_ops(self.cfg, self.dtype_bytes, self.weight_bytes)
         self._dims = base_op_dims(self.cfg)
         self._attention_ok = supports_attention_prefix(self.cfg)
@@ -176,7 +174,12 @@ class CostModel:
         """Peak per-stage bytes for co-located hTasks (1F1B accumulation)."""
         p = self.parallelism
         S = p.num_stages
-        m_backbone = self.cfg.param_count() * self.dtype_bytes / p.tp
+        # Backbone residency splits by precision: the quantizable BaseOp
+        # params sit at ``weight_bytes`` (1 for int8), the remainder (norms,
+        # embedding) at activation precision, as quantize_backbone converts.
+        n_quant = quantized_param_count(self.cfg)
+        m_backbone = (n_quant * self.weight_bytes
+                      + (self.cfg.param_count() - n_quant) * self.dtype_bytes) / p.tp
         m_grad = 0.0  # input grads reuse activation buffers (paper: M_g ~ M_a reuse)
         m_act = 0.0
         # shared (task-axis-free) adapter leaves — e.g. VeRA's frozen A/B —

@@ -1,7 +1,8 @@
 """ModelGenerator + ``register_tasks()`` — multi-task attachment (§3.2)
 (port of ``repro.core.registry``, first registration).
 
-The backbone is instantiated once from a seeded ``torch.Generator``;
+The backbone is instantiated once from a seeded ``torch.Generator`` (and
+quantized to int8 there when ``cfg.backbone_dtype == "int8"``);
 registering tasks builds the stacked adapter tree with slot-stable
 capacities (a kind's stack doubles when full) and fresh AdamW moments.
 Re-registration, which migrates surviving tasks' adapters and moments into
@@ -19,6 +20,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core.task import PEFTTask
+from repro_torch.models.quantize import quantize_backbone
 from repro_torch.models.transformer import Model
 from repro_torch.peft.multitask import MultiTaskAdapters
 from repro_torch.train.optimizer import AdamWState, adamw_init
@@ -55,7 +57,12 @@ class ModelGenerator:
 
     def init_backbone(self) -> Any:
         if self.backbone_params is None:
-            self.backbone_params = self.model.init(self.generator)
+            params = self.model.init(self.generator)
+            if self.cfg.backbone_dtype == "int8":
+                # quantize once at build; each dense leaf goes as its int8
+                # node replaces it
+                params = quantize_backbone(params, self.cfg)
+            self.backbone_params = params
         return self.backbone_params
 
     def register_tasks(self, new_tasks: Sequence[PEFTTask]) -> RegisteredTasks:

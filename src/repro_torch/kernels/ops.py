@@ -15,11 +15,13 @@ The signatures follow the JAX package's ops: ``grouped_lora`` takes
 the prefix key rows (``ops.py:181-214`` there, without the tile padding
 that existed for the TPU) and takes the Pallas wrapper's ``block_q`` /
 ``block_k``, which set its tile-visibility rule, ``decode_attention`` takes
-scalar or per-row window bounds.
+scalar or per-row window bounds, ``quant_matmul`` takes a BaseOp site's
+einsum against an int8 weight.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Optional
 
 import torch
@@ -27,8 +29,9 @@ import torch
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import grouped_lora as _gl
 from repro_torch.kernels import packed_attention as _pa
+from repro_torch.kernels import quant_matmul as _qm
 
-_KERNELS = (_gl, _pa, _da)
+_KERNELS = (_gl, _pa, _da, _qm)
 _force_plain = False
 
 
@@ -155,3 +158,39 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         return _da.decode_attention_cuda(q.contiguous(), k_cache, v_cache,
                                          cache_len.contiguous(), cache_start.contiguous())
     return _da.decode_attention_plain(q, k_cache, v_cache, cache_len, cache_start)
+
+
+# ---------------------------------------------------------------------------
+# int8 backbone matmul (the int8 tier)
+# ---------------------------------------------------------------------------
+
+
+def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                 einsum_str: str) -> torch.Tensor:
+    """The BaseOp einsum ``einsum_str`` (e.g. ``"bsd,dhk->bshk"``) against an
+    int8 weight: x [*batch, *contract], q [*contract, *out] int8, scale the
+    per-output-channel f32 scale, keepdims over the contracted axes.  Every
+    BaseOp site contracts x's trailing axes against q's leading axes, so the
+    op is one [M, K] @ [K, N] problem.  Output in x's type; gradients flow
+    to x only."""
+    lhs, out_sub = einsum_str.split("->")
+    xs, ws = lhs.split(",")
+    contract = [c for c in xs if c in ws]
+    batch = [c for c in xs if c not in ws]
+    wout = [c for c in ws if c not in xs]
+    assert xs == "".join(batch + contract), einsum_str
+    assert ws == "".join(contract + wout), einsum_str
+    assert out_sub == "".join(batch + wout), einsum_str
+    nb, nc = len(batch), len(contract)
+    batch_shape, out_shape = x.shape[:nb], q.shape[nc:]
+    M, K, N = math.prod(batch_shape), math.prod(x.shape[nb:]), math.prod(out_shape)
+    x2, q2, s2 = x.reshape(M, K), q.reshape(K, N), scale.reshape(N)
+    if _use_kernel(x):
+        args = (x2.contiguous(), q2.contiguous(), s2.contiguous())
+        if _needs_grad(x):
+            y = _qm.QuantMatmulFunction.apply(*args)
+        else:
+            y = _qm.quant_matmul_cuda(*args)
+    else:
+        y = _qm.quant_matmul_plain(x2, q2, s2)
+    return y.reshape(*batch_shape, *out_shape)

@@ -7,7 +7,7 @@ back; SiLU runs in f32, is cast to the working type, then multiplied.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -15,12 +15,15 @@ import torch.nn.functional as F
 
 @dataclass(frozen=True)
 class ParamSpec:
-    """One bf16 parameter leaf: shape and init rule (the JAX ``ParamSpec``
-    without its sharding axes; every leaf of the port is bf16)."""
+    """One parameter leaf: shape and init rule (the JAX ``ParamSpec``
+    without its sharding axes).  Leaves are bf16 at init; ``dtype`` names a
+    leaf stored in a type of its own (the int8 tier's ``q`` and ``scale``),
+    which a conversion keeps whatever type it is asked for."""
 
     shape: Tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones
     scale: float = 0.02
+    dtype: Optional[torch.dtype] = None
 
 
 def materialize(spec_tree: Any, generator: torch.Generator, device: torch.device) -> Any:

@@ -2,17 +2,23 @@
 
 Backbone layers never mention adapters: every adapter-capable linear op goes
 through :func:`apply_base_op`, which consults the adapter context installed
-by :func:`adapter_scope`.  With no context the op is a plain einsum.  The
-int8 backbone branch of the JAX package waits for the ``quant_matmul``
-kernel.
+by :func:`adapter_scope`.  With no context the op is a plain einsum.
+
+An int8 backbone weight (``{"q": int8, "scale": f32}``,
+``repro_torch.models.quantize``) goes through ``kops.quant_matmul``, which
+reads the int8 blocks.  Where the JAX package also builds the dense weight
+on every call and leaves it to XLA to drop, this branch builds none: no
+ported method reads the weight (DoRA will, on its own sites).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Optional
+from typing import Dict, Optional, Union
 
 import torch
+
+from repro_torch.kernels import ops as kops
 
 
 class AdapterContext:
@@ -54,14 +60,15 @@ def active_context() -> Optional[AdapterContext]:
     return _ENV.ctx
 
 
-def apply_base_op(name: str, x: torch.Tensor, w: torch.Tensor,
+def apply_base_op(name: str, x: torch.Tensor, w: Union[torch.Tensor, Dict[str, torch.Tensor]],
                   einsum_str: str) -> torch.Tensor:
-    """A BaseOp: einsum + optional adapter Dispatch/Aggregate around it."""
-    if isinstance(w, dict):
-        raise NotImplementedError(
-            "int8 backbone weights need the quant_matmul kernel, not ported yet")
+    """A BaseOp: einsum against a dense weight, or the int8 product against
+    a quantized node, + optional adapter Dispatch/Aggregate around it."""
     ctx = _ENV.ctx
-    out = torch.einsum(einsum_str, x, w)
+    if isinstance(w, dict):
+        out = kops.quant_matmul(x, w["q"], w["scale"], einsum_str)
+    else:
+        out = torch.einsum(einsum_str, x, w)
     if ctx is not None and ctx.has(name):
         out = ctx.apply(name, x, out)
     return out

@@ -43,7 +43,8 @@ def _counters_stay_zero():
     yield
     assert ops.launch_counts() == {
         "grouped_lora": 0, "grouped_lora_bwd": 0, "packed_attention": 0,
-        "packed_attention_dq": 0, "packed_attention_dkv": 0, "decode_attention": 0}
+        "packed_attention_dq": 0, "packed_attention_dkv": 0, "decode_attention": 0,
+        "quant_matmul": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +295,7 @@ def test_decode_attention_bf16():
 
 @pytest.mark.parametrize("name", ["grouped_lora", "grouped_lora_bwd", "packed_attention",
                                   "packed_attention_dq", "packed_attention_dkv",
-                                  "decode_attention"])
+                                  "decode_attention", "quant_matmul"])
 def test_cuda_wrapper_refuses_cpu_tensors(name):
     """The kernel wrappers take CUDA tensors only; the CPU path is ops'."""
     import importlib
@@ -311,6 +312,9 @@ def test_cuda_wrapper_refuses_cpu_tensors(name):
         "packed_attention_dkv": ("packed_attention", attn + (x, torch.zeros(2, 2, 4), x)),
         "decode_attention": ("decode_attention", (x[:, :1], x, x, torch.ones(2, dtype=torch.int32),
                                                   torch.zeros(2, dtype=torch.int32))),
+        "quant_matmul": ("quant_matmul", (torch.zeros(4, 8, dtype=torch.bfloat16),
+                                          torch.zeros(8, 16, dtype=torch.int8),
+                                          torch.ones(16))),
     }[name]
     mod = importlib.import_module(f"repro_torch.kernels.{module}")
     with pytest.raises(ValueError, match="CUDA"):
