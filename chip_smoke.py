@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's two main paths on one NVIDIA GPU and check them:
-multi-tenant LoRA co-serving decode, and multi-task LoRA/Adapter/IA3
-fine-tuning, each on a bf16 backbone and on the int8 backbone tier.
+"""Run the PyTorch port's main paths on one NVIDIA GPU and check them:
+multi-tenant LoRA co-serving decode and multi-task LoRA/Adapter/IA3
+fine-tuning on llama3.2-3b (each on a bf16 and on an int8 backbone), and
+multi-task fine-tuning on the hybrid zamba2-2.7b (Mamba2 + shared attention).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -16,11 +17,17 @@ Phases, one JSON line each (several for the kernel phases):
                     (M = 8), the bind prefill (4096) and the training step
                     (2816), and a ragged one, with the backward's plain dx
                     product timed at the training shapes;
-4. train_kernels -- at the training path's shapes (llama3.2-3b, one fused
-                    micro-batch of 11 rows x 256 from the planner): the
+4. train_kernels -- at the training paths' shapes (one fused micro-batch of
+                    11 rows x 256 from the planner): for llama3.2-3b the
                     forwards that save h / the logsumexp, the grouped LoRA
                     backward and the packed attention dq and dk/dv kernels,
                     each against autograd of the plain version, with times;
+                    for zamba2-2.7b grouped LoRA at the Mamba2 projections
+                    (2560 -> 10448, 5120 -> 2560) and the shared block's
+                    q / v, packed attention at dh = 80, and the three
+                    mamba_scan kernels (forward, state and chunk backward)
+                    at 80 heads of 64, also in a four-chunk carry case with
+                    resets and a non-zero initial state, and unmasked;
 5. serve         -- llama3.2-3b at full width and depth, random weights from
                     a seed, four LoRA tenants on one stacked adapter set;
                     eight greedy requests bound by one batched prefill and
@@ -42,7 +49,13 @@ Phases, one JSON line each (several for the kernel phases):
                     agree with the bf16 run's; both checks also run a second
                     plain path (the scale applied before the sum) whose
                     distance from the first is their noise floor, and the
-                    train check runs on six seeded states.
+                    train check runs on six seeded states;
+9. train_zamba, train_check_zamba -- phases 6-7 on zamba2-2.7b at full
+                    width and depth (54 layers: 9 super-blocks of 5 Mamba2
+                    blocks and the shared attention+MLP block), the same
+                    tenants on ssm_in, ssm_out, attn_q and attn_v; the plain
+                    runs of the check recompute each super-block in the
+                    backward (see ``plain_path``).
 
 Then a {"kernels": [...]} line and last {"ok": true, "device": {...}}.  Any
 failure raises: the script exits non-zero and prints no ok line.  Without a
@@ -66,6 +79,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_gate", "mlp_up", "mlp_down")
 TRAIN_TASKS = "sst2:lora:8,qa:lora:16,rte:adapter:8,sst2:ia3"
+# the hybrid tenants' sites: the Mamba2 projections and the shared block's q, v
+ZAMBA_TARGETS = ("ssm_in", "ssm_out", "attn_q", "attn_v")
 TRAIN_MICRO_BATCH = 8
 TRAIN_LR = 2e-3
 TRAIN_ITERS = 6
@@ -96,7 +111,7 @@ INT8_LOGIT_TOL = 0.10
 # where autograd differentiates the plain version's f32 o: a relative 2**-9
 # error in D enters every ds.
 GRAD_TOL = {"grouped_lora_bwd": KERNEL_TOL, "packed_attention_dq": 2 * KERNEL_TOL,
-            "packed_attention_dkv": 2 * KERNEL_TOL}
+            "packed_attention_dkv": 2 * KERNEL_TOL, "mamba_scan_bwd_chunk": KERNEL_TOL}
 # f32 outputs (h, lse): sums in another order, a few f32 units of the largest
 # magnitude.
 F32_TOL = 1e-5
@@ -122,6 +137,14 @@ GRAD_PATH_TOL = 0.10
 # INT8_CHECK_SEEDS.
 INT8_GRAD_PATH_TOL = 0.20
 INT8_CHECK_SEEDS = (3, 4, 5, 6, 7, 8)
+# On zamba2-2.7b (54 layers: 45 bf16 scans and the shared block 9 times)
+# each bf16 path sits further from the f32 run than on llama: 13.3-15.4% of
+# a leaf's largest |g| in two runs on an H100, and kernel vs plain came
+# 6.3% and 8.7% apart (the adapters' state before the check follows each
+# run's synthetic batches).  GRAD_PATH_TOL lies inside that noise; 20%
+# bounds the sum of two such spreads and stays far below a fault; the f32
+# guard holds the kernel path to the plain path's accuracy.
+ZAMBA_GRAD_PATH_TOL = 0.20
 # The int8 backbone's bytes against the cost model's Eq. 5 term, which
 # counts the BaseOp weights at one byte and the rest at two but not the f32
 # scales (0.1% of the backbone at full width).
@@ -701,28 +724,56 @@ def train_plan(backbone_dtype="bfloat16"):
     return cfg, tasks, plan
 
 
+def zamba_plan():
+    """The hybrid training path's configuration (zamba2-2.7b at full width
+    and depth), the same tenants on the Mamba2 projections and the shared
+    block's q / v, and their plan."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecutionPlanner, ParallelismSpec
+    from repro_torch.launch.train import parse_tasks
+
+    cfg = get_config("zamba2-2.7b")
+    tasks = [dataclasses.replace(t, adapter=dataclasses.replace(t.adapter, targets=ZAMBA_TARGETS))
+             for t in parse_tasks(TRAIN_TASKS, TRAIN_MICRO_BATCH)]
+    plan = ExecutionPlanner(cfg, ParallelismSpec(num_stages=1)).plan(tasks, n_micro=1)
+    return cfg, tasks, plan
+
+
+def step_launches(cfg, adapters):
+    """Kernel launches of one training micro step, forward and backward,
+    from the model's layout and the LoRA sites of the adapter tree."""
+    if cfg.family == "dense":
+        attn, scans = cfg.num_layers, 0
+        lora = len(adapters.get("lora", {})) * cfg.num_layers
+    else:  # hybrid: n_super x (per Mamba2 blocks + the shared block)
+        attn = cfg.num_layers // cfg.hybrid_period
+        scans = attn * (cfg.hybrid_period - 1)
+        lora = scans * len(adapters["mamba"].get("lora", {})) \
+            + attn * len(adapters["shared_attn"].get("lora", {}))
+    return {"grouped_lora": lora, "grouped_lora_bwd": lora, "packed_attention": attn,
+            "packed_attention_dq": attn, "packed_attention_dkv": attn, "mamba_scan": scans,
+            "mamba_scan_bwd_state": scans, "mamba_scan_bwd_chunk": scans}
+
+
 def _autograd_ms(torch, timer, out, inputs, grad):
     """Time of the backward of an autograd graph built once."""
     return timer(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True))
 
 
-def train_kernel_phase(torch, timer, cfg, tasks, plan):
-    """Each training kernel against autograd of its plain version at the
-    training path's shapes: the first hTask of the plan (rows x row_len
-    tokens), the LoRA stack of its tenants, llama3.2-3b's attention."""
-    import torch.nn.functional as F
-
+def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what, tag):
+    """Grouped LoRA forward (saving h) and backward against autograd of the
+    plain version at M = rows x row_len of the plan's first hTask, the LoRA
+    tenants' rows, stack rank and capacity, for each (d_in, d_out) of
+    ``shapes``; the results sum the shapes of ``layer`` (one layer's or one
+    super-block's LoRA sites)."""
     from repro_torch.kernels import grouped_lora as gl
-    from repro_torch.kernels import packed_attention as pa
 
-    g = torch.Generator(device="cuda").manual_seed(2)
     bf16, dev = torch.bfloat16, "cuda"
     h0 = plan.htasks[0]
     B, S = h0.rows, h0.row_len
     M = B * S
-    results = {}
-
-    # ---- grouped LoRA: the LoRA tenants' rows, stack rank, capacity ----
     lora = [i for i, t in enumerate(tasks) if t.adapter.kind == "lora"]
     T, r = 2, max(tasks[i].adapter.rank for i in lora)  # capacity 1 -> 2 for two tenants
     slot = {t: s for s, t in enumerate(lora)}
@@ -732,7 +783,7 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
                          device=dev)
     active = int((rt >= 0).sum().item())
     per_shape = {}
-    for d_in, d_out in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)):
+    for d_in, d_out in shapes:
         x = torch.randn((M, d_in), generator=g, device=dev).to(bf16)
         gy = torch.randn((M, d_out), generator=g, device=dev).to(bf16)
         a = (torch.randn((T, d_in, r), generator=g, device=dev) * 0.02).to(bf16)
@@ -766,35 +817,36 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
         bb, byb = bound_ms(*work["bwd"])
         per_shape[(d_in, d_out)] = {"fwd": (ms_f, plain_f, err_f) + work["fwd"],
                                     "bwd": (ms_b, plain_b, err_b) + work["bwd"]}
-        emit({"phase": "train_kernels", "kernel": "grouped_lora", "M": M, "rows_with_lora":
-              active, "d_in": d_in, "d_out": d_out, "T": T, "r": r,
+        emit({"phase": "train_kernels", "kernel": "grouped_lora", "model": tag, "M": M,
+              "rows_with_lora": active, "d_in": d_in, "d_out": d_out, "T": T, "r": r,
               "fwd_save_h": {"ms": ms_f, "plain_ms": plain_f, "bound_ms": bf, "bound_by": byf,
                              "max_abs_err": err_f},
               "bwd": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bb, "bound_by": byb,
                       "max_abs_err": err_b, "tol_rel": GRAD_TOL["grouped_lora_bwd"]}})
-    # a capacity slot no row routes to gets exact zeros
-    a3 = (torch.randn((3, 3072, r), generator=g, device=dev) * 0.02).to(bf16)
-    b3 = (torch.randn((3, r, 1024), generator=g, device=dev) * 0.02).to(bf16)
-    x3 = torch.randn((M, 3072), generator=g, device=dev).to(bf16)
-    g3 = torch.randn((M, 1024), generator=g, device=dev).to(bf16)
-    s3 = torch.cat([scale, torch.ones(1, device=dev)])
-    _, h3 = gl.grouped_lora_cuda(x3, a3, b3, rt, s3, save_h=True)
-    _, da3, db3 = gl.grouped_lora_bwd_cuda(x3, a3, b3, rt, s3, h3, g3)
-    if da3[2].abs().max().item() != 0.0 or db3[2].abs().max().item() != 0.0:
-        raise AssertionError("grouped_lora backward: an unused slot's gradient is not 0")
-    # the four LoRA sites of one layer (attn q, k, v, o)
-    layer = [(3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072)]
+    results = {}
     for key, name in (("fwd", "grouped_lora_train"), ("bwd", "grouped_lora_bwd")):
         ms, plain, nbytes, flops = (sum(per_shape[sh][key][i] for sh in layer)
                                     for i in (0, 1, 3, 4))
         bms, by = bound_ms(nbytes, flops)
         results[name] = {
-            "shape": f"M={M}, T={T}, r={r}: the four LoRA sites of one layer of one "
-                     f"training micro step (sum)",
+            "shape": f"M={M}, T={T}, r={r}: {layer_what} of one training micro step (sum)",
             "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
             "max_abs_err": max(v[key][2] for v in per_shape.values())}
+    return results, (rt, scale, r, M)
 
-    # ---- packed attention on the plan's loader layout ----
+
+def _attention_train_kernels(torch, timer, g, cfg, plan, tag):
+    """Packed attention forward (saving lse), dq and dk/dv against autograd
+    of the plain version on the plan's loader layout at the model's heads,
+    with the model's tiles and with the ops default (128) where the tile
+    rule cuts; SDPA's forward and backward as the library times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import packed_attention as pa
+
+    bf16, dev = torch.bfloat16, "cuda"
+    h0 = plan.htasks[0]
+    B, S = h0.rows, h0.row_len
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     arr = plan.alignment[0].arrays()
     pos = torch.as_tensor(arr["positions"], device=dev)
@@ -805,6 +857,7 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
     v = torch.randn((B, S, Hkv, dh), generator=g, device=dev).to(bf16)
     do = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
     path_tiles = pa.tile_sizes(S, S, cfg.attn_q_block)
+    results = {}
     # the model's tiles, and the ops default (128), where the tile rule cuts
     for case, (bq, bk) in (("path", path_tiles), ("tile128", pa.tile_sizes(S, S))):
         o, lse = pa.packed_attention_cuda(q, k, v, *ints, True, bq, bk, save_lse=True)
@@ -819,14 +872,14 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
         dk, dv = pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
         dq_ref, dk_ref, dv_ref = torch.autograd.grad(o_ref, (qr, kr, vr), do, retain_graph=True)
         torch.cuda.synchronize()
-        where = f"packed_attention train {case} (bq={bq}, bk={bk})"
+        where = f"packed_attention train {tag} {case} (bq={bq}, bk={bk})"
         err_f = max(compare(o, o_ref, where)[0],
                     compare(lse, lse_ref, where + " lse", F32_TOL)[0])
         err_dq = compare(dq, dq_ref, where + " dq", GRAD_TOL["packed_attention_dq"])[0]
         err_dkv = max(compare(dk, dk_ref, where + " dk", GRAD_TOL["packed_attention_dkv"])[0],
                       compare(dv, dv_ref, where + " dv", GRAD_TOL["packed_attention_dkv"])[0])
-        line = {"phase": "train_kernels", "kernel": "packed_attention", "case": case,
-                "B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh, "bq": bq, "bk": bk,
+        line = {"phase": "train_kernels", "kernel": "packed_attention", "model": tag,
+                "case": case, "B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh, "bq": bq, "bk": bk,
                 "fwd_lse_max_abs_err": err_f, "dq_max_abs_err": err_dq,
                 "dkv_max_abs_err": err_dkv}
         if case == "path":
@@ -868,18 +921,206 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
     return results
 
 
+def train_kernel_phase(torch, timer, cfg, tasks, plan):
+    """Each training kernel against autograd of its plain version at the
+    training path's shapes: the first hTask of the plan (rows x row_len
+    tokens), the LoRA stack of its tenants, llama3.2-3b's attention."""
+    from repro_torch.kernels import grouped_lora as gl
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    bf16, dev = torch.bfloat16, "cuda"
+    layer = [(3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072)]
+    results, (rt, scale, r, M) = _lora_train_kernels(
+        torch, timer, g, tasks, plan, ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)),
+        layer, "the four LoRA sites of one layer", cfg.name)
+    # a capacity slot no row routes to gets exact zeros
+    a3 = (torch.randn((3, 3072, r), generator=g, device=dev) * 0.02).to(bf16)
+    b3 = (torch.randn((3, r, 1024), generator=g, device=dev) * 0.02).to(bf16)
+    x3 = torch.randn((M, 3072), generator=g, device=dev).to(bf16)
+    g3 = torch.randn((M, 1024), generator=g, device=dev).to(bf16)
+    s3 = torch.cat([scale, torch.ones(1, device=dev)])
+    _, h3 = gl.grouped_lora_cuda(x3, a3, b3, rt, s3, save_h=True)
+    _, da3, db3 = gl.grouped_lora_bwd_cuda(x3, a3, b3, rt, s3, h3, g3)
+    if da3[2].abs().max().item() != 0.0 or db3[2].abs().max().item() != 0.0:
+        raise AssertionError("grouped_lora backward: an unused slot's gradient is not 0")
+    results.update(_attention_train_kernels(torch, timer, g, cfg, plan, cfg.name))
+    return results
+
+
+def _scan_case(torch, g, B, S, H, resets, h0_zero, reset_rows=None):
+    """Inputs of a mamba_scan call as mamba2_apply forms them: C and B rows
+    (q, k) broadcast over the heads and made contiguous, x heads (v), the
+    decay dt * -exp(a_log) and input gate log(dt) of a softplus dt, and
+    ``la`` zeroed at the reset rows, as ``ops.mamba_scan`` does.
+    ``reset_rows`` gives the rows [B, S] (else random at rate ``resets``)."""
+    import torch.nn.functional as F
+
+    dev, bf16 = "cuda", torch.bfloat16
+    q = torch.randn((B, S, 1, 64), generator=g, device=dev).to(bf16).expand(B, S, H, 64)
+    k = torch.randn((B, S, 1, 64), generator=g, device=dev).to(bf16).expand(B, S, H, 64)
+    v = torch.randn((B, S, H, 64), generator=g, device=dev).to(bf16)
+    dt = F.softplus(torch.randn((B, S, H), generator=g, device=dev) - 2.0)
+    a_log = torch.rand((H,), generator=g, device=dev) * 2.0
+    la = dt * -torch.exp(a_log)
+    li = torch.log(torch.clamp(dt, min=1e-9))
+    h0 = torch.zeros((B, H, 64, 64), device=dev) if h0_zero \
+        else torch.randn((B, H, 64, 64), generator=g, device=dev) * 0.5
+    r = reset_rows
+    if r is None and resets:
+        r = (torch.rand((B, S), generator=g, device=dev) < resets).to(torch.int32)
+        r[0, 0] = 1  # one row starts with a reset, the others carry h0 in
+    if r is not None:
+        la = torch.where(r[:, :, None] > 0, torch.zeros_like(la), la)
+    return [t.contiguous() for t in (q, k, v, la, li)] + [r, h0]
+
+
+def _scan_work(torch, B, S, H, Q, r):
+    """(bytes, operations) of the forward, state backward and chunk backward
+    on these inputs: each input read once, each output written once; the
+    products of the live (query, key) pairs of each chunk (same segment,
+    key not after query) and the state terms of the rows they reach."""
+    n = S // Q
+    rc = torch.zeros((B, n, Q), dtype=torch.int64, device="cuda") if r is None \
+        else r.reshape(B, n, Q).long()
+    seg = torch.cumsum(rc, dim=2)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device="cuda"))
+    pairs = int(((seg[..., :, None] == seg[..., None, :]) & tri).sum().item()) * H
+    entry = int((seg == 0).sum().item()) * H
+    exit_ = int((seg == seg[..., -1:]).sum().item()) * H
+    rows, dd = B * S * H, 64 * 64
+    x16, f32 = rows * 64 * 2, rows * 4
+    states = B * H * dd * 4
+    ints = B * S * 4 if r is not None else 0
+    return {
+        "fwd": (3 * x16 + 2 * f32 + ints + states + x16 + states + n * states,
+                4.0 * 64 * pairs + 2.0 * dd * (entry + exit_)),
+        "bwd_state": (2 * x16 + f32 + ints + states + n * states + states,
+                      2.0 * dd * entry),
+        "bwd_chunk": (4 * x16 + 2 * f32 + ints + 2 * n * states + 3 * x16 + 2 * f32,
+                      10.0 * 64 * pairs + 2.0 * dd * (entry + 2 * exit_) + 4.0 * 64 * rows),
+    }
+
+
+def _mamba_train_kernels(torch, timer, g, cfg, plan):
+    """The three mamba_scan kernels against their plain versions and against
+    autograd of the plain forward: at the training shapes (the plan's first
+    hTask, its reset rows, zamba2's heads, Q = min(ssm_chunk, row_len), zero
+    initial state as mamba2_apply passes it), and in a carry case of four
+    chunks (S = 1024) with random resets and a non-zero initial state, and
+    an unmasked one.  Tolerances: y and dq/dk/dv (bf16) within KERNEL_TOL of
+    their largest magnitude, as the other bf16 outputs; the f32 outputs (h,
+    hin, dla, dli, dh0) within F32_TOL of theirs: sums in another order."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    h0_ = plan.htasks[0]
+    B, S = h0_.rows, h0_.row_len
+    H = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim
+    Q = min(cfg.ssm_chunk, S)
+    reset = torch.as_tensor(plan.alignment[0].arrays()["reset"], device="cuda")
+    cases = {"path": (B, S, Q, _scan_case(torch, g, B, S, H, 0, True,
+                                          (reset > 0).to(torch.int32))),
+             "carry": (2, 1024, 256, _scan_case(torch, g, 2, 1024, H, 0.004, False)),
+             "unmasked": (2, 1024, 256, _scan_case(torch, g, 2, 1024, H, 0, False))}
+    results = {}
+    worst = dict.fromkeys(("mamba_scan", "mamba_scan_bwd_state", "mamba_scan_bwd_chunk"), 0.0)
+    for case, (Bc, Sc, Qc, (q, k, v, la, li, r, h0)) in cases.items():
+        where = f"mamba_scan {case} B={Bc} S={Sc} H={H} Q={Qc}"
+        y, h, hin = ms.mamba_scan_cuda(q, k, v, la, li, r, h0, Qc, save_states=True)
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v, la, li, h0)]
+        y_ref, h_ref, hin_ref = ms.mamba_scan_plain(*ts[:5], r, ts[5], Qc, save_states=True)
+        dy = torch.randn(y.shape, generator=g, device="cuda").to(torch.bfloat16)
+        dhf = torch.randn(h.shape, generator=g, device="cuda") * 0.3
+        got = ms.mamba_scan_backward_cuda(q, k, v, la, li, r, hin, h, dy, dhf, Qc)
+        refs = torch.autograd.grad((y_ref.float() * dy.float()).sum() + (h_ref * dhf).sum(), ts,
+                                   retain_graph=True)
+        torch.cuda.synchronize()
+        err = {"y": compare(y, y_ref, where + " y")[0],
+               "h": compare(h, h_ref, where + " h", F32_TOL)[0],
+               "hin": compare(hin, hin_ref, where + " hin", F32_TOL)[0]}
+        for name, got_t, ref_t in zip(("dq", "dk", "dv", "dla", "dli", "dh0"), got, refs):
+            tol = GRAD_TOL["mamba_scan_bwd_chunk"] if name in ("dq", "dk", "dv") else F32_TOL
+            err[name] = compare(got_t, ref_t, f"{where} {name}", tol)[0]
+        case_err = {"mamba_scan": max(err["y"], err["h"], err["hin"]),
+                    "mamba_scan_bwd_state": err["dh0"],
+                    "mamba_scan_bwd_chunk": max(err[n] for n in ("dq", "dk", "dv", "dla", "dli"))}
+        worst = {name: max(worst[name], case_err[name]) for name in worst}
+        line = {"phase": "train_kernels", "kernel": "mamba_scan", "model": cfg.name,
+                "case": case, "B": Bc, "S": Sc, "H": H, "dk": 64, "dv": 64, "Q": Qc,
+                "reset_rows": 0 if r is None else int(r.sum().item()),
+                "h0_nonzero": bool(h0.abs().max().item() > 0), "max_abs_err": err}
+        if case == "path":
+            gexit, _ = ms.mamba_scan_bwd_state_cuda(q, la, r, dy, dhf, Qc)
+            plain_in = (q, k, v, la, li, r, h0, Qc)
+            times = {
+                "mamba_scan": (timer(lambda: ms.mamba_scan_cuda(*plain_in, save_states=True)),
+                               timer(lambda: ms.mamba_scan_plain(*plain_in, save_states=True))),
+                "mamba_scan_bwd_state": (
+                    timer(lambda: ms.mamba_scan_bwd_state_cuda(q, la, r, dy, dhf, Qc)),
+                    timer(lambda: ms.mamba_scan_bwd_state_plain(q, la, r, dy, dhf, Qc))),
+                "mamba_scan_bwd_chunk": (
+                    timer(lambda: ms.mamba_scan_bwd_chunk_cuda(q, k, v, la, li, r, dy, hin,
+                                                               gexit, Qc)),
+                    timer(lambda: ms.mamba_scan_bwd_chunk_plain(q, k, v, la, li, r, dy, hin,
+                                                                gexit, Qc)))}
+            # device time too: the state backward is shorter than its launch
+            dev_ms = {
+                "mamba_scan": kernel_device_ms(
+                    torch, timer, lambda: ms.mamba_scan_cuda(*plain_in, save_states=True),
+                    "mamba_scan_fwd"),
+                "mamba_scan_bwd_state": kernel_device_ms(
+                    torch, timer, lambda: ms.mamba_scan_bwd_state_cuda(q, la, r, dy, dhf, Qc),
+                    "mamba_scan_bwd_state"),
+                "mamba_scan_bwd_chunk": kernel_device_ms(
+                    torch, timer, lambda: ms.mamba_scan_bwd_chunk_cuda(
+                        q, k, v, la, li, r, dy, hin, gexit, Qc), "mamba_scan_bwd_chunk")}
+            autograd_ms = _autograd_ms(torch, timer, (y_ref.float() * dy.float()).sum()
+                                       + (h_ref * dhf).sum(), ts, None)
+            work = _scan_work(torch, Bc, Sc, H, Qc, r)
+            shape = (f"B={Bc}, S={Sc}, H={H}, dk=dv=64, Q={Qc}, the plan's reset rows "
+                     f"({line['reset_rows']}), h0 = 0")
+            for name, key in (("mamba_scan", "fwd"), ("mamba_scan_bwd_state", "bwd_state"),
+                              ("mamba_scan_bwd_chunk", "bwd_chunk")):
+                bms, by = bound_ms(*work[key])
+                results[name] = {"shape": shape, "ms": times[name][0],
+                                 "device_ms": dev_ms[name], "plain_ms": times[name][1],
+                                 "bound_ms": bms, "bound_by": by, "library_ms": None}
+                line[key] = {k_: v_ for k_, v_ in results[name].items() if k_ != "shape"}
+            line["plain_autograd_backward_ms"] = autograd_ms
+        emit(line)
+    for name in worst:  # over the three cases
+        results[name]["max_abs_err"] = worst[name]
+    return results
+
+
+def zamba_kernel_phase(torch, timer, cfg, tasks, plan):
+    """The training kernels at zamba2's shapes: grouped LoRA at the Mamba2
+    projections (2560 -> 10448, ragged at the tile edge, and 5120 -> 2560)
+    and the shared block's q / v (2560 -> 2560); packed attention at
+    dh = 80, H = Hkv = 32; the three mamba_scan kernels."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    per = cfg.hybrid_period - 1
+    layer = [(2560, 10448), (5120, 2560)] * per + [(2560, 2560)] * 2
+    results, _ = _lora_train_kernels(
+        torch, timer, g, tasks, plan, ((2560, 10448), (5120, 2560), (2560, 2560)), layer,
+        f"the {2 * per + 2} LoRA sites of one super-block ({per} x ssm_in, ssm_out; "
+        f"attn_q, attn_v)", cfg.name)
+    results.update(_attention_train_kernels(torch, timer, g, cfg, plan, cfg.name))
+    results.update(_mamba_train_kernels(torch, timer, g, cfg, plan))
+    return {f"{k}_zamba2": v for k, v in results.items()}
+
+
 def train_phase(torch, cfg, tasks, plan):
-    """The training path: PEFTEngine.run_iteration on llama3.2-3b, its
-    backbone stored as ``cfg.backbone_dtype``."""
+    """The training path: PEFTEngine.run_iteration on ``cfg`` (llama3.2-3b
+    or zamba2-2.7b), its backbone stored as ``cfg.backbone_dtype``."""
     import numpy as np
 
     from repro_torch.core import ModelGenerator, PEFTEngine
     from repro_torch.data import HTaskLoader
     from repro_torch.kernels import ops
-    from repro_torch.peft.methods import base_op_dims
+    from repro_torch.models.quantize import tensor_bytes
 
     int8 = cfg.backbone_dtype == "int8"
-    suffix = "_int8" if int8 else ""
+    suffix = "_int8" if int8 else ("_zamba" if cfg.family == "hybrid" else "")
     L = cfg.num_layers
     gen = ModelGenerator(cfg, seed=0)
     gen.init_backbone()
@@ -911,18 +1152,17 @@ def train_phase(torch, cfg, tasks, plan):
     counts = ops.launch_counts()
     torch.cuda.synchronize()
     steps_per_iter = len(engine._schedule(None))
-    sites = len(reg.mta.kind_sites("lora"))
     n = TRAIN_ITERS * steps_per_iter
     want = dict.fromkeys(counts, 0)
-    want.update({"grouped_lora": n * sites * L, "grouped_lora_bwd": n * sites * L,
-                 "packed_attention": n * L, "packed_attention_dq": n * L,
-                 "packed_attention_dkv": n * L})
+    want.update({k: n * v for k, v in step_launches(cfg, reg.adapter_params).items()})
     if int8:  # every BaseOp of every layer, once per micro step (forward)
+        from repro_torch.peft.methods import base_op_dims
         want["quant_matmul"] = n * len(base_op_dims(cfg)) * L
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the plan implies {want}")
     secs = [m.wall_seconds for m, _ in iters]
-    emit({"phase": "train" + suffix, "backbone_dtype": cfg.backbone_dtype, "model": cfg.name, "layers": L, "d_model": cfg.d_model,
+    emit({"phase": "train" + suffix, "backbone_dtype": cfg.backbone_dtype, "model": cfg.name,
+          "layers": L, "d_model": cfg.d_model, "backbone_bytes": tensor_bytes(engine.backbone),
           "tasks": TRAIN_TASKS, "micro_batch": TRAIN_MICRO_BATCH, "lr": TRAIN_LR,
           "warmup_seconds": warm.wall_seconds, "iterations": TRAIN_ITERS,
           "micro_steps_per_iteration": steps_per_iter, "launches": counts,
@@ -936,8 +1176,11 @@ def train_phase(torch, cfg, tasks, plan):
     prof = profile_device(torch, lambda: engine.run_iteration(loaders), 1,
                           {"grouped_lora": ("grouped_lora",),
                            "packed_attention": ("packed_attention",),
+                           "mamba_scan": ("mamba_scan",),
                            "quant_matmul": ("qmm_",),
-                           "f32_matmul (quant_matmul dx)": ("sgemm", "f32f32")})
+                           # f32 cuBLAS: quant_matmul's dx on int8; the Adapter
+                           # method's f32 products
+                           "f32_matmul": ("sgemm", "f32f32")})
     # the profiler slows the host: the device's busy share of an unprofiled
     # iteration is its device time over the timed iterations' median
     emit({"phase": "profile", "path": "train iteration" + suffix, **prof,
@@ -972,21 +1215,25 @@ def train_check(torch, engine, seed=3):
 
     dev = engine.device
     g = torch.Generator(device=dev).manual_seed(seed)
-    params = {kind: {site: {leaf: (torch.randn(t.shape, generator=g, device=dev)
-                                   * 0.02).to(t.dtype) if leaf in ("b", "up", "s") else t
-                            for leaf, t in leaves.items()}
-                     for site, leaves in sites.items()}
-              for kind, sites in engine.reg.adapter_params.items()}
+
+    def fill(tree):  # depth first, in the tree's order: one draw per filled leaf
+        return {k: fill(t) if isinstance(t, dict) else
+                ((torch.randn(t.shape, generator=g, device=dev) * 0.02).to(t.dtype)
+                 if k in ("b", "up", "s") else t)
+                for k, t in tree.items()}
+
+    params = fill(engine.reg.adapter_params)
     plan, vocab = engine.plan, engine.model.cfg.vocab_size
     loader = HTaskLoader(plan.tasks, plan.alignment[0], vocab,
                          streams={i: _seeded_stream(97 + seed + i, vocab)
                                   for i in range(len(plan.tasks))})
     batch = device_put_batch(next(loader), dev)
     fn = engine._loss_and_grads_fn(0)
+    plain = plain_path(torch, engine.model)
     runs = {"kernel": (params, engine.backbone, contextlib.nullcontext),
-            "plain": (params, engine.backbone, ops.force_plain),
+            "plain": (params, engine.backbone, plain),
             "f32": (tree_map(lambda t: t.float(), params), densify(torch, engine.backbone),
-                    ops.force_plain)}
+                    plain)}
     int8 = engine.model.cfg.backbone_dtype == "int8"
     if int8:
         runs["plain_scale_first"] = (params, engine.backbone, plain_scale_first)
@@ -1013,8 +1260,10 @@ def train_check(torch, engine, seed=3):
             err = (grads[a][i].float() - grads[b][i].float()).abs().max().item() / scale
             if err > worst[f"{a}_vs_{b}"][0]:
                 worst[f"{a}_vs_{b}"] = (err, name)
-    tol = INT8_GRAD_PATH_TOL if int8 else GRAD_PATH_TOL
-    emit({"phase": "train_check" + ("_int8" if int8 else ""), "seed": seed,
+    hybrid = engine.model.cfg.family == "hybrid"
+    tol = INT8_GRAD_PATH_TOL if int8 else (ZAMBA_GRAD_PATH_TOL if hybrid else GRAD_PATH_TOL)
+    suffix = "_int8" if int8 else ("_zamba" if hybrid else "")
+    emit({"phase": "train_check" + suffix, "seed": seed,
           "per_task_loss_kernel": pt["kernel"].tolist(),
           "per_task_loss_plain": pt["plain"].tolist(), "per_task_loss_f32": pt["f32"].tolist(),
           "loss_max_rel_err": loss_err, "loss_tol_rel": LOSS_TOL, "grad_leaves": len(names),
@@ -1027,6 +1276,35 @@ def train_check(torch, engine, seed=3):
         raise AssertionError(f"train_check: the kernel path is further from the f32 "
                              f"reference ({worst['kernel_vs_f32']}) than twice the plain "
                              f"path ({worst['plain_vs_f32']})")
+
+
+def plain_path(torch, model):
+    """A context for the plain versions' runs of ``model``.  On the hybrid
+    family each super-block is also recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant): the JAX config's
+    ``remat=True`` (``jax.checkpoint`` of the super-block), which changes no
+    value.  Without it autograd of the plain scan would keep several f32
+    [rows, Q, Q, heads] tensors for each of the 45 Mamba2 blocks, more than
+    the card holds beside the f32 backbone.  The kernel path runs without
+    recomputation, as training does."""
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def ctx():
+        with ops.force_plain():
+            if model.cfg.family != "hybrid":
+                yield
+                return
+            block = model._super_block
+            model._super_block = lambda x, *a, **kw: checkpoint(block, x, *a,
+                                                                use_reentrant=False, **kw)
+            try:
+                yield
+            finally:
+                del model._super_block
+    return ctx
 
 
 def _leaf_paths(tree, prefix=()):
@@ -1064,10 +1342,12 @@ def main() -> int:
         kern.update(quant_kernel_phase(torch, timer))
     cfg, tasks, plan = train_plan()
     kern.update(train_kernel_phase(torch, timer, cfg, tasks, plan))
+    zamba = zamba_plan()
+    kern.update(zamba_kernel_phase(torch, timer, *zamba))
     torch.cuda.synchronize()
 
-    # the main paths, bf16 and int8 backbones, each with the launch counts
-    # set to 0 just before it
+    # the main paths (llama3.2-3b on bf16 and int8 backbones, zamba2-2.7b
+    # training), each with the launch counts set to 0 just before it
     counts = {}
     # (the engine's step closures refer to it: collect the cycle, so that
     # each phase's memory peak holds its own backbone only)
@@ -1085,24 +1365,41 @@ def main() -> int:
     counts["train_int8"], engine = train_phase(torch, *train_plan("int8"))
     for seed in INT8_CHECK_SEEDS:
         train_check(torch, engine, seed)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["train_zamba"], engine = train_phase(torch, *zamba)
+    train_check(torch, engine)
 
+    # (name, source, Pallas kernel body, the entry's own measurement, variants)
     csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"
     kernels = [
-        ("grouped_lora", "grouped_lora.cu", "grouped_lora.py:49", "grouped_lora_train"),
-        ("grouped_lora_bwd", "grouped_lora.cu", "grouped_lora.py:91", None),
-        ("packed_attention", "packed_attention.cu", "packed_attention.py:60",
-         "packed_attention_train"),
-        ("packed_attention_dq", "packed_attention.cu", "packed_attention.py:128", None),
-        ("packed_attention_dkv", "packed_attention.cu", "packed_attention.py:185", None),
-        ("decode_attention", "decode_attention.cu", "decode_attention.py:40", None),
-        ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", None),
+        ("grouped_lora", "grouped_lora.cu", "grouped_lora.py:49", "grouped_lora",
+         {"train_variant": "grouped_lora_train", "zamba2_variant": "grouped_lora_train_zamba2"}),
+        ("grouped_lora_bwd", "grouped_lora.cu", "grouped_lora.py:91", "grouped_lora_bwd",
+         {"zamba2_variant": "grouped_lora_bwd_zamba2"}),
+        ("packed_attention", "packed_attention.cu", "packed_attention.py:60", "packed_attention",
+         {"train_variant": "packed_attention_train",
+          "zamba2_variant": "packed_attention_train_zamba2"}),
+        ("packed_attention_dq", "packed_attention.cu", "packed_attention.py:128",
+         "packed_attention_dq", {"zamba2_variant": "packed_attention_dq_zamba2"}),
+        ("packed_attention_dkv", "packed_attention.cu", "packed_attention.py:185",
+         "packed_attention_dkv", {"zamba2_variant": "packed_attention_dkv_zamba2"}),
+        ("decode_attention", "decode_attention.cu", "decode_attention.py:40",
+         "decode_attention", {}),
+        ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", "quant_matmul", {}),
+        ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:76", "mamba_scan_zamba2", {}),
+        ("mamba_scan_bwd_state", "mamba_scan.cu", "mamba_scan.py:136",
+         "mamba_scan_bwd_state_zamba2", {}),
+        ("mamba_scan_bwd_chunk", "mamba_scan.cu", "mamba_scan.py:175",
+         "mamba_scan_bwd_chunk_zamba2", {}),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": csrc + src, "replaces": jax_k + rep,
          "launches": sum(c[name] for c in counts.values()),
          "launches_by_path": {path: c[name] for path, c in counts.items()},
-         **kern[name], **({"train_variant": kern[variant]} if variant else {})}
-        for name, src, rep, variant in kernels]})
+         **kern[own], **{k: kern[v] for k, v in variants.items()}}
+        for name, src, rep, own, variants in kernels]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

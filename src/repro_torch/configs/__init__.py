@@ -2,7 +2,7 @@
 
 The port keeps its own copy of ``ArchConfig`` so it never imports the JAX
 package.  The registry lists only the configurations whose family the port
-runs; ``get_config`` raises on every other name.
+runs (dense and hybrid); ``get_config`` raises on every other name.
 """
 from __future__ import annotations
 
@@ -13,9 +13,9 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     """A backbone architecture: the fields of the JAX package's
-    ``ArchConfig`` that the dense family and the planner read (the MoE, SSM,
-    audio and TPU execution fields come with the families and tiers that use
-    them)."""
+    ``ArchConfig`` that the dense and hybrid families and the planner read
+    (the MoE, xLSTM, audio and TPU execution fields come with the families
+    and tiers that use them)."""
 
     name: str
     family: str
@@ -26,6 +26,17 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // num_heads
+    # --- SSM / hybrid ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    # hybrid: layers per super-block; the last of each is the attention block
+    hybrid_period: int = 0
+    shared_attention: bool = False  # zamba2-style weight-shared attn block
+    gated_mlp: bool = True  # SwiGLU-style (gate/up/down); the port runs only this
+    # attention kind: "full" | "none" (pure recurrent)
+    attention: str = "full"
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
@@ -62,18 +73,32 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Backbone parameter count of the dense family (gated MLP)."""
+        """Backbone parameter count (the JAX package's formula for the dense
+        and hybrid families; the cost model's Eq. 5 reads it)."""
         d = self.d_model
         n_attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
-        per_layer = n_attn + 3 * d * self.d_ff + 2 * d
+        n_mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        n_norms = 2 * d
+        if self.family == "hybrid":
+            # the JAX formula, not the spec's leaf count: in-proj of x and z,
+            # B/C and dt rows, out-proj; one attention+MLP copy when shared
+            d_in = self.ssm_expand * d
+            n_ssm = d * 2 * d_in + d_in * 2 * self.ssm_state + d_in + d_in * d
+            n_attn_layers = self.num_layers // self.hybrid_period if self.hybrid_period else 0
+            attn_copies = 1 if self.shared_attention else n_attn_layers
+            total = ((self.num_layers - n_attn_layers) * (n_ssm + n_norms)
+                     + attn_copies * (n_attn + n_mlp + n_norms))
+        else:
+            total = self.num_layers * (n_attn + n_mlp + n_norms)
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        return self.num_layers * per_layer + embed + d  # final norm
+        return total + embed + d  # final norm
 
 
-# Only the configurations of the families the port runs (dense).
+# Only the configurations of the families the port runs (dense, hybrid).
 _REGISTRY = {
     "llama3.2-3b": "llama3_2_3b",
     "smollm-360m": "smollm_360m",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 ARCH_NAMES = tuple(_REGISTRY)
@@ -90,9 +115,9 @@ def get_config(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     """A reduced config of the same family for CPU tests (the JAX package's
-    ``smoke_config`` overrides for the dense family)."""
+    ``smoke_config`` overrides for the dense and hybrid families)."""
     cfg = get_config(name)
-    return cfg.with_overrides(
+    over = dict(
         num_layers=2,
         d_model=64,
         num_heads=4,
@@ -103,3 +128,7 @@ def smoke_config(name: str) -> ArchConfig:
         attn_q_block=32,
         remat=False,
     )
+    if cfg.family == "hybrid":
+        over.update(ssm_state=8, ssm_head_dim=16, ssm_chunk=16, num_layers=4,
+                    hybrid_period=2)
+    return cfg.with_overrides(**over)

@@ -3,14 +3,23 @@
 Both functions take nested dicts of numpy arrays laid out as the JAX
 package lays them out, and return the same layout as torch tensors:
 
-* ``backbone_from_numpy``: the ``Model`` tree, layers stacked on axis 0
-  (``embed.tok``, ``final_norm.w``, ``layers.{ln1,ln2}.w``,
+* ``backbone_from_numpy``: the ``Model`` tree.  Dense: layers stacked on
+  axis 0 (``embed.tok``, ``final_norm.w``, ``layers.{ln1,ln2}.w``,
   ``layers.attn.w_{q,k,v,o}``, ``layers.mlp.w_{gate,up,down}``), the last
-  seven as ``{"q": int8, "scale": f32}`` nodes for an int8 backbone;
+  seven as ``{"q": int8, "scale": f32}`` nodes for an int8 backbone.
+  Hybrid: ``embed.{tok,unembed}``, ``final_norm.w``, the Mamba2 blocks
+  ``blocks.mamba.{ln.w, mamba.{w_in, conv, dt_bias, a_log, d_skip, norm,
+  w_out}}`` stacked ``[n_super, per, ...]`` and the one ``shared_attn``
+  block (the dense layer's leaves, unstacked);
 * ``adapters_from_numpy``: the ``MultiTaskAdapters`` tree
   ``{kind: {site: {leaf: [L, capacity, ...]}}}`` of any ported kind (LoRA,
   Adapter, IA3), with stacks whose capacity exceeds the live task count as
-  ``ModelGenerator`` sizes them.
+  ``ModelGenerator`` sizes them; hybrid trees hold it twice, under
+  ``mamba`` (``[n_super, per, capacity, ...]``) and ``shared_attn``
+  (``[capacity, ...]``).
+
+The converters walk the port's spec, so any family the port's ``Model`` and
+``MultiTaskAdapters`` lay out as the JAX package does converts.
 
 Every leaf the port's spec declares must be present with its shape, and
 every leaf given must be used: anything else raises.  ``torch.from_numpy``

@@ -1,5 +1,5 @@
 """Cost model (Eq. 3-5): per-stage latency and per-stage memory for hTasks
-(port of ``repro.core.cost_model``, dense family).
+(port of ``repro.core.cost_model``, dense and hybrid families).
 
 The "profile" is an analytic roofline of the target device: each operator's
 latency is ``max(flops / (peak * util(x)), bytes / hbm_bw)`` with a
@@ -83,7 +83,12 @@ def backbone_ops(cfg: ArchConfig, dtype_bytes: int = 2,
 
 
 def attention_flops_per_token(cfg: ArchConfig, ctx_len: int) -> float:
-    """Score + pv FLOPs per token over a mean causal context of ctx_len / 2."""
+    """Score + pv FLOPs per token over a mean causal context of ctx_len / 2;
+    without attention, the chunked scan's O(chunk * dk + dk * dv) per
+    token per head (the JAX package's terms)."""
+    if cfg.attention == "none":
+        d_in = cfg.ssm_expand * cfg.d_model
+        return 4.0 * d_in * (cfg.ssm_chunk + cfg.ssm_state)
     dh = cfg.resolved_head_dim()
     return 4.0 * cfg.num_heads * dh * (ctx_len / 2.0)
 

@@ -120,12 +120,14 @@ class PEFTEngine:
     def _broadcast_slots(self, vecs: Dict[str, Any]) -> Any:
         """Expand per-kind slot vectors [capacity] into a tree aligned with
         the adapter params, each leaf shaped to broadcast along the leaf's
-        task axis.  Leaves a method declares shared (no task axis) get a
-        scalar 0.0, which as a mask or lr-scale freezes them."""
+        task axis, which follows its group's layer dims.  Leaves a method
+        declares shared (no task axis) get a scalar 0.0, which as a mask or
+        lr-scale freezes them."""
         mta = self.reg.mta
-        depth = _group_depths(self.gen.cfg)[""]
+        depths = _group_depths(self.gen.cfg)
+        params = self.reg.adapter_params
 
-        def walk(tree: Any, kind: Optional[str] = None, name=None):
+        def walk(tree: Any, depth: int, kind: Optional[str] = None, name=None):
             if not isinstance(tree, dict):
                 if kind is None or kind not in vecs:
                     return None
@@ -135,10 +137,12 @@ class PEFTEngine:
                 shape = [1] * tree.dim()
                 shape[depth] = v.shape[0]
                 return v.reshape(shape)
-            return {k: walk(sub, k if k in mta.kind_tasks else kind, k)
+            return {k: walk(sub, depth, k if k in mta.kind_tasks else kind, k)
                     for k, sub in tree.items()}
 
-        return walk(self.reg.adapter_params)
+        if "" in depths:
+            return walk(params, depths[""])
+        return {group: walk(params[group], d) for group, d in depths.items()}
 
     def _build_lr_scales(self):
         """Per-slot lr multipliers broadcast along each leaf's task axis."""

@@ -28,10 +28,13 @@ from repro_torch.train.optimizer import AdamWState, adamw_init
 
 def _group_depths(cfg: ArchConfig) -> Dict[str, int]:
     """Layer dims stacked before the task axis, per adapter group ("" = the
-    whole tree): one for the dense family."""
+    whole tree): one for the dense family; the hybrid family's ``mamba``
+    group is stacked [n_super, per] and its ``shared_attn`` group not at all."""
     if cfg.family == "dense":
         return {"": 1}
-    raise NotImplementedError(f"the port runs the dense family, not {cfg.family}")
+    if cfg.family == "hybrid":
+        return {"mamba": 2, "shared_attn": 0}
+    raise NotImplementedError(f"the port runs the dense and hybrid families, not {cfg.family}")
 
 
 @dataclass

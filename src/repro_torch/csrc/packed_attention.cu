@@ -40,7 +40,11 @@
 // of its kv head and their query tiles, so the GQA group sum happens in
 // registers and every output element is written once.  D = rowsum(do * o)
 // is recomputed from the forward's stored bf16 o, as `_dkv_kernel` does.
-// Every sum runs in a fixed order (no atomics).
+// Every sum runs in a fixed order (no atomics).  Each thread owns DH / 16
+// output columns, so any DH that is a multiple of 16 maps; the kernels are
+// built for DH = 64, 80 (zamba2's shared attention block) and 128.  At
+// DH = 80 the forward takes 79,936 bytes of shared memory, dq 101,504 and
+// dk/dv 118,016, under the 232,448 a block may use.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -585,6 +589,7 @@ int dispatch(Kind kind, Args a, int B, int dh, void* stream) {
   a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(dh)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dh == 128) return static_cast<int>(launch<128>(kind, a, B, st));
+  if (dh == 80) return static_cast<int>(launch<80>(kind, a, B, st));
   if (dh == 64) return static_cast<int>(launch<64>(kind, a, B, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -614,7 +619,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* qpos, co
 
 // q [B, S, H, dh], k/v [B, Sk, Hkv, dh] bf16; qpos/qseg [B, S], kpos/kseg [B, Sk]
 // int32; bq/bk the tile rule's tiles -> o [B, S, H, dh] bf16 and, when lse is
-// not null, lse [B, H, S] f32.  All contiguous.  dh in {64, 128}.
+// not null, lse [B, H, S] f32.  All contiguous.  dh in {64, 80, 128}.
 extern "C" int packed_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* qpos, const void* qseg, const void* kpos,
                                     const void* kseg, void* o, void* lse, int B, int S, int Sk,

@@ -16,7 +16,8 @@ the prefix key rows (``ops.py:181-214`` there, without the tile padding
 that existed for the TPU) and takes the Pallas wrapper's ``block_q`` /
 ``block_k``, which set its tile-visibility rule, ``decode_attention`` takes
 scalar or per-row window bounds, ``quant_matmul`` takes a BaseOp site's
-einsum against an int8 weight.
+einsum against an int8 weight, ``mamba_scan`` takes ``q/k/v``, the log
+decay and input gates, ``chunk`` and optional ``h0`` / ``reset``.
 """
 from __future__ import annotations
 
@@ -28,10 +29,11 @@ import torch
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import grouped_lora as _gl
+from repro_torch.kernels import mamba_scan as _ms
 from repro_torch.kernels import packed_attention as _pa
 from repro_torch.kernels import quant_matmul as _qm
 
-_KERNELS = (_gl, _pa, _da, _qm)
+_KERNELS = (_gl, _pa, _da, _qm, _ms)
 _force_plain = False
 
 
@@ -194,3 +196,39 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     else:
         y = _qm.quant_matmul_plain(x2, q2, s2)
     return y.reshape(*batch_shape, *out_shape)
+
+
+# ---------------------------------------------------------------------------
+# chunked SSD / GLA scan (the hybrid family's Mamba2 blocks)
+# ---------------------------------------------------------------------------
+
+
+def mamba_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: torch.Tensor,
+               log_input: torch.Tensor, *, chunk: int = 256, h0: Optional[torch.Tensor] = None,
+               reset: Optional[torch.Tensor] = None):
+    """Chunked scan over q, k [B, S, H, dk], v [B, S, H, dv], log_decay and
+    log_input [B, S, H], from state ``h0`` [B, H, dk, dv] (zeros when None),
+    cut at the rows where ``reset`` [B, S] > 0 -> (y [B, S, H, dv] in q's
+    type, final state [B, H, dk, dv] f32).  The chunk is ``min(chunk, S)``.
+    A reset position's own decay is zeroed here, outside the op, so its
+    ``log_decay`` gradient is 0 (``mamba_scan.py:446-449`` of the JAX
+    package)."""
+    B, S, H, dk = q.shape
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"mamba_scan: chunk {Q} does not divide S = {S}")
+    if h0 is None:
+        h0 = torch.zeros((B, H, dk, v.shape[-1]), dtype=torch.float32, device=q.device)
+    la = log_decay.float()
+    r = None
+    if reset is not None:
+        la = torch.where(reset[:, :, None] > 0, torch.zeros_like(la), la)
+        r = (reset > 0).to(torch.int32)
+    li, h0 = log_input.float(), h0.float()
+    if _use_kernel(q):
+        args = (q.contiguous(), k.contiguous(), v.contiguous(), la.contiguous(),
+                li.contiguous(), r.contiguous() if r is not None else None, h0.contiguous(), Q)
+        if _needs_grad(q, k, v, la, li, h0):
+            return _ms.MambaScanFunction.apply(*args)
+        return _ms.mamba_scan_cuda(*args)
+    return _ms.mamba_scan_plain(q, k, v, la, li, r, h0, Q)

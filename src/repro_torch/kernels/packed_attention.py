@@ -96,8 +96,8 @@ def _check(q, k, v, ints):
     if k.shape[0] != B or k.shape[3] != dh or Sk < S or H % Hkv:
         raise ValueError(f"packed_attention: inconsistent shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)}")
-    if dh not in (64, 128):
-        raise ValueError(f"packed_attention kernel takes head_dim 64 or 128, got {dh}")
+    if dh not in (64, 80, 128):
+        raise ValueError(f"packed_attention kernel takes head_dim 64, 80 or 128, got {dh}")
     for t in (q, k, v):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"packed_attention kernel takes bf16 q/k/v, got {t.dtype}")

@@ -9,6 +9,11 @@ Runs on the CUDA card unless ``--device cpu`` is given; reduced widths via
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --scale 0.25 --steps 50 --tasks sst2:lora:4,qa:lora:8,rte:adapter:4
+
+For ``--arch zamba2-2.7b`` use ``--scale 0.25`` or more: ``scaled_config``
+(the JAX entry point's formula) keeps ``hybrid_period`` = 6, so below
+``--scale 0.112`` it gives fewer layers than one super-block and the model
+has no block at all.
 """
 from __future__ import annotations
 

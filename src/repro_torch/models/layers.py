@@ -105,9 +105,13 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
-def embed_spec(vocab: int, d: int) -> Dict[str, ParamSpec]:
-    """Tied embedding table (the unembedding reads the same matrix)."""
-    return {"tok": ParamSpec((vocab, d), scale=0.01)}
+def embed_spec(vocab: int, d: int, tie: bool = True) -> Dict[str, ParamSpec]:
+    """Embedding table; untied configs add the unembedding ``unembed``
+    [d, vocab], tied ones read the table in both directions."""
+    s = {"tok": ParamSpec((vocab, d), scale=0.01)}
+    if not tie:
+        s["unembed"] = ParamSpec((d, vocab), scale=0.01)
+    return s
 
 
 def embed_apply(p: Dict[str, torch.Tensor], tokens: torch.Tensor) -> torch.Tensor:
@@ -115,4 +119,6 @@ def embed_apply(p: Dict[str, torch.Tensor], tokens: torch.Tensor) -> torch.Tenso
 
 
 def unembed_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    if "unembed" in p:
+        return torch.einsum("bsd,dv->bsv", x, p["unembed"])
     return torch.einsum("bsd,vd->bsv", x, p["tok"])

@@ -105,7 +105,12 @@ def quantize_backbone(params: Any, cfg: ArchConfig) -> Any:
     leading layer axis, quantize one layer at a time.
 
     Callers gate on ``cfg.backbone_dtype == "int8"``; the walk itself is
-    config-independent, as the JAX package's is."""
+    config-independent, as the JAX package's is.  The port's int8 tier
+    covers the dense family: a hybrid backbone raises."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the int8 backbone tier is ported for the dense family, not {cfg.family} "
+            f"({cfg.name})")
     def walk(node: Any, path: Tuple[str, ...]) -> None:
         for k in list(node):
             v = node[k]

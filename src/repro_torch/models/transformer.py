@@ -1,10 +1,18 @@
-"""Backbone assembly for the dense family (port of ``repro.models.transformer``).
+"""Backbone assembly for the dense and hybrid families (port of
+``repro.models.transformer``).
 
 Parameters are nested dicts of tensors laid out like the JAX package's tree:
 layers stacked on axis 0 (``layers.attn.w_q`` is ``[L, d, H, dh]``), so the
 same tree converts both ways (``repro_torch.convert``).  Layers run in a
 Python loop; each layer's slice of the stacked adapter tree is installed as
 the BaseOp hook scope, as the JAX layer scan does.
+
+The hybrid family (zamba2) runs super-blocks of ``hybrid_period - 1``
+Mamba2 blocks (``blocks.mamba``, stacked ``[n_super, per, ...]``) followed
+by one application of a single weight-shared attention+MLP block
+(``shared_attn``); its adapter tree has the same two groups.  It trains and
+never serves: ``prefill`` and ``decode_step`` refuse it, as the JAX
+package's ``prefill`` does.
 
 The decode state is updated in place: ``prefill`` writes the prompt's k/v
 rows into the state's cache tensors and ``decode_step`` writes each new
@@ -20,6 +28,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.layers import (
     ParamSpec,
     embed_apply,
@@ -49,13 +58,13 @@ def _slice_layer(tree: Any, i: int) -> Any:
 
 
 class Model:
-    """Dense decoder backbone on one device (``device="cuda"`` by default;
-    raises without CUDA unless the caller passes ``device="cpu"``)."""
+    """Dense or hybrid decoder backbone on one device (``device="cuda"`` by
+    default; raises without CUDA unless the caller passes ``device="cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family != "dense" or not cfg.tie_embeddings:
+        if cfg.family not in ("dense", "hybrid") or not cfg.gated_mlp:
             raise NotImplementedError(
-                f"repro_torch runs dense backbones with tied embeddings; {cfg.name} "
+                f"repro_torch runs dense and hybrid backbones with gated MLPs; {cfg.name} "
                 f"({cfg.family}) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -73,11 +82,23 @@ class Model:
             "ln2": {"w": ParamSpec((cfg.d_model,), init="ones")},
             "mlp": mlp_spec(cfg.d_model, cfg.d_ff),
         }
-        return {
-            "embed": embed_spec(self.vocab_padded, cfg.d_model),
+        spec: Dict[str, Any] = {
+            "embed": embed_spec(self.vocab_padded, cfg.d_model, cfg.tie_embeddings),
             "final_norm": {"w": ParamSpec((cfg.d_model,), init="ones")},
-            "layers": _stack_specs(layer, cfg.num_layers),
         }
+        if cfg.family == "dense":
+            spec["layers"] = _stack_specs(layer, cfg.num_layers)
+            return spec
+        n_super = cfg.num_layers // cfg.hybrid_period
+        mamba_layer = {"ln": {"w": ParamSpec((cfg.d_model,), init="ones")},
+                       "mamba": ssm.mamba2_spec(cfg)}
+        spec["blocks"] = {"mamba": _stack_specs(_stack_specs(mamba_layer, cfg.hybrid_period - 1),
+                                                n_super)}
+        if cfg.shared_attention:
+            spec["shared_attn"] = layer  # one copy, applied once per super-block
+        else:
+            spec["blocks"]["attn"] = _stack_specs(layer, n_super)
+        return spec
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Random bf16 backbone from a seeded generator, on this model's device."""
@@ -107,11 +128,16 @@ class Model:
         [L, B, S, Hkv, dh] post-RoPE.  With ``batch["labels"]`` (and an
         optional ``loss_mask``) ``out["per_token_loss"]`` [B, S] f32 is the
         masked next-token cross-entropy.  ``out["aux"]`` holds auxiliary
-        losses (none in the dense family)."""
+        losses (none in these families).  The hybrid family reads the
+        segment starts ``batch["reset"]`` [B, S] too, and collects no k/v."""
         x = embed_apply(params["embed"], batch["tokens"])
-        x, kv = self._run_stack(params["layers"], x, adapters, ctx_factory,
-                                collect_kv=collect_kv, positions=batch.get("positions"),
-                                segment_ids=batch.get("segment_ids"))
+        kw = dict(positions=batch.get("positions"), segment_ids=batch.get("segment_ids"))
+        if self.cfg.family == "hybrid":
+            kv = None
+            x = self._run_hybrid(params, x, adapters, ctx_factory, reset=batch.get("reset"), **kw)
+        else:
+            x, kv = self._run_stack(params["layers"], x, adapters, ctx_factory,
+                                    collect_kv=collect_kv, **kw)
         x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
         out: Dict[str, Any] = {"aux": {}}
         if collect_kv:
@@ -152,9 +178,47 @@ class Model:
                 vs.append(kv[1])
         return x, ((torch.stack(ks), torch.stack(vs)) if collect_kv else None)
 
+    def _super_block(self, x, mb, ad, shared, ad_shared, ctx_factory, *, positions,
+                     segment_ids, reset):
+        """One hybrid super-block: the Mamba2 blocks of ``mb`` (stacked
+        [per, ...]) with their adapter slices ``ad``, then the attention+MLP
+        block ``shared`` under ``ad_shared``."""
+        cfg = self.cfg
+        for i in range(cfg.hybrid_period - 1):
+            lp = _slice_layer(mb, i)
+            adi = _slice_layer(ad, i) if ad is not None else None
+            with adapter_scope(ctx_factory(adi) if ctx_factory and adi is not None else None):
+                h = rms_norm(x, lp["ln"]["w"], cfg.norm_eps)
+                x = x + ssm.mamba2_apply(lp["mamba"], h, cfg, reset=reset)
+        with adapter_scope(ctx_factory(ad_shared)
+                           if ctx_factory and ad_shared is not None else None):
+            x, _ = self._block(shared, x, positions=positions, segment_ids=segment_ids,
+                               collect_kv=False)
+        return x
+
+    def _run_hybrid(self, params, x, adapters, ctx_factory, **kw):
+        """The super-blocks in order (the JAX ``_run_hybrid``, unrolled)."""
+        cfg = self.cfg
+        blocks = params["blocks"]
+        ad_mamba = adapters.get("mamba") if isinstance(adapters, dict) else None
+        ad_shared = adapters.get("shared_attn") if isinstance(adapters, dict) else None
+        for i in range(cfg.num_layers // cfg.hybrid_period):
+            shared = params["shared_attn"] if cfg.shared_attention \
+                else _slice_layer(blocks["attn"], i)
+            x = self._super_block(x, _slice_layer(blocks["mamba"], i),
+                                  _slice_layer(ad_mamba, i) if ad_mamba is not None else None,
+                                  shared, ad_shared, ctx_factory, **kw)
+        return x
+
     # ------------------------------------------------------------------
     # Decode (serving)
     # ------------------------------------------------------------------
+
+    def _refuse_hybrid(self, what: str) -> None:
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"{what} supports the dense family, not {self.cfg.family}; the hybrid "
+                f"family trains only")
 
     def init_decode_state(self, batch: int, max_len: int, cache_dtype=torch.bfloat16,
                           prefix_reserve: int = 0) -> Dict[str, Any]:
@@ -181,7 +245,9 @@ class Model:
         over the (padded) prompt, whose post-RoPE k/v rows are written in
         place at offset ``prefix_reserve``.  ``lengths`` [B] are the true
         prompt lengths (junk past them stays outside the window).  Returns
-        (logits over the prompt, state with ``pos`` set)."""
+        (logits over the prompt, state with ``pos`` set).  Dense family only,
+        as in the JAX package."""
+        self._refuse_hybrid("prefill-into-cache")
         out = self.forward(params, batch, adapters=adapters, ctx_factory=ctx_factory,
                            return_logits=True, collect_kv=True)
         ks, vs = out["kv"]
@@ -200,7 +266,9 @@ class Model:
         """One decode token for every row (``tokens`` [B, 1]); every layer's
         adapter slice is in scope, so LoRA applies as at train time.
         ``state["pos"]`` counts real tokens; the cache write index is
-        ``prefix_reserve + pos``."""
+        ``prefix_reserve + pos``.  Dense family only (hybrid decode, the
+        JAX package's ``gla_decode_step``, is not ported)."""
+        self._refuse_hybrid("decode")
         cfg = self.cfg
         pos = state["pos"]
         x = embed_apply(params["embed"], tokens)

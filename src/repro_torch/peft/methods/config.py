@@ -1,5 +1,5 @@
 """Per-task adapter hyperparameters and the BaseOp dim inventory (port of
-``repro.peft.methods.config``, dense family)."""
+``repro.peft.methods.config``, dense and hybrid families)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -29,17 +29,28 @@ class AdapterConfig:
 
 def supports_attention_prefix(cfg: ArchConfig) -> bool:
     """Whether the backbone has softmax attention that learned prefix k/v
-    rows can enter: every family the port runs (dense) has."""
-    return cfg.family == "dense"
+    rows can enter (the hybrid family's shared block has)."""
+    return cfg.attention != "none"
 
 
 def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
-    """(d_in, d_out) of every adapter-capable BaseOp of a dense backbone."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"the port runs the dense family, not {cfg.family}")
+    """(d_in, d_out) of every adapter-capable BaseOp of a dense or hybrid
+    backbone: attention q/k/v/o, the gated MLP and, in the hybrid family,
+    the Mamba2 in-projection (to [z, x, B, C, dt]) and out-projection."""
+    if cfg.family not in ("dense", "hybrid"):
+        raise NotImplementedError(f"the port runs the dense and hybrid families, not "
+                                  f"{cfg.family}")
     d = cfg.d_model
-    qd, kvd = cfg.q_dim, cfg.kv_dim
-    dims = {"attn_q": (d, qd), "attn_k": (d, kvd), "attn_v": (d, kvd), "attn_o": (qd, d)}
-    dims.update({"mlp_gate": (d, cfg.d_ff), "mlp_up": (d, cfg.d_ff),
-                 "mlp_down": (cfg.d_ff, d)})
+    dims: Dict[str, Tuple[int, int]] = {}
+    if cfg.attention != "none":
+        qd, kvd = cfg.q_dim, cfg.kv_dim
+        dims.update({"attn_q": (d, qd), "attn_k": (d, kvd), "attn_v": (d, kvd),
+                     "attn_o": (qd, d)})
+    if cfg.d_ff:
+        dims.update({"mlp_gate": (d, cfg.d_ff), "mlp_up": (d, cfg.d_ff),
+                     "mlp_down": (cfg.d_ff, d)})
+    if cfg.family == "hybrid":
+        d_in = cfg.ssm_expand * d
+        nh = d_in // cfg.ssm_head_dim
+        dims.update({"ssm_in": (d, 2 * d_in + 2 * cfg.ssm_state + nh), "ssm_out": (d_in, d)})
     return dims

@@ -1,10 +1,11 @@
 """Multi-task adapter state + the spatially fused Dispatch/Aggregate rule
-(port of ``repro.peft.multitask``, dense family).
+(port of ``repro.peft.multitask``, dense and hybrid families).
 
 ``TaskSegments`` is the static row -> task map of a fused (hTask) batch and
 reduces per-token losses to per-task means.  ``MultiTaskAdapters`` builds
 one stacked parameter tree per PEFT kind (``{kind: {site: {leaf: [L,
-capacity, ...]}}}``, the JAX package's layout), so the model slices
+capacity, ...]}}}``, the JAX package's layout; the hybrid family has two
+such groups, ``{"mamba": ..., "shared_attn": ...}``), so the model slices
 adapters per layer beside the backbone weights.  A kind's stack may hold
 more slots than live tasks (``kind_capacity``) and each task owns an
 explicit slot (``task_slot``): unused slots hold fresh-init values that no
@@ -121,25 +122,48 @@ class MultiTaskAdapters:
         tgts = set().union(*(self.task_cfgs[i].targets for i in self.kind_tasks[kind]))
         return tuple(sorted(tgts))
 
-    def kind_sites(self, kind: str) -> Dict[str, Tuple[int, int]]:
-        return get_method(kind).sites(self.kind_targets(kind), self.dims,
+    def kind_sites(self, kind: str,
+                   targets_filter: Optional[set] = None) -> Dict[str, Tuple[int, int]]:
+        """The method's attach sites, restricted to a BaseOp-dims filter."""
+        dims = self.dims if targets_filter is None else {
+            n: d for n, d in self.dims.items() if n in targets_filter}
+        return get_method(kind).sites(self.kind_targets(kind), dims,
                                       attention=self.attention_ok)
 
-    def spec(self) -> Dict[str, Any]:
-        """Adapter ParamSpec tree, stacked over the backbone's layers."""
-        L = self.cfg.num_layers
+    def _per_layer_spec(self, targets_filter: Optional[set] = None) -> Dict[str, Any]:
+        """One layer's ``{kind: {site: {leaf: ParamSpec}}}``; a kind with no
+        site under the filter is left out."""
         out: Dict[str, Any] = {}
         for kind in self.kind_tasks:
             method = get_method(kind)
-            kspec = {}
-            for site, (din, dout) in self.kind_sites(kind).items():
-                kspec[site] = {
-                    leaf: ParamSpec((L,) + s.shape, s.init, s.scale)
-                    for leaf, s in method.param_specs(self.kind_rank[kind], din, dout,
-                                                      self.kind_capacity[kind]).items()}
+            kspec = {site: method.param_specs(self.kind_rank[kind], din, dout,
+                                              self.kind_capacity[kind])
+                     for site, (din, dout) in self.kind_sites(kind, targets_filter).items()}
             if kspec:
                 out[kind] = kspec
         return out
+
+    @staticmethod
+    def _stack(spec: Any, *dims: int) -> Any:
+        if isinstance(spec, ParamSpec):
+            return ParamSpec(tuple(dims) + spec.shape, spec.init, spec.scale)
+        return {k: MultiTaskAdapters._stack(v, *dims) for k, v in spec.items()}
+
+    def spec(self) -> Dict[str, Any]:
+        """Adapter ParamSpec tree mirroring the backbone's layer layout:
+        stacked over the layers (dense), or the hybrid family's two groups,
+        ``mamba`` stacked ``[n_super, per, ...]`` over the Mamba2 sites and
+        ``shared_attn`` unstacked over the rest."""
+        cfg = self.cfg
+        if cfg.family == "dense":
+            return self._stack(self._per_layer_spec(), cfg.num_layers)
+        n_super = cfg.num_layers // cfg.hybrid_period
+        ssm_targets = {"ssm_in", "ssm_out"}
+        return {
+            "mamba": self._stack(self._per_layer_spec(ssm_targets), n_super,
+                                 cfg.hybrid_period - 1),
+            "shared_attn": self._per_layer_spec(set(self.dims) - ssm_targets),
+        }
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Seeded adapter params on this object's device (LoRA's B, the

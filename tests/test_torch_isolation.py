@@ -68,8 +68,9 @@ def test_entry_points_need_cuda_unless_cpu_is_named(monkeypatch):
 def test_registry_lists_only_ported_configs():
     from repro_torch.configs import ARCH_NAMES, get_config
 
-    assert ARCH_NAMES == ("llama3.2-3b", "smollm-360m")
+    assert ARCH_NAMES == ("llama3.2-3b", "smollm-360m", "zamba2-2.7b")
     assert get_config("llama3.2-3b").num_layers == 28
     assert get_config("smollm-360m").num_layers == 32
+    assert get_config("zamba2-2.7b").num_layers == 54
     with pytest.raises(KeyError, match="not ported"):
-        get_config("zamba2-2.7b")
+        get_config("xlstm-1.3b")
