@@ -240,24 +240,47 @@ def profile_device(torch, fn, n: int, groups):
                             for k, v in top]}
 
 
-def kernel_device_ms(torch, timer, fn, key: str, n: int = 5) -> float:
-    """Device time per call of the kernels whose names hold ``key``, from
-    the profiler, L2 flushed before each call.  Where a kernel takes less
-    time than the host needs to launch it, the CUDA-event time of a call
-    (``Timer``) counts the device's wait for the launch; this does not."""
+def _profile_kernels(torch, body, n: int):
+    """Device microseconds by kernel name over ``n`` calls of ``body``."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    body()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            timer.flush.zero_()
-            fn()
+            body()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and key in e.key)
-    return us / 1e3 / n
+    return {e.key: getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_device_ms(torch, timer, fn, key: str, n: int = 5):
+    """Device time per call of the kernels whose names hold ``key``, from
+    the profiler, L2 flushed before each call.  Where a kernel takes less
+    time than the host needs to launch it, the CUDA-event time of a call
+    (``Timer``) counts the device's wait for the launch; this does not.  The
+    profiler now and then reports no kernel at all: up to three tries, else
+    None."""
+    for _ in range(3):
+        us = sum(t for name, t in _profile_kernels(
+            torch, lambda: (timer.flush.zero_(), fn()), n).items() if key in name)
+        if us > 0:
+            return us / 1e3 / n
+    return None
+
+
+def library_device_ms(torch, timer, fn, n: int = 5):
+    """Device time per call of every kernel ``fn`` launches (a library call
+    whose kernel names are not known beforehand), L2 flushed before each
+    call; the flush's own kernels, found by profiling it alone, are left
+    out.  Up to three tries, else None (as ``kernel_device_ms``)."""
+    flush = set(_profile_kernels(torch, timer.flush.zero_, 1))
+    for _ in range(3):
+        us = sum(t for name, t in _profile_kernels(
+            torch, lambda: (timer.flush.zero_(), fn()), n).items() if name not in flush)
+        if us > 0:
+            return us / 1e3 / n
+    return None
 
 
 def kernel_phase(torch, timer):
@@ -339,20 +362,26 @@ def kernel_phase(torch, timer):
         nbytes = 2 * (2 * B * S * H * dh + 2 * B * Sk * Hkv * dh) + 4 * 2 * B * (S + Sk)
         flops = 4.0 * dh * H * pairs
         bms, by = bound_ms(nbytes, flops)
-        lib_ms = None
+        lib_ms = dev_ms = lib_dev_ms = None
         if name == "causal":
+            dev_ms = kernel_device_ms(torch, timer, lambda: ops.packed_attention(q, k, v),
+                                      "packed_attention_fwd")
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib_ms = timer(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+            lib_ms = timer(sdpa)
+            lib_dev_ms = library_device_ms(torch, timer, sdpa)
         emit({"phase": "kernels", "kernel": "packed_attention", "case": name, "B": B, "S": S,
               "Sk": Sk, "H": H, "Hkv": Hkv, "dh": dh, "max_abs_err": err, "max_rel_err": rel,
-              "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-              "library_ms": lib_ms})
+              "tol": tol, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms,
+              "bound_by": by, "library_ms": lib_ms, "library_device_ms": lib_dev_ms})
         if name == "causal":
             results["packed_attention"] = {
                 "shape": f"B={B}, S={S}, H={H}, Hkv={Hkv}, dh={dh}, causal",
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                "library_ms": lib_ms}
+                "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms,
+                "bound_by": by, "library_ms": lib_ms, "library_device_ms": lib_dev_ms}
     # the kernel's non-causal branch (not on the serving path): checked only
     out = ops.packed_attention(q, k, v, causal=False)
     with ops.force_plain():
@@ -469,7 +498,8 @@ def quant_kernel_phase(torch, timer):
     results = {}
     for path in QMM_M:
         layer = [per_shape[(path, K, N)] for K, N in QMM_LAYER]
-        total = {key: sum(v[key] for v in layer) for key in layer[0]}
+        total = {key: None if any(v[key] is None for v in layer) else sum(v[key] for v in layer)
+                 for key in layer[0]}  # (a device time the profiler did not see is None)
         bms, by = bound_ms(total.pop("bytes"), total.pop("flops"))
         total["max_abs_err"] = max(v["max_abs_err"] for (p, _, _), v in per_shape.items()
                                    if p == path)
@@ -835,11 +865,118 @@ def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what,
     return results, (rt, scale, r, M)
 
 
+def _attention_check(torch, q, k, v, do, ints, causal, bq, bk, where):
+    """The forward (o, lse), dq and dk/dv kernels on one input against the
+    plain version and autograd of it.  Rows that see no key must give o = 0
+    and lse = 1e30 exactly; lse is compared on the other rows.  Returns the
+    kernels' outputs, the plain graph, the mask and the largest errors."""
+    from repro_torch.kernels import packed_attention as pa
+
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    o, lse = pa.packed_attention_cuda(q, k, v, *ints, causal, bq, bk, save_lse=True)
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o_ref = pa.packed_attention_plain(qr, kr, vr, *ints, causal, bq, bk)
+    mask = pa.visible_mask(*ints, causal, bq, bk)
+    sc = torch.einsum("bqkgd,bpkd->bqkgp", q.float().reshape(B, S, Hkv, H // Hkv, dh),
+                      k.float()) / dh ** 0.5
+    sc = sc.masked_fill(~mask[:, :, None, None, :], float("-inf"))
+    lse_ref = torch.logsumexp(sc, dim=-1).reshape(B, S, H).permute(0, 2, 1)
+    dq = pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, causal, bq, bk)
+    dk, dv = pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, causal, bq, bk)
+    dq_ref, dk_ref, dv_ref = torch.autograd.grad(o_ref, (qr, kr, vr), do, retain_graph=True)
+    torch.cuda.synchronize()
+    dead = ~mask.any(-1)  # [B, S]: queries that see no key
+    n_dead = int(dead.sum().item())
+    if n_dead:
+        dead_h = dead[:, None, :].expand(B, H, S)
+        if o.permute(0, 2, 1, 3)[dead_h].abs().max().item() != 0.0 \
+                or not bool((lse[dead_h] == 1e30).all()):
+            raise AssertionError(f"{where}: a query that sees no key is not o = 0, lse = 1e30")
+    live = ~dead[:, None, :].expand(B, H, S)
+    err_f = max(compare(o, o_ref, where)[0],
+                compare(lse[live], lse_ref[live], where + " lse", F32_TOL)[0])
+    err_dq = compare(dq, dq_ref, where + " dq", GRAD_TOL["packed_attention_dq"])[0]
+    err_dkv = max(compare(dk, dk_ref, where + " dk", GRAD_TOL["packed_attention_dkv"])[0],
+                  compare(dv, dv_ref, where + " dv", GRAD_TOL["packed_attention_dkv"])[0])
+    return (o, lse), (o_ref, qr, kr, vr), mask, n_dead, (err_f, err_dq, err_dkv)
+
+
+def _attention_edge_cases(torch, g, cfg, S_loader, tag):
+    """Layouts that the redesigned kernels' tiling meets only at its edges,
+    each held to the plain version (forward, lse) and autograd of it (dq,
+    dk/dv), one line each: (a) S = 200 (not a multiple of 16 or 64) behind a
+    16-row prefix of wildcard (-1) and unseen (-2) rows, dh = 128, G = 3;
+    (b) queries that see no key; (c) dh = 64; (d) dq and dk/dv on a loader
+    layout at S = 200 at the model's heads; (e) segments that alternate every
+    64 rows, so that the tiles a warp skips (segment ranges disjoint) and the
+    ones it computes alternate, behind a wildcard prefix in one batch row."""
+    from repro_torch.core.alignment import align_tasks
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.kernels import packed_attention as pa
+
+    bf16, dev, i32 = torch.bfloat16, "cuda", torch.int32
+
+    def rows(B, S):
+        return torch.arange(S, dtype=i32, device=dev).expand(B, S).contiguous()
+
+    def prefixed(pos, seg, pseg):  # pseg [B, P]: -1 or -2 per prefix row
+        B, P = pseg.shape
+        kpos = torch.cat([torch.full((B, P), -1, dtype=i32, device=dev), pos], 1)
+        return pos, seg, kpos.contiguous(), torch.cat([pseg, seg], 1).contiguous()
+
+    def run(case, B, S, H, Hkv, dh, ints, causal=True, block=128):
+        Sk = ints[2].shape[1]
+        q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+        k = torch.randn((B, Sk, Hkv, dh), generator=g, device=dev).to(bf16)
+        v = torch.randn((B, Sk, Hkv, dh), generator=g, device=dev).to(bf16)
+        do = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+        bq, bk = pa.tile_sizes(S, Sk, block, block)
+        where = f"packed_attention {tag} case {case}"
+        *_, n_dead, (err_f, err_dq, err_dkv) = _attention_check(
+            torch, q, k, v, do, [t.contiguous() for t in ints], causal, bq, bk, where)
+        emit({"phase": "train_kernels", "kernel": "packed_attention", "model": tag,
+              "case": case, "B": B, "S": S, "Sk": Sk, "H": H, "Hkv": Hkv, "dh": dh,
+              "bq": bq, "bk": bk, "rows_seeing_no_key": n_dead,
+              "fwd_lse_max_abs_err": err_f, "dq_max_abs_err": err_dq,
+              "dkv_max_abs_err": err_dkv})
+
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    # (d) the loader's layout at S = 200: one hTask's rows, the model's heads
+    tasks = [make_task(f"t{i}", ds, 4, seed=i) for i, ds in enumerate(("sst2", "qa", "sst2"))]
+    arr = align_tasks(tasks, [0, 1, 2], "chunked", row_len=S_loader).arrays()
+    pos = torch.as_tensor(arr["positions"], device=dev)
+    seg = torch.as_tensor(arr["segment_ids"], device=dev)
+    run(f"d_loader_S{S_loader}_G{H // Hkv}", pos.shape[0], S_loader, H, Hkv, dh,
+        (pos, seg, pos, seg), block=cfg.attn_q_block)
+    if tag != "llama3.2-3b":
+        return
+    B, S, P = 2, 200, 16
+    pseg = torch.full((B, P), -2, dtype=i32, device=dev)
+    pseg[0, ::2] = -1
+    pseg[1, :5] = -1
+    zeros = torch.zeros((B, S), dtype=i32, device=dev)
+    run("a_S200_prefix16", B, S, 6, 2, 128, prefixed(rows(B, S), zeros, pseg))
+    # (b) rows 17 and 130 carry segments no key has; their own keys another
+    seg_b = zeros.clone()
+    seg_b[:, 17], seg_b[:, 130] = 7, 9
+    kseg_b = zeros.clone()
+    run("b_rows_seeing_no_key", B, S, 6, 2, 128, (rows(B, S), seg_b, rows(B, S), kseg_b))
+    run("c_dh64", B, 256, 8, 2, 64, (rows(B, 256), torch.zeros((B, 256), dtype=i32,
+                                                                device=dev)) * 2)
+    S = 512  # segments change at every 64th key index (the prefix shifts them by P)
+    seg_e = ((torch.arange(S, device=dev) + P) // 64 % 2).to(i32).expand(B, S).contiguous()
+    pseg = torch.full((B, P), -2, dtype=i32, device=dev)
+    pseg[0] = -1
+    run("e_alternating_segments", B, S, H, Hkv, dh, prefixed(rows(B, S), seg_e, pseg))
+
+
 def _attention_train_kernels(torch, timer, g, cfg, plan, tag):
     """Packed attention forward (saving lse), dq and dk/dv against autograd
     of the plain version on the plan's loader layout at the model's heads,
     with the model's tiles and with the ops default (128) where the tile
-    rule cuts; SDPA's forward and backward as the library times."""
+    rule cuts; SDPA's forward and backward as the library times; then the
+    edge cases of ``_attention_edge_cases``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import packed_attention as pa
@@ -860,24 +997,9 @@ def _attention_train_kernels(torch, timer, g, cfg, plan, tag):
     results = {}
     # the model's tiles, and the ops default (128), where the tile rule cuts
     for case, (bq, bk) in (("path", path_tiles), ("tile128", pa.tile_sizes(S, S))):
-        o, lse = pa.packed_attention_cuda(q, k, v, *ints, True, bq, bk, save_lse=True)
-        qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
-        o_ref = pa.packed_attention_plain(qr, kr, vr, *ints, True, bq, bk)
-        mask = pa.visible_mask(*ints, True, bq, bk)
-        sc = torch.einsum("bqkgd,bpkd->bqkgp", q.float().reshape(B, S, Hkv, H // Hkv, dh),
-                          k.float()) / dh ** 0.5
-        sc = sc.masked_fill(~mask[:, :, None, None, :], float("-inf"))
-        lse_ref = torch.logsumexp(sc, dim=-1).reshape(B, S, H).permute(0, 2, 1)
-        dq = pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
-        dk, dv = pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
-        dq_ref, dk_ref, dv_ref = torch.autograd.grad(o_ref, (qr, kr, vr), do, retain_graph=True)
-        torch.cuda.synchronize()
         where = f"packed_attention train {tag} {case} (bq={bq}, bk={bk})"
-        err_f = max(compare(o, o_ref, where)[0],
-                    compare(lse, lse_ref, where + " lse", F32_TOL)[0])
-        err_dq = compare(dq, dq_ref, where + " dq", GRAD_TOL["packed_attention_dq"])[0]
-        err_dkv = max(compare(dk, dk_ref, where + " dk", GRAD_TOL["packed_attention_dkv"])[0],
-                      compare(dv, dv_ref, where + " dv", GRAD_TOL["packed_attention_dkv"])[0])
+        (o, lse), (o_ref, qr, kr, vr), mask, _, (err_f, err_dq, err_dkv) = _attention_check(
+            torch, q, k, v, do, ints, True, bq, bk, where)
         line = {"phase": "train_kernels", "kernel": "packed_attention", "model": tag,
                 "case": case, "B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh, "bq": bq, "bk": bk,
                 "fwd_lse_max_abs_err": err_f, "dq_max_abs_err": err_dq,
@@ -887,37 +1009,49 @@ def _attention_train_kernels(torch, timer, g, cfg, plan, tag):
             qo = 2 * B * S * H * dh
             kv = 2 * B * S * Hkv * dh
             ib = 4 * 4 * B * S + 4 * B * H * S
-            ms_f = timer(lambda: pa.packed_attention_cuda(q, k, v, *ints, True, bq, bk,
-                                                          save_lse=True))
-            plain_f = timer(lambda: pa.packed_attention_plain(q, k, v, *ints, True, bq, bk))
-            ms_dq = timer(lambda: pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do,
-                                                              True, bq, bk))
-            plain_dq = _autograd_ms(torch, timer, o_ref, (qr,), do)
-            ms_dkv = timer(lambda: pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do,
-                                                                True, bq, bk))
-            plain_dkv = _autograd_ms(torch, timer, o_ref, (kr, vr), do)
+            calls = {
+                "fwd": lambda: pa.packed_attention_cuda(q, k, v, *ints, True, bq, bk,
+                                                        save_lse=True),
+                "dq": lambda: pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, True,
+                                                          bq, bk),
+                "dkv": lambda: pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, True,
+                                                            bq, bk)}
+            ms = {key: timer(fn) for key, fn in calls.items()}
+            dev_ms = {key: kernel_device_ms(torch, timer, fn, f"packed_attention_{key}")
+                      for key, fn in calls.items()}
+            plain = {"fwd": timer(lambda: pa.packed_attention_plain(q, k, v, *ints, True,
+                                                                    bq, bk)),
+                     "dq": _autograd_ms(torch, timer, o_ref, (qr,), do),
+                     "dkv": _autograd_ms(torch, timer, o_ref, (kr, vr), do)}
             qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
             dot = do.transpose(1, 2).contiguous()
-            lib_f = timer(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                 enable_gqa=True))
             o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-            lib_dq = _autograd_ms(torch, timer, o_lib, (qt,), dot)
-            lib_dkv = _autograd_ms(torch, timer, o_lib, (kt, vt), dot)
+            lib = {"fwd": timer(lambda: F.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True)),
+                   "dq": _autograd_ms(torch, timer, o_lib, (qt,), dot),
+                   "dkv": _autograd_ms(torch, timer, o_lib, (kt, vt), dot)}
+            lib_dev = {"fwd": library_device_ms(
+                           torch, timer, lambda: F.scaled_dot_product_attention(
+                               qt, kt, vt, is_causal=True, enable_gqa=True)),
+                       "dq": library_device_ms(torch, timer, lambda: torch.autograd.grad(
+                           o_lib, (qt,), dot, retain_graph=True)),
+                       "dkv": library_device_ms(torch, timer, lambda: torch.autograd.grad(
+                           o_lib, (kt, vt), dot, retain_graph=True))}
             bounds = {"fwd": bound_ms(2 * qo + 2 * kv + ib, 4.0 * dh * pairs),
                       "dq": bound_ms(4 * qo + 2 * kv + ib, 6.0 * dh * pairs),
                       "dkv": bound_ms(3 * qo + 4 * kv + ib, 8.0 * dh * pairs)}
             shape = (f"B={B}, S={S}, H={H}, Hkv={Hkv}, dh={dh}, causal, loader layout, "
                      f"{pairs} visible (query, key, head) triples")
-            for name, ms, plain, lib, key, err in (
-                    ("packed_attention_train", ms_f, plain_f, lib_f, "fwd", err_f),
-                    ("packed_attention_dq", ms_dq, plain_dq, lib_dq, "dq", err_dq),
-                    ("packed_attention_dkv", ms_dkv, plain_dkv, lib_dkv, "dkv", err_dkv)):
-                results[name] = {"shape": shape, "ms": ms, "plain_ms": plain,
-                                 "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-                                 "library_ms": lib, "max_abs_err": err}
-                line[key] = {"ms": ms, "plain_ms": plain, "bound_ms": bounds[key][0],
-                             "bound_by": bounds[key][1], "library_ms": lib}
+            for name, key, err in (("packed_attention_train", "fwd", err_f),
+                                   ("packed_attention_dq", "dq", err_dq),
+                                   ("packed_attention_dkv", "dkv", err_dkv)):
+                entry = {"ms": ms[key], "device_ms": dev_ms[key], "plain_ms": plain[key],
+                         "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                         "library_ms": lib[key], "library_device_ms": lib_dev[key]}
+                results[name] = {"shape": shape, **entry, "max_abs_err": err}
+                line[key] = entry
         emit(line)
+    _attention_edge_cases(torch, g, cfg, 200, tag)
     return results
 
 

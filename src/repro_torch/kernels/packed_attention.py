@@ -25,9 +25,11 @@ is the sentinel 1e30.  (The Pallas kernel gives the mean of v over the key
 tiles it visited for such a row: its p is not masked again after exp.  No
 row of the serving or training path is fully masked.)
 
-The CUDA kernels (``csrc/packed_attention.cu``) run their products on the
-CUDA cores in f32, which sets their time on the H100 far above the bytes
-that bound it at the prefill and training shapes; see the source's header.
+The CUDA forward and dk/dv kernels (``csrc/packed_attention.cu``) run their
+products on the H100's tensor cores (``mma.sync`` on bf16 tiles that
+``cp.async`` copies into shared memory, f32 accumulators); the dq kernel
+still runs them on the CUDA cores in f32.  See the source's header.  The
+kernels take 16-byte aligned q, k, v, o and do.
 :class:`PackedAttentionFunction` makes them one differentiable op.
 """
 from __future__ import annotations
@@ -108,6 +110,9 @@ def _check(q, k, v, ints):
     for t in (q, k, v, *ints):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("packed_attention kernel takes contiguous tensors on one card")
+    for t in (q, k, v):
+        if t.data_ptr() % 16:
+            raise ValueError("packed_attention kernel takes 16-byte aligned q/k/v (cp.async)")
 
 
 def _check_bwd(q, o, lse, do):
@@ -119,13 +124,16 @@ def _check_bwd(q, o, lse, do):
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous() \
             or lse.device != q.device:
         raise ValueError(f"packed_attention backward: lse must be contiguous f32 [{B}, {H}, {S}]")
+    if o.data_ptr() % 16 or do.data_ptr() % 16:
+        raise ValueError("packed_attention backward takes 16-byte aligned o and do (cp.async)")
 
 
 def _dims(q, k, causal, bq, bk):
     B, S, H, dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
+    # the current stream's handle, without building a Stream object
     return [B, S, Sk, H, Hkv, dh, int(causal), int(bq), int(bk),
-            torch.cuda.current_stream(q.device).cuda_stream]
+            torch._C._cuda_getCurrentRawStream(q.device.index)]
 
 
 def _ptrs(*ts):

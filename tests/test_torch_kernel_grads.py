@@ -164,3 +164,37 @@ def test_packed_attention_grads_match_ref_on_monotone_rows():
                       (q, k, v), w)
     for leaf, g, wg in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, wg, err_msg=leaf, **F32)
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_packed_attention_plain_grads_match_pallas_at_kernel_widths(dh):
+    """dq, dk, dv of the plain version (what the card holds the backward
+    kernels to) at the CUDA kernels' head widths, on a ragged layout: S = 40
+    rows in two packed segments behind a 16-row prefix of wildcard (-1) and
+    unseen (-2) rows (Sk = 56), tiles of 8, GQA (G = 3), against the Pallas
+    kernels' VJP in interpret mode."""
+    from repro_torch.kernels.packed_attention import packed_attention_plain, tile_sizes
+
+    rs = np.random.RandomState(30 + dh)
+    B, S, P, H, Hkv = 2, 40, 16, 6, 2
+    cut = S // 3
+    seg = np.repeat(np.asarray([[0, 1]] * B, np.int32), [cut, S - cut], axis=1)
+    pos = np.concatenate([np.arange(cut), np.arange(S - cut)])[None].repeat(B, 0)
+    pos = pos.astype(np.int32)
+    pseg = np.full((B, P), -2, np.int32)
+    pseg[0, ::2] = -1
+    pseg[1, :5] = -1
+    kpos = np.concatenate([np.full((B, P), -1, np.int32), pos], 1)
+    kseg = np.concatenate([pseg, seg], 1)
+    q = rs.randn(B, S, H, dh).astype(np.float32)
+    k = rs.randn(B, S + P, Hkv, dh).astype(np.float32)
+    v = rs.randn(B, S + P, Hkv, dh).astype(np.float32)
+    w = rs.randn(B, S, H, dh).astype(np.float32)
+    bq, bk = tile_sizes(S, S + P, 8, 8)
+    ints = [torch.from_numpy(a) for a in (pos, seg, kpos, kseg)]
+    got = _grads_torch(lambda *t: packed_attention_plain(*t, *ints, True, bq, bk), (q, k, v), w)
+    want = _grads_jax(lambda *t: packed_attention_pallas(
+        *t, segment_ids=seg, positions=pos, k_segment_ids=kseg, k_positions=kpos,
+        block_q=8, block_k=8, interpret=True), (q, k, v), w)
+    for leaf, g, wg in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, wg, err_msg=leaf, **F32)

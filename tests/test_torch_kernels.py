@@ -199,6 +199,41 @@ def test_packed_attention_fully_masked_row_gives_zero():
     np.testing.assert_allclose(pal[0, 3, 0], v[0, :8, 0].mean(0), rtol=1e-5, atol=1e-5)
 
 
+def _ragged_prefix_layout(B, S, P):
+    """Two packed segments per row (positions restart in the second) behind
+    P prefix key rows: wildcard (-1) or unseen (-2), mixed per row."""
+    cut = S // 3
+    seg = np.repeat(np.asarray([[0, 1]] * B, np.int32), [cut, S - cut], axis=1)
+    pos = np.concatenate([np.arange(cut), np.arange(S - cut)])[None].repeat(B, 0)
+    pos = pos.astype(np.int32)
+    pseg = np.full((B, P), -2, np.int32)
+    pseg[0, ::2] = -1
+    pseg[1, :5] = -1
+    kpos = np.concatenate([np.full((B, P), -1, np.int32), pos], 1)
+    kseg = np.concatenate([pseg, seg], 1)
+    return pos, seg, kpos, kseg
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_packed_attention_plain_matches_pallas_at_kernel_widths(dh):
+    """The plain version, which the CUDA kernels are held to on the card, at
+    the head widths they are built for, on a ragged layout (S = 40 rows, a
+    16-row prefix, Sk = 56, tiles of 8) against the Pallas kernel."""
+    from repro_torch.kernels.packed_attention import packed_attention_plain, tile_sizes
+
+    rs = np.random.RandomState(20 + dh)
+    B, S, P, H, Hkv = 2, 40, 16, 6, 2
+    q, k, v = _attn_inputs(rs, B, S, S + P, H, Hkv, dh)
+    pos, seg, kpos, kseg = _ragged_prefix_layout(B, S, P)
+    bq, bk = tile_sizes(S, S + P, 8, 8)
+    out = _np(packed_attention_plain(_t(q), _t(k), _t(v), _t(pos), _t(seg), _t(kpos),
+                                     _t(kseg), True, bq, bk))
+    pal = np.asarray(packed_attention_pallas(q, k, v, segment_ids=seg, positions=pos,
+                                             k_segment_ids=kseg, k_positions=kpos,
+                                             block_q=8, block_k=8, interpret=True))
+    np.testing.assert_allclose(out, pal, **F32)
+
+
 def loader_layout(S, datasets, micro_batch=4):
     """segment_ids / positions of one fused hTask batch of row length S."""
     tasks = [make_task(f"t{i}", ds, micro_batch, seed=i) for i, ds in enumerate(datasets)]
