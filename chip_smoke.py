@@ -22,6 +22,9 @@ Phases, one JSON line each (several for the kernel phases):
                     forwards that save h / the logsumexp, the grouped LoRA
                     backward and the packed attention dq and dk/dv kernels,
                     each against autograd of the plain version, with times;
+                    grouped LoRA at stack ranks 64, 96 and 128 (the kernels'
+                    rank tiles); packed attention on edge layouts and on
+                    q, k, v at a misaligned storage offset;
                     for zamba2-2.7b grouped LoRA at the Mamba2 projections
                     (2560 -> 10448, 5120 -> 2560) and the shared block's
                     q / v, packed attention at dh = 80, and the three
@@ -412,19 +415,26 @@ def kernel_phase(torch, timer):
     mask = (pos[None] >= start[:, None]) & (pos[None] < end[:, None])
     qt = qd.transpose(1, 2).contiguous()
     kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
-    lib_ms = timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True))
+    dev_ms = kernel_device_ms(torch, timer, lambda: ops.decode_attention(qd, kc, vc, end, start),
+                              "decode_stage")  # both stages
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :],
+                                              enable_gqa=True)
+    lib_ms = timer(sdpa)
+    lib_dev_ms = library_device_ms(torch, timer, sdpa)
     window = int((end - start).clamp_min(0).sum().item())
     nbytes = 2 * (2 * Bd * H * dh + 2 * window * Hkv * dh) + 4 * 2 * Bd
     bms, by = bound_ms(nbytes, 4.0 * H * dh * window)
     emit({"phase": "kernels", "kernel": "decode_attention", "B": Bd, "Smax": Smax, "H": H,
           "Hkv": Hkv, "dh": dh, "window_rows": window, "max_abs_err": err,
-          "max_rel_err": rel, "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-          "bound_by": by, "library_ms": lib_ms})
+          "max_rel_err": rel, "tol": tol, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+          "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+          "library_device_ms": lib_dev_ms})
     results["decode_attention"] = {
         "shape": f"B={Bd}, Smax={Smax}, H={H}, Hkv={Hkv}, dh={dh}, {window} window rows",
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms, "max_abs_err": err}
+        "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+        "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "max_abs_err": err}
     return results
 
 
@@ -910,7 +920,8 @@ def _attention_edge_cases(torch, g, cfg, S_loader, tag):
     (b) queries that see no key; (c) dh = 64; (d) dq and dk/dv on a loader
     layout at S = 200 at the model's heads; (e) segments that alternate every
     64 rows, so that the tiles a warp skips (segment ranges disjoint) and the
-    ones it computes alternate, behind a wildcard prefix in one batch row."""
+    ones it computes alternate, behind a wildcard prefix in one batch row;
+    (f) misaligned q, k, v (``_misaligned_attention_case``)."""
     from repro_torch.core.alignment import align_tasks
     from repro_torch.data.synthetic import make_task
     from repro_torch.kernels import packed_attention as pa
@@ -969,6 +980,49 @@ def _attention_edge_cases(torch, g, cfg, S_loader, tag):
     pseg = torch.full((B, P), -2, dtype=i32, device=dev)
     pseg[0] = -1
     run("e_alternating_segments", B, S, H, Hkv, dh, prefixed(rows(B, S), seg_e, pseg))
+    _misaligned_attention_case(torch, g, tag)
+
+
+def _misaligned_attention_case(torch, g, tag):
+    """(f) q, k and v as contiguous views two bytes past a 16-byte boundary,
+    which the kernels' cp.async cannot read: ops.packed_attention hands the
+    forward, dq and dk/dv kernels aligned copies (each launched once), and
+    its output and the gradients to the views match the plain version's."""
+    from repro_torch.kernels import ops
+
+    bf16, dev = torch.bfloat16, "cuda"
+    B, S, H, Hkv, dh = 2, 256, 6, 2, 128
+
+    def odd_view(*shape):  # a leaf view at element offset 1 of its storage
+        n = shape[0] * shape[1] * shape[2] * shape[3]
+        base = torch.randn((n + 1,), generator=g, device=dev).to(bf16)
+        return base[1:].view(shape).requires_grad_(True)
+
+    q, k, v = odd_view(B, S, H, dh), odd_view(B, S, Hkv, dh), odd_view(B, S, Hkv, dh)
+    if any(t.data_ptr() % 16 == 0 for t in (q, k, v)):
+        raise AssertionError("packed_attention case f: a view is 16-byte aligned")
+    do = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+    seg = (torch.arange(S, device=dev) // 100).to(torch.int32).expand(B, S).contiguous()
+    before = ops.launch_counts()
+    o = ops.packed_attention(q, k, v, seg)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    launched = {n: ops.launch_counts()[n] - before[n]
+                for n in ("packed_attention", "packed_attention_dq", "packed_attention_dkv")}
+    if set(launched.values()) != {1}:
+        raise AssertionError(f"packed_attention case f: launches {launched}, want one each")
+    with ops.force_plain():
+        o_ref = ops.packed_attention(q, k, v, seg)
+        refs = torch.autograd.grad(o_ref, (q, k, v), do)
+    torch.cuda.synchronize()
+    where = f"packed_attention {tag} case f_misaligned"
+    err_f = compare(o, o_ref, where)[0]
+    err_dq = compare(grads[0], refs[0], where + " dq", GRAD_TOL["packed_attention_dq"])[0]
+    err_dkv = max(compare(gr, ref, f"{where} {n}", GRAD_TOL["packed_attention_dkv"])[0]
+                  for n, gr, ref in zip(("dk", "dv"), grads[1:], refs[1:]))
+    emit({"phase": "train_kernels", "kernel": "packed_attention", "model": tag,
+          "case": "f_misaligned", "B": B, "S": S, "H": H, "Hkv": Hkv, "dh": dh,
+          "data_ptr_mod_16": [t.data_ptr() % 16 for t in (q, k, v)], "launches": launched,
+          "fwd_max_abs_err": err_f, "dq_max_abs_err": err_dq, "dkv_max_abs_err": err_dkv})
 
 
 def _attention_train_kernels(torch, timer, g, cfg, plan, tag):
@@ -1077,8 +1131,59 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
     _, da3, db3 = gl.grouped_lora_bwd_cuda(x3, a3, b3, rt, s3, h3, g3)
     if da3[2].abs().max().item() != 0.0 or db3[2].abs().max().item() != 0.0:
         raise AssertionError("grouped_lora backward: an unused slot's gradient is not 0")
+    _lora_rank_cases(torch, timer, g, plan.htasks[0].rows, plan.htasks[0].row_len)
     results.update(_attention_train_kernels(torch, timer, g, cfg, plan, cfg.name))
     return results
+
+
+def _lora_rank_cases(torch, timer, g, rows, row_len):
+    """Grouped LoRA above one rank tile of the kernels: stack ranks 96 and
+    128 with mixed per-task ranks (each tenant's B rows past its own rank
+    zero, as a padded stack holds them), three tasks and no-adapter rows;
+    stack rank 64 (one tile) alike, as the baseline of their times.  The
+    forward at decode (M = 8, a task per row) against the plain version;
+    the forward (saving h) and the backward at the training rows against
+    the plain version and autograd of it.  One line each."""
+    from repro_torch.kernels import grouped_lora as gl
+
+    bf16, dev, i32 = torch.bfloat16, "cuda", torch.int32
+    d_in, d_out = 3072, 1024
+    M = rows * row_len
+    rt = (torch.arange(rows, device=dev) % 4 - 1).to(i32).repeat_interleave(row_len)
+    rt8 = torch.tensor([0, 1, 2, -1, 2, 1, 0, 2], dtype=i32, device=dev)
+    for r, ranks in ((64, (64, 16, 40)), (96, (96, 16, 64)), (128, (128, 8, 100))):
+        T = len(ranks)
+        a = (torch.randn((T, d_in, r), generator=g, device=dev) * 0.02).to(bf16)
+        b = torch.randn((T, r, d_out), generator=g, device=dev) * 0.02
+        for t, rk in enumerate(ranks):
+            b[t, rk:] = 0.0
+        b = b.to(bf16)
+        scale = torch.tensor([16.0 / rk for rk in ranks], dtype=torch.float32, device=dev)
+        where = f"grouped_lora rank {r} ranks {ranks}"
+        x8 = torch.randn((8, d_in), generator=g, device=dev).to(bf16)
+        err = {"fwd_M8": compare(gl.grouped_lora_cuda(x8, a, b, rt8, scale),
+                                 gl.grouped_lora_plain(x8, a, b, rt8, scale), where + " M=8")[0]}
+        x = torch.randn((M, d_in), generator=g, device=dev).to(bf16)
+        gy = torch.randn((M, d_out), generator=g, device=dev).to(bf16)
+        y, h = gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True)
+        dx, da, db = gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)
+        xr, ar, br = (t.clone().requires_grad_(True) for t in (x, a, b))
+        y_ref = gl.grouped_lora_plain(xr, ar, br, rt, scale)
+        refs = torch.autograd.grad(y_ref, (xr, ar, br), gy)
+        h_ref = torch.zeros((M, r), device=dev)
+        for t in range(T):
+            h_ref = torch.where((rt == t)[:, None], x.float() @ a[t].float(), h_ref)
+        torch.cuda.synchronize()
+        err["fwd"] = compare(y, y_ref, f"{where} M={M}")[0]
+        err["h"] = compare(h, h_ref, f"{where} M={M} h", F32_TOL)[0]
+        for n, o, ref in zip(("dx", "dA", "dB"), (dx, da, db), refs):
+            err[n] = compare(o, ref, f"{where} M={M} {n}", GRAD_TOL["grouped_lora_bwd"])[0]
+        emit({"phase": "train_kernels", "kernel": "grouped_lora", "case": f"rank{r}",
+              "task_ranks": list(ranks), "M": M, "d_in": d_in, "d_out": d_out, "T": T, "r": r,
+              "max_abs_err": err, "tol_rel": KERNEL_TOL,
+              "fwd_save_h_ms": timer(lambda: gl.grouped_lora_cuda(x, a, b, rt, scale,
+                                                                  save_h=True)),
+              "bwd_ms": timer(lambda: gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy))})
 
 
 def _scan_case(torch, g, B, S, H, resets, h0_zero, reset_rows=None):

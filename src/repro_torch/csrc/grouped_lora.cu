@@ -37,9 +37,15 @@
 //     columns, so a row tile spreads over 8 SMs without redundant work.
 //     Only when asked does the kernel also write them out ([M, r] f32: h
 //     forward, dh backward).
+//   * Any stack rank up to RANK_LIMIT: the rank runs in tiles of RT = 64
+//     columns.  Phase 1 computes and exchanges one rank tile at a time into
+//     the block's [BM][r rounded up to 64] rows (dynamic shared memory);
+//     phase 2 sums over every rank tile in f32 before it rounds an output
+//     to bf16 once.  A rank of at most 64 is one tile and runs the
+//     arithmetic of a kernel with a single tile.
 //   * The per-task sums dA and dB run in a second kernel: one block per
 //     (64 output columns, slot, dA or dB) walks all rows in order, skipping
-//     32-row chunks that hold no row of its slot.
+//     32-row chunks that hold no row of its slot, once per rank tile.
 //   * Every sum runs in a fixed order (no atomics): two runs on the same
 //     inputs give the same bits.
 // Later work: mma/wgmma for the rank-space products, TMA loads.
@@ -53,11 +59,19 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int RMAX = 64;  // largest stack rank the kernels take
+constexpr int RT = 64;    // rank columns per rank tile
 constexpr int BK = 64;    // phase-1 reduction rows of W1 per tile
-constexpr int BN = 64;    // phase-2 output columns of W2 per tile (== RMAX: tiles share buffers)
+constexpr int BN = 64;    // phase-2 output columns of W2 per tile (== RT: tiles share buffers)
 constexpr int CL = 8;     // blocks per cluster, splitting phase 1 and then phase 2
-static_assert(BK == RMAX && BN == RMAX, "phase 2 reuses the phase-1 buffers");
+static_assert(BK == RT && BN == RT, "phase 2 reuses the phase-1 buffers");
+// The largest stack rank: a 16-row tile's rank rows, 16 x 3072 f32, and the
+// kernel's static buffers fit the 227 KB of shared memory a block can have.
+// Every LoRA site of the ported models has a side of at most 3072 (d_model),
+// and a rank above a site's narrower side adds nothing.
+constexpr int RANK_LIMIT = 3072;
+
+// the rank rounded up to whole rank tiles: the row length of h in shared memory
+__host__ __device__ constexpr int rank_pad(int r) { return (r + RT - 1) / RT * RT; }
 
 // W1[t][k][j] = w1[t * K1 * r + k * s1k + j * s1j] for k < K1, j < r;
 // W2[t][j][n] = w2[t * r * N2 + j * s2j + n * s2n] for j < r, n < N2.
@@ -74,8 +88,10 @@ struct PairArgs {
   int backward;  // scale applied to the rank-space rows (dh) instead of the output
 };
 
+// At most 64 registers (four blocks' worth per SM): left free, the 2-row
+// decode tile took 80 and ran slower at decode than with 64.
 template <int BM>
-__global__ void __cluster_dims__(1, CL, 1) __launch_bounds__(THREADS)
+__global__ void __cluster_dims__(1, CL, 1) __launch_bounds__(THREADS, 4)
 grouped_lora_pair_kernel(PairArgs p) {
   // 16 column quads x 16 row groups.  With BM >= 16 a thread owns BM/16 rows;
   // with BM < 16 the KS = 16/BM threads that share a row split the k loop.
@@ -85,11 +101,11 @@ grouped_lora_pair_kernel(PairArgs p) {
   __shared__ int task_s[BM];
   __shared__ int uniq_s[BM];
   __shared__ int n_uniq_s;
-  __shared__ __align__(16) float tile_s[BK * RMAX];  // W1 tile, then W2 tile
-  __shared__ float rows_s[BM * BK];                  // u tile, then masked rank rows
-  __shared__ float part_s[KS * BM * RMAX];           // per k-slice partial sums
-  __shared__ float hpart_s[BM * RMAX];               // this block's share of phase 1
-  __shared__ float h_s[BM * RMAX];                   // phase-1 result, f32
+  __shared__ __align__(16) float tile_s[BK * RT];  // W1 tile, then W2 tile
+  __shared__ float rows_s[BM * BK];                // u tile, then masked rank rows
+  __shared__ float part_s[KS * BM * RT];           // per k-slice partial sums
+  __shared__ float hpart_s[BM * RT];               // this block's share of a rank tile
+  extern __shared__ float h_s[];                   // [BM][rank_pad(r)] phase-1 result, f32
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -119,81 +135,86 @@ grouped_lora_pair_kernel(PairArgs p) {
   __syncthreads();
   const int n_uniq = n_uniq_s;
 
-  // ---- phase 1: this block's K1 slice of h = u @ W1[t] ----
+  // ---- phase 1: this block's K1 slice of h = u @ W1[t], a rank tile at a time ----
   const int kspan = (K1 + CL - 1) / CL;
   const int kb = rank * kspan;
   const int ke = min(K1, kb + kspan);
   const bool w1_kfast = p.s1k == 1;  // which W1 index runs along memory
+  const int rp = rank_pad(r);
   float acc[RPT][4];
+  for (int j0 = 0; j0 < r; j0 += RT) {
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
 
-  for (int ui = 0; ui < n_uniq; ++ui) {
-    const int u = uniq_s[ui];
-    const __nv_bfloat16* wu = p.w1 + static_cast<size_t>(u) * K1 * r;
-    for (int k0 = kb; k0 < ke; k0 += BK) {
-      for (int i = tid; i < BM * BK; i += THREADS) {
-        const int m = i / BK, k = k0 + i % BK;
-        rows_s[i] = (task_s[m] == u && k < ke)
-                        ? __bfloat162float(p.u[static_cast<size_t>(m0 + m) * K1 + k])
-                        : 0.f;
-      }
-      for (int i = tid; i < BK * RMAX; i += THREADS) {
-        const int kk = w1_kfast ? i % BK : i / RMAX;
-        const int j = w1_kfast ? i / BK : i % RMAX;
-        const int k = k0 + kk;
-        tile_s[kk * RMAX + j] =
-            (j < r && k < ke)
-                ? __bfloat162float(wu[static_cast<size_t>(k) * p.s1k + static_cast<size_t>(j) * p.s1j])
-                : 0.f;
-      }
-      __syncthreads();
-      for (int kk = ks; kk < BK; kk += KS) {
-        const float4 av = *reinterpret_cast<const float4*>(&tile_s[kk * RMAX + 4 * cq]);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int m = BM >= 16 ? rg + 16 * i : rg % BM;
-          const float xv = rows_s[m * BK + kk];
-          acc[i][0] += xv * av.x;
-          acc[i][1] += xv * av.y;
-          acc[i][2] += xv * av.z;
-          acc[i][3] += xv * av.w;
+    for (int ui = 0; ui < n_uniq; ++ui) {
+      const int u = uniq_s[ui];
+      const __nv_bfloat16* wu = p.w1 + static_cast<size_t>(u) * K1 * r;
+      for (int k0 = kb; k0 < ke; k0 += BK) {
+        for (int i = tid; i < BM * BK; i += THREADS) {
+          const int m = i / BK, k = k0 + i % BK;
+          rows_s[i] = (task_s[m] == u && k < ke)
+                          ? __bfloat162float(p.u[static_cast<size_t>(m0 + m) * K1 + k])
+                          : 0.f;
         }
+        for (int i = tid; i < BK * RT; i += THREADS) {
+          const int kk = w1_kfast ? i % BK : i / RT;
+          const int j = w1_kfast ? i / BK : i % RT;
+          const int k = k0 + kk;
+          tile_s[kk * RT + j] =
+              (j0 + j < r && k < ke)
+                  ? __bfloat162float(wu[static_cast<size_t>(k) * p.s1k +
+                                        static_cast<size_t>(j0 + j) * p.s1j])
+                  : 0.f;
+        }
+        __syncthreads();
+        for (int kk = ks; kk < BK; kk += KS) {
+          const float4 av = *reinterpret_cast<const float4*>(&tile_s[kk * RT + 4 * cq]);
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const int m = BM >= 16 ? rg + 16 * i : rg % BM;
+            const float xv = rows_s[m * BK + kk];
+            acc[i][0] += xv * av.x;
+            acc[i][1] += xv * av.y;
+            acc[i][2] += xv * av.z;
+            acc[i][3] += xv * av.w;
+          }
+        }
+        __syncthreads();
       }
-      __syncthreads();
     }
-  }
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int m = BM >= 16 ? rg + 16 * i : rg % BM;
+    for (int i = 0; i < RPT; ++i) {
+      const int m = BM >= 16 ? rg + 16 * i : rg % BM;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) part_s[(ks * BM + m) * RMAX + 4 * cq + c] = acc[i][c];
-  }
-  __syncthreads();
-  for (int i = tid; i < BM * RMAX; i += THREADS) {
-    float s = 0.f;
-    for (int q = 0; q < KS; ++q) s += part_s[q * BM * RMAX + i];
-    hpart_s[i] = s;
-  }
-  // exchange the phase-1 slices across the cluster
-  cluster.sync();
-  for (int i = tid; i < BM * RMAX; i += THREADS) {
-    float s = 0.f;
-    for (int q = 0; q < CL; ++q) s += cluster.map_shared_rank(hpart_s, q)[i];
-    if (p.backward) {  // dh = (g @ B^T) * scale
-      const int t = task_s[i / RMAX];
-      s *= t >= 0 ? p.scale[t] : 0.f;
+      for (int c = 0; c < 4; ++c) part_s[(ks * BM + m) * RT + 4 * cq + c] = acc[i][c];
     }
-    h_s[i] = s;
+    __syncthreads();
+    for (int i = tid; i < BM * RT; i += THREADS) {
+      float s = 0.f;
+      for (int q = 0; q < KS; ++q) s += part_s[q * BM * RT + i];
+      hpart_s[i] = s;
+    }
+    // exchange the rank tile's phase-1 slices across the cluster
+    cluster.sync();
+    for (int i = tid; i < BM * RT; i += THREADS) {
+      float s = 0.f;
+      for (int q = 0; q < CL; ++q) s += cluster.map_shared_rank(hpart_s, q)[i];
+      if (p.backward) {  // dh = (g @ B^T) * scale
+        const int t = task_s[i / RT];
+        s *= t >= 0 ? p.scale[t] : 0.f;
+      }
+      h_s[(i / RT) * rp + j0 + i % RT] = s;
+    }
+    // no block may leave (freeing its hpart_s), or refill it with the next
+    // rank tile, while another still reads it
+    cluster.sync();
   }
-  // no block may leave (freeing its hpart_s) while another still reads it
-  cluster.sync();
   if (p.hout != nullptr && rank == 0) {
     for (int i = tid; i < BM * r; i += THREADS) {
       const int m = i / r, j = i % r;
-      if (m0 + m < M) p.hout[static_cast<size_t>(m0 + m) * r + j] = h_s[m * RMAX + j];
+      if (m0 + m < M) p.hout[static_cast<size_t>(m0 + m) * r + j] = h_s[m * rp + j];
     }
   }
 
@@ -210,31 +231,35 @@ grouped_lora_pair_kernel(PairArgs p) {
     for (int ui = 0; ui < n_uniq; ++ui) {
       const int u = uniq_s[ui];
       const __nv_bfloat16* wu = p.w2 + static_cast<size_t>(u) * r * N2;
-      for (int i = tid; i < BM * RMAX; i += THREADS)
-        rows_s[i] = task_s[i / RMAX] == u ? h_s[i] : 0.f;
-      for (int i = tid; i < RMAX * BN; i += THREADS) {
-        const int j = w2_jfast ? i % RMAX : i / BN;
-        const int nn = w2_jfast ? i / RMAX : i % BN;
-        const int n = n0 + nn;
-        tile_s[j * BN + nn] =
-            (j < r && n < ne)
-                ? __bfloat162float(wu[static_cast<size_t>(j) * p.s2j + static_cast<size_t>(n) * p.s2n])
-                : 0.f;
-      }
-      __syncthreads();
-      for (int j = ks; j < r; j += KS) {
-        const float4 bv = *reinterpret_cast<const float4*>(&tile_s[j * BN + 4 * cq]);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int m = BM >= 16 ? rg + 16 * i : rg % BM;
-          const float hv = rows_s[m * RMAX + j];
-          acc[i][0] += hv * bv.x;
-          acc[i][1] += hv * bv.y;
-          acc[i][2] += hv * bv.z;
-          acc[i][3] += hv * bv.w;
+      for (int j0 = 0; j0 < r; j0 += RT) {  // the f32 sum runs over every rank tile
+        for (int i = tid; i < BM * RT; i += THREADS)
+          rows_s[i] = task_s[i / RT] == u ? h_s[(i / RT) * rp + j0 + i % RT] : 0.f;
+        for (int i = tid; i < RT * BN; i += THREADS) {
+          const int j = w2_jfast ? i % RT : i / BN;
+          const int nn = w2_jfast ? i / RT : i % BN;
+          const int n = n0 + nn;
+          tile_s[j * BN + nn] =
+              (j0 + j < r && n < ne)
+                  ? __bfloat162float(wu[static_cast<size_t>(j0 + j) * p.s2j +
+                                        static_cast<size_t>(n) * p.s2n])
+                  : 0.f;
         }
+        __syncthreads();
+        const int jn = min(RT, r - j0);
+        for (int j = ks; j < jn; j += KS) {
+          const float4 bv = *reinterpret_cast<const float4*>(&tile_s[j * BN + 4 * cq]);
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            const int m = BM >= 16 ? rg + 16 * i : rg % BM;
+            const float hv = rows_s[m * RT + j];
+            acc[i][0] += hv * bv.x;
+            acc[i][1] += hv * bv.y;
+            acc[i][2] += hv * bv.z;
+            acc[i][3] += hv * bv.w;
+          }
+        }
+        __syncthreads();
       }
-      __syncthreads();
     }
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
@@ -259,8 +284,14 @@ grouped_lora_pair_kernel(PairArgs p) {
 
 template <int BM>
 cudaError_t launch_pair(const PairArgs& p, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(float)) * BM * rank_pad(p.r);
+  if (p.r > RT) {  // past one rank tile the rank rows may pass the default 48 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        grouped_lora_pair_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid((p.M + BM - 1) / BM, CL);
-  grouped_lora_pair_kernel<BM><<<grid, THREADS, 0, stream>>>(p);
+  grouped_lora_pair_kernel<BM><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -275,7 +306,8 @@ constexpr int RM = 32;  // rows per reduction chunk
 
 // blockIdx.z == 0: da[t][c][j] = sum_m x[m][c] dh[m][j]          (c < d_in)
 // blockIdx.z == 1: db[t][j][c] = scale[t] sum_m h[m][j] g[m][c]  (c < d_out)
-// over the rows m of task t, in row order.
+// over the rows m of task t, in row order, a rank tile of RT columns j at a
+// time.
 __global__ void __launch_bounds__(THREADS)
 grouped_lora_reduce_kernel(const __nv_bfloat16* __restrict__ x,
                            const __nv_bfloat16* __restrict__ g,
@@ -284,7 +316,7 @@ grouped_lora_reduce_kernel(const __nv_bfloat16* __restrict__ x,
                            float* __restrict__ da, float* __restrict__ db, int M, int d_in,
                            int d_out, int r) {
   __shared__ float u_s[RM * RC];
-  __shared__ float v_s[RM * RMAX];
+  __shared__ float v_s[RM * RT];
   __shared__ int any_s;
   const int dB = blockIdx.z;
   const int C = dB ? d_out : d_in;
@@ -295,51 +327,56 @@ grouped_lora_reduce_kernel(const __nv_bfloat16* __restrict__ x,
   const float* V = dB ? h : dh;
   const int tid = threadIdx.x;
   const int c = tid % RC;
-  const int jg = tid / RC;  // this thread's ranks: jg, jg + 4, ...
-  float acc[RMAX / 4];
-#pragma unroll
-  for (int q = 0; q < RMAX / 4; ++q) acc[q] = 0.f;
-
-  for (int m0 = 0; m0 < M; m0 += RM) {
-    __syncthreads();  // the previous chunk is no longer read
-    if (tid == 0) any_s = 0;
-    __syncthreads();
-    if (tid < RM && m0 + tid < M && row_task[m0 + tid] == t) any_s = 1;
-    __syncthreads();
-    if (!any_s) continue;
-    for (int i = tid; i < RM * RC; i += THREADS) {
-      const int mm = i / RC, cc = i % RC, m = m0 + mm;
-      u_s[i] = (m < M && row_task[m] == t && c0 + cc < C)
-                   ? __bfloat162float(U[static_cast<size_t>(m) * C + c0 + cc])
-                   : 0.f;
-    }
-    for (int i = tid; i < RM * RMAX; i += THREADS) {
-      const int mm = i / RMAX, j = i % RMAX, m = m0 + mm;
-      v_s[i] = (m < M && row_task[m] == t && j < r) ? V[static_cast<size_t>(m) * r + j] : 0.f;
-    }
-    __syncthreads();
-    for (int mm = 0; mm < RM; ++mm) {
-      const float uv = u_s[mm * RC + c];
-#pragma unroll
-      for (int q = 0; q < RMAX / 4; ++q)
-        if (jg + 4 * q < r) acc[q] += uv * v_s[mm * RMAX + jg + 4 * q];
-    }
-  }
-  if (c0 + c >= C) return;
+  const int jg = tid / RC;  // this thread's ranks in the tile: jg, jg + 4, ...
   const float f = dB ? scale[t] : 1.f;
+  for (int j0 = 0; j0 < r; j0 += RT) {
+    const int jn = min(RT, r - j0);
+    float acc[RT / 4];
 #pragma unroll
-  for (int q = 0; q < RMAX / 4; ++q) {
-    const int j = jg + 4 * q;
-    if (j >= r) continue;
-    if (dB)
-      db[(static_cast<size_t>(t) * r + j) * d_out + c0 + c] = acc[q] * f;
-    else
-      da[(static_cast<size_t>(t) * d_in + c0 + c) * r + j] = acc[q] * f;
+    for (int q = 0; q < RT / 4; ++q) acc[q] = 0.f;
+
+    for (int m0 = 0; m0 < M; m0 += RM) {
+      __syncthreads();  // the previous chunk is no longer read
+      if (tid == 0) any_s = 0;
+      __syncthreads();
+      if (tid < RM && m0 + tid < M && row_task[m0 + tid] == t) any_s = 1;
+      __syncthreads();
+      if (!any_s) continue;
+      for (int i = tid; i < RM * RC; i += THREADS) {
+        const int mm = i / RC, cc = i % RC, m = m0 + mm;
+        u_s[i] = (m < M && row_task[m] == t && c0 + cc < C)
+                     ? __bfloat162float(U[static_cast<size_t>(m) * C + c0 + cc])
+                     : 0.f;
+      }
+      for (int i = tid; i < RM * RT; i += THREADS) {
+        const int mm = i / RT, j = i % RT, m = m0 + mm;
+        v_s[i] = (m < M && row_task[m] == t && j < jn) ? V[static_cast<size_t>(m) * r + j0 + j]
+                                                       : 0.f;
+      }
+      __syncthreads();
+      for (int mm = 0; mm < RM; ++mm) {
+        const float uv = u_s[mm * RC + c];
+#pragma unroll
+        for (int q = 0; q < RT / 4; ++q)
+          if (jg + 4 * q < jn) acc[q] += uv * v_s[mm * RT + jg + 4 * q];
+      }
+    }
+    if (c0 + c < C) {
+#pragma unroll
+      for (int q = 0; q < RT / 4; ++q) {
+        const int j = j0 + jg + 4 * q;
+        if (jg + 4 * q >= jn) continue;
+        if (dB)
+          db[(static_cast<size_t>(t) * r + j) * d_out + c0 + c] = acc[q] * f;
+        else
+          da[(static_cast<size_t>(t) * d_in + c0 + c) * r + j] = acc[q] * f;
+      }
+    }
   }
 }
 
 bool bad_sizes(int M, int d_in, int d_out, int T, int r) {
-  return M <= 0 || d_in <= 0 || d_out <= 0 || T <= 0 || r <= 0 || r > RMAX;
+  return M <= 0 || d_in <= 0 || d_out <= 0 || T <= 0 || r <= 0 || r > RANK_LIMIT;
 }
 
 }  // namespace

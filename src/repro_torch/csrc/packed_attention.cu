@@ -32,8 +32,8 @@
 // shape (B = 8, S = 512) the least time is set by the bytes of q/k/v/o/do
 // (14-30 us at 3.35 TB/s), not by the tensor cores' rate.
 //
-// Forward and dk/dv (redesigned for Hopper's tensor cores).  The products
-// run as mma.sync.m16n8k16 on bf16 operands with f32 accumulators, fed by
+// All three kernels run on Hopper's tensor cores.  The products run as
+// mma.sync.m16n8k16 on bf16 operands with f32 accumulators, fed by
 // ldmatrix (.trans where the operand's rows are the contraction).  Tiles
 // stay bf16 in shared memory, copied by cp.async in 16-byte chunks (a row
 // of dh = 80 is 10 of them) with rows padded to dh + 8 elements, so the
@@ -51,25 +51,40 @@
 // mask is taken element by element.  The test is conservative for any ids;
 // on the training layout's short packed segments it removes most tiles.
 //
-// Numerics.  P (and dS in dk/dv) leave the f32 accumulators as three bf16
-// operands whose sum is the f32 value, so P V, P^T dO and dS^T Q keep f32
-// precision: a single bf16 P rounds each weight by up to 2^-9, which adds
-// up over a model's layers (the served logits moved further from the plain
-// path's).  The forward adds each k-step's S products to S in f32 with
-// round-to-nearest (the tensor cores truncate their sums) and takes
-// exp(s scale - m) with expf, as the plain version does.
+// Numerics.  P (and dS in the backward kernels) leave the f32 accumulators
+// as three bf16 operands whose sum is the f32 value, so P V, P^T dO, dS^T Q
+// and dS K keep f32 precision: a single bf16 P rounds each weight by up to
+// 2^-9, which adds up over a model's layers (the served logits moved
+// further from the plain path's).  The forward adds each k-step's S
+// products to S in f32 with round-to-nearest (the tensor cores truncate
+// their sums) and takes exp(s scale - m) with expf, as the plain version
+// does.  Every sum runs in a fixed order (no atomics).
 //
 //   forward: one block per (64-query tile, head, batch row), the longest
 //     tiles first.  Q goes from device memory straight into registers as
 //     A fragments.  A ring of three K/V tiles (two copies in flight while
-//     one is used, one barrier per tile) runs up to the tile rule's
-//     frontier (`key_end`).  S = Q K^T stays in registers and is masked
-//     from the row ids (each thread holds its two query rows' ids, the key
-//     ids come from shared memory); online softmax with quad shuffles; P is
-//     fed back as the A operand of P V (the m16n8 accumulator pairs have
-//     the m16k16 A layout), so it never touches shared memory.  O is
-//     accumulated in f32 registers and written through shared memory as
-//     16-byte stores.
+//     one is used, one barrier per tile; `KvRing`) runs up to the tile
+//     rule's frontier (`key_end`).  S = Q K^T stays in registers and is
+//     masked from the row ids (each thread holds its two query rows' ids,
+//     the key ids come from shared memory); online softmax with quad
+//     shuffles; P is fed back as the A operand of P V (the m16n8
+//     accumulator pairs have the m16k16 A layout), so it never touches
+//     shared memory.  O is accumulated in f32 registers and written through
+//     shared memory as 16-byte stores.
+//   dq: the forward's shape with one more product.  One block per
+//     (64-query tile, head, batch row), the longest tiles first, the same
+//     K/V ring.  Q and dO go from device memory into registers as A
+//     fragments, and D = rowsum(do * o) is taken once per row from the
+//     stored bf16 o (as `_dq_kernel` does), reduced over the row's quad.
+//     Each 64-key tile runs as two 32-key halves, each with its own tile
+//     class: S = Q K^T and dP = dO V^T, P = exp(S scale - lse) and
+//     dS = P (dP - D) in f32 registers, masked, then dQ += dS K with dS fed
+//     back as three bf16 terms and K as the B operand by ldmatrix.trans.
+//     dQ stays in f32 registers, takes the scale once at the end and is
+//     written through shared memory as 16-byte stores.  Registers at
+//     dh = 128: Q and dO fragments 32 + 32, dQ 64, S and dP on 32 keys
+//     16 + 16 (64 keys at once would hold 32 more, in a budget of 255 at
+//     two blocks per SM).
 //   dk/dv: one block per (64-key tile, kv head, batch row); K and V stay
 //     resident in shared memory.  The block walks the G query heads of its
 //     kv head and their 32-query tiles (q, do, o, lse, row ids in a
@@ -83,13 +98,7 @@
 //     registers, in a fixed order, and every output element is written
 //     once.
 //
-// dq (not redesigned yet): one block per (64-query tile, head, batch row),
-// walking the 64-key tiles up to the frontier with the recomputed
-// p = exp(s - lse), products on the CUDA cores in f32 from tiles widened to
-// f32 in shared memory; DH / 16 output columns per thread (101,504 bytes of
-// shared memory at DH = 80).  Every sum in the three kernels runs in a fixed
-// order (no atomics).  They are built for DH = 64, 80 (zamba2's shared
-// attention block) and 128.
+// They are built for DH = 64, 80 (zamba2's shared attention block) and 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,9 +108,7 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 256;
+constexpr int BQ = 64;  // queries per block (forward, dq); key_end's tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LSE_MASKED = 1e30f;
 
@@ -135,13 +142,7 @@ __device__ __forceinline__ int key_end(const Args& a, int q0) {
   return min(a.Sk, (qe / a.bk + 1) * a.bk);
 }
 
-__device__ __forceinline__ bool visible(const Args& a, int key, int qpos, int qseg, int qend,
-                                        int kpos, int kseg) {
-  return key < a.Sk && (kseg == qseg || kseg == -1) &&
-         (!a.causal || (qpos >= kpos && (key / a.bk) * a.bk <= qend));
-}
-
-// ---- tensor-core building blocks (forward and dk/dv) ----------------------
+// ---- tensor-core building blocks ---------------------------------------------
 
 constexpr int MMA_THREADS = 128;  // 4 warps, 16 rows each
 constexpr float LOG2E = 1.4426950408889634f;
@@ -256,6 +257,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// a bf16 pair (the lower half first) widened to f32: bf16 is f32's upper half
+__device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
+  return make_float2(__uint_as_float(v << 16), __uint_as_float(v & 0xffff0000u));
+}
+
 // x0, x1 as three bf16 pairs, hi + mid + lo, whose sum is x0, x1 to f32
 // precision (each term takes the next 8 significant bits)
 __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
@@ -326,93 +332,148 @@ __device__ __forceinline__ void store_rows(const float (&acc)[DH / 8][4], float 
   }
 }
 
-// ---- forward ---------------------------------------------------------------
+// ---- the K / V ring (forward and dq) -----------------------------------------
 
-constexpr int FWD_BK = 64;   // keys per tile
-
-
-constexpr int FWD_BQ = BQ;     // queries per block (16 per warp; key_end's tile)
-constexpr int FWD_STAGES = 3;  // ring of k / v tiles: two in flight while one is used
+constexpr int RING_BK = 64;     // keys per tile
+constexpr int RING_STAGES = 3;  // tiles in the ring: two in flight while one is used
 
 template <int DH>
-constexpr size_t fwd_smem() {
-  // the ring of k and v tiles (bf16, rows padded) and their key ids
-  return FWD_STAGES * (sizeof(__nv_bfloat16) * 2 * FWD_BK * (DH + 8) + sizeof(int) * 2 * FWD_BK);
+constexpr size_t ring_smem() {
+  // k and v tiles (bf16, rows padded) and their key ids, per stage
+  return RING_STAGES *
+         (sizeof(__nv_bfloat16) * 2 * RING_BK * (DH + 8) + sizeof(int) * 2 * RING_BK);
 }
+
+// A block's ring of key tiles over kv head kvh of batch row bi, in the
+// kernel's dynamic shared memory.
+template <int DH>
+struct KvRing {
+  static constexpr int DP = DH + 8;
+  __nv_bfloat16* k_s;  // [STAGES][BK][DP]
+  __nv_bfloat16* v_s;  // [STAGES][BK][DP]
+  int* kpos_s;         // [STAGES][BK]
+  int* kseg_s;         // [STAGES][BK]
+  const __nv_bfloat16* kg;
+  const __nv_bfloat16* vg;
+  const int* kposg;
+  const int* ksegg;
+  size_t stride;
+  int Sk;
+
+  __device__ KvRing(unsigned char* smem, const Args& a, int bi, int kvh) {
+    static_assert(MMA_THREADS == 2 * RING_BK, "one thread per key id");
+    k_s = reinterpret_cast<__nv_bfloat16*>(smem);
+    v_s = k_s + RING_STAGES * RING_BK * DP;
+    kpos_s = reinterpret_cast<int*>(v_s + RING_STAGES * RING_BK * DP);
+    kseg_s = kpos_s + RING_STAGES * RING_BK;
+    Sk = a.Sk;
+    stride = static_cast<size_t>(a.Hkv) * DH;
+    kg = a.k + (static_cast<size_t>(bi) * Sk * a.Hkv + kvh) * DH;
+    vg = a.v + (static_cast<size_t>(bi) * Sk * a.Hkv + kvh) * DH;
+    kposg = a.kpos + static_cast<size_t>(bi) * Sk;
+    ksegg = a.kseg + static_cast<size_t>(bi) * Sk;
+  }
+
+  // starts the copies of key tile it into its stage (the caller commits)
+  __device__ void load(int it) const {
+    const int buf = it % RING_STAGES, k0 = it * RING_BK;
+    copy_tile<DH, RING_BK>(k_s + buf * RING_BK * DP, kg, stride, k0, Sk);
+    copy_tile<DH, RING_BK>(v_s + buf * RING_BK * DP, vg, stride, k0, Sk);
+    const int r = threadIdx.x % RING_BK, key = k0 + r;
+    const bool ok = key < Sk;
+    if (threadIdx.x < RING_BK)
+      cp_async4(kpos_s + buf * RING_BK + r, ok ? kposg + key : kposg, ok);
+    else
+      cp_async4(kseg_s + buf * RING_BK + r, ok ? ksegg + key : ksegg, ok);
+  }
+
+  // the ring's first two tiles (a group each, empty past the last tile)
+  __device__ void start(int n_kt) const {
+#pragma unroll
+    for (int it = 0; it < RING_STAGES - 1; ++it) {
+      if (it < n_kt) load(it);
+      cp_async_commit();
+    }
+  }
+
+  // waits for tile it and refills the stage of tile it - 1 with tile
+  // it + STAGES - 1: every part of tile it has landed, and every warp is
+  // done with tile it - 1, past the barrier
+  __device__ void advance(int it, int n_kt) const {
+    cp_async_wait<RING_STAGES - 2>();  // tile it has landed (this thread's part)
+    __syncthreads();
+    if (it + RING_STAGES - 1 < n_kt) load(it + RING_STAGES - 1);
+    cp_async_commit();
+  }
+};
+
+// The ids of this thread's two query rows (g and g + 8 of its warp's 16
+// from s_lo), and the rows' span over the warp.
+__device__ __forceinline__ Span query_rows(const Args& a, int bi, int s_lo, int g, int (&qpos)[2],
+                                           int (&qseg)[2], int (&qlim)[2], bool (&qok)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = s_lo + g + 8 * i;
+    qok[i] = s < a.S;
+    qpos[i] = qok[i] ? a.qpos[static_cast<size_t>(bi) * a.S + s] : 0;
+    qseg[i] = qok[i] ? a.qseg[static_cast<size_t>(bi) * a.S + s] : 0;
+    qlim[i] = key_limit(a, query_frontier(a, s));
+  }
+  return warp_span(qpos[0], qseg[0], qlim[0], qok[0], qpos[1], qseg[1], qlim[1], qok[1],
+                   s_lo + 15 < a.S);
+}
+
+// A warp's 16 rows x DH of a [rows, stride] bf16 matrix (row r at src + r *
+// stride, from s_lo) straight from device memory as m16k16 A fragments;
+// rows that are not ok give zeros.  a0: (g, 2t4), a1: (g + 8, 2t4), a2, a3:
+// the same 8 columns on.
+template <int KS>
+__device__ __forceinline__ void load_a_rows(uint32_t (&f)[KS][4], const __nv_bfloat16* src,
+                                            size_t stride, int s_lo, int g, int t4,
+                                            const bool (&ok)[2]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = j & 1;
+      f[kk][j] = ok[i] ? *reinterpret_cast<const uint32_t*>(
+                             src + (s_lo + g + 8 * i) * stride + kk * 16 + (j >> 1) * 8 + 2 * t4)
+                       : 0u;
+    }
+}
+
+// ---- forward ---------------------------------------------------------------
 
 template <int DH>
 __global__ void __launch_bounds__(MMA_THREADS, 2) packed_attention_fwd_kernel(Args a) {
   constexpr int DP = DH + 8;
   constexpr int KS = DH / 16;  // k-steps over dh
   constexpr int NT = DH / 8;   // n-tiles of the output
-  static_assert(FWD_BQ <= FWD_STAGES * FWD_BK, "the epilogue stages o in the k tiles");
-  static_assert(MMA_THREADS == 2 * FWD_BK, "one thread per key id");
+  static_assert(BQ <= RING_STAGES * RING_BK, "the epilogue stages o in the k tiles");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [STAGES][BK][DP]
-  __nv_bfloat16* v_s = k_s + FWD_STAGES * FWD_BK * DP;              // [STAGES][BK][DP]
-  int* kpos_s = reinterpret_cast<int*>(v_s + FWD_STAGES * FWD_BK * DP);  // [STAGES][BK]
-  int* kseg_s = kpos_s + FWD_STAGES * FWD_BK;                            // [STAGES][BK]
 
-  const int S = a.S, Sk = a.Sk, H = a.H, Hkv = a.Hkv;
+  const int S = a.S, Sk = a.Sk, H = a.H;
   // the longest query tiles (most keys under the causal frontier) first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_BQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int bi = blockIdx.z;
-  const int kvh = h / (H / Hkv);
+  const KvRing<DH> ring(smem_raw, a, bi, h / (H / a.Hkv));
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const size_t q_stride = static_cast<size_t>(H) * DH, kv_stride = static_cast<size_t>(Hkv) * DH;
+  const size_t q_stride = static_cast<size_t>(H) * DH;
   const __nv_bfloat16* qg = a.q + (static_cast<size_t>(bi) * S * H + h) * DH;
-  const __nv_bfloat16* kg = a.k + (static_cast<size_t>(bi) * Sk * Hkv + kvh) * DH;
-  const __nv_bfloat16* vg = a.v + (static_cast<size_t>(bi) * Sk * Hkv + kvh) * DH;
-  const int* kposg = a.kpos + static_cast<size_t>(bi) * Sk;
-  const int* ksegg = a.kseg + static_cast<size_t>(bi) * Sk;
 
-  auto load_kv = [&](int it) {
-    const int buf = it % FWD_STAGES, k0 = it * FWD_BK;
-    copy_tile<DH, FWD_BK>(k_s + buf * FWD_BK * DP, kg, kv_stride, k0, Sk);
-    copy_tile<DH, FWD_BK>(v_s + buf * FWD_BK * DP, vg, kv_stride, k0, Sk);
-    const int r = threadIdx.x % FWD_BK, key = k0 + r;
-    const bool ok = key < Sk;
-    if (threadIdx.x < FWD_BK)
-      cp_async4(kpos_s + buf * FWD_BK + r, ok ? kposg + key : kposg, ok);
-    else
-      cp_async4(kseg_s + buf * FWD_BK + r, ok ? ksegg + key : ksegg, ok);
-  };
+  const int n_kt = (key_end(a, q0) + RING_BK - 1) / RING_BK;
+  ring.start(n_kt);
 
-  // the ring's first two tiles (a group each, empty past the last tile)
-  const int n_kt = (key_end(a, q0) + FWD_BK - 1) / FWD_BK;
-#pragma unroll
-  for (int it = 0; it < FWD_STAGES - 1; ++it) {
-    if (it < n_kt) load_kv(it);
-    cp_async_commit();
-  }
-
-  // this thread's two query rows (g and g + 8 of its warp's 16): ids, and
-  // the Q fragments straight from device memory into registers
+  // this thread's two query rows: ids, and the Q fragments straight from
+  // device memory into registers
   const int s_lo = q0 + warp * 16;
   int qpos[2], qseg[2], qlim[2];
   bool qok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int s = s_lo + g + 8 * i;
-    qok[i] = s < S;
-    qpos[i] = qok[i] ? a.qpos[static_cast<size_t>(bi) * S + s] : 0;
-    qseg[i] = qok[i] ? a.qseg[static_cast<size_t>(bi) * S + s] : 0;
-    qlim[i] = key_limit(a, query_frontier(a, s));
-  }
+  const Span q_span = query_rows(a, bi, s_lo, g, qpos, qseg, qlim, qok);
   uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {  // a0: (g, 2t4), a1: (g + 8, 2t4), a2, a3: columns + 8
-      const int i = j & 1;
-      qf[kk][j] = qok[i] ? *reinterpret_cast<const uint32_t*>(
-                               qg + (s_lo + g + 8 * i) * q_stride + kk * 16 + (j >> 1) * 8 + 2 * t4)
-                         : 0u;
-    }
-  const Span q_span = warp_span(qpos[0], qseg[0], qlim[0], qok[0], qpos[1], qseg[1], qlim[1],
-                                qok[1], s_lo + 15 < S);
+  load_a_rows<KS>(qf, qg, q_stride, s_lo, g, t4, qok);
 
   float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
   float o_acc[NT][4];
@@ -422,22 +483,16 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) packed_attention_fwd_kernel(Ar
     for (int e = 0; e < 4; ++e) o_acc[nt][e] = 0.f;
 
   for (int it = 0; it < n_kt; ++it) {
-    const int buf = it % FWD_STAGES, k0 = it * FWD_BK;
-    cp_async_wait<FWD_STAGES - 2>();  // tile it has landed (this thread's part)
-    // every part of tile it has landed, and every warp is done with tile
-    // it - 1, whose buffer the next copy refills
-    __syncthreads();
-    if (it + FWD_STAGES - 1 < n_kt) load_kv(it + FWD_STAGES - 1);
-    cp_async_commit();
-
-    const __nv_bfloat16* kt = k_s + buf * FWD_BK * DP;
-    const __nv_bfloat16* vt = v_s + buf * FWD_BK * DP;
-    const int* kp = kpos_s + buf * FWD_BK;
-    const int* ks = kseg_s + buf * FWD_BK;
+    const int buf = it % RING_STAGES, k0 = it * RING_BK;
+    ring.advance(it, n_kt);
+    const __nv_bfloat16* kt = ring.k_s + buf * RING_BK * DP;
+    const __nv_bfloat16* vt = ring.v_s + buf * RING_BK * DP;
+    const int* kp = ring.kpos_s + buf * RING_BK;
+    const int* ks = ring.kseg_s + buf * RING_BK;
     const int kind = tile_kind(
         a.causal, q_span,
         warp_span(kp[lane], ks[lane], k0 + lane, k0 + lane < Sk, kp[lane + 32], ks[lane + 32],
-                  k0 + lane + 32, k0 + lane + 32 < Sk, k0 + FWD_BK <= Sk));
+                  k0 + lane + 32, k0 + lane + 32 < Sk, k0 + RING_BK <= Sk));
     // kind 0: this warp's rows see no key of the tile, and nothing changes
     if (kind == 0) continue;
 
@@ -547,172 +602,154 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) packed_attention_fwd_kernel(Ar
           m_i[i] > NEG_INF * 0.5f ? m_i[i] * a.scale + logf(fmaxf(l_i[i], 1e-30f)) : LSE_MASKED;
   }
   // each warp stages its rows in its own rows of the first k tile
-  store_rows<DH>(o_acc, inv[0], inv[1], k_s + warp * 16 * DP,
+  store_rows<DH>(o_acc, inv[0], inv[1], ring.k_s + warp * 16 * DP,
                  a.out0 + (static_cast<size_t>(bi) * S * H + h) * DH, q_stride, s_lo, S);
 }
 
-// Loads one 64-query tile of head h (q and do in f32, row ids, lse) and
-// computes D = rowsum(do * o) from the stored o, four threads per row.
-template <int DH>
-__device__ void load_query_tile(const Args& a, int bi, int h, int q0, float* q_s, float* do_s,
-                                int* qpos_s, int* qseg_s, int* qend_s, float* lse_s,
-                                float* d_s) {
-  constexpr int QP = DH + 1;
-  const int S = a.S, H = a.H, tid = threadIdx.x;
-  for (int i = tid; i < BQ * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH, s = q0 + r;
-    const size_t off = ((static_cast<size_t>(bi) * S + s) * H + h) * DH + d;
-    q_s[r * QP + d] = s < S ? __bfloat162float(a.q[off]) : 0.f;
-    do_s[r * QP + d] = s < S ? __bfloat162float(a.d_o[off]) : 0.f;
-  }
-  for (int i = tid; i < BQ; i += THREADS) {
-    const int s = q0 + i;
-    qpos_s[i] = s < S ? a.qpos[static_cast<size_t>(bi) * S + s] : 0;
-    qseg_s[i] = s < S ? a.qseg[static_cast<size_t>(bi) * S + s] : 0;
-    qend_s[i] = query_frontier(a, s);
-    lse_s[i] = s < S ? a.lse_in[(static_cast<size_t>(bi) * H + h) * S + s] : LSE_MASKED;
-  }
-  __syncthreads();
-  {
-    const int r = tid >> 2, part = tid & 3, s = q0 + r;
-    constexpr int SPAN = DH / 4;
-    float dsum = 0.f;
-    if (s < S) {
-      const __nv_bfloat16* orow = a.o + ((static_cast<size_t>(bi) * S + s) * H + h) * DH;
-      for (int d = part * SPAN; d < (part + 1) * SPAN; ++d)
-        dsum += do_s[r * QP + d] * __bfloat162float(orow[d]);
-    }
-    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-    dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
-    if (part == 0) d_s[r] = dsum;
-  }
-  __syncthreads();
-}
+// ---- dq ----------------------------------------------------------------------
 
 template <int DH>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * BQ * (DH + 1) + 2 * DH * (BKV + 1) + BQ * (BKV + 1) + 2 * BQ) +
-         sizeof(int) * (3 * BQ + 2 * BKV);
-}
-
-template <int DH>
-__global__ void __launch_bounds__(THREADS) packed_attention_dq_kernel(Args a) {
-  constexpr int QP = DH + 1;
-  constexpr int KP = BKV + 1;
-  constexpr int CPT = DH / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;              // [BQ][QP]
-  float* do_s = q_s + BQ * QP;    // [BQ][QP]
-  float* kt_s = do_s + BQ * QP;   // [DH][KP]
-  float* vt_s = kt_s + DH * KP;   // [DH][KP]
-  float* ds_s = vt_s + DH * KP;   // [BQ][KP]
-  float* lse_s = ds_s + BQ * KP;  // [BQ]
-  float* d_s = lse_s + BQ;        // [BQ]
-  int* qpos_s = reinterpret_cast<int*>(d_s + BQ);
-  int* qseg_s = qpos_s + BQ;
-  int* qend_s = qseg_s + BQ;
-  int* kpos_s = qend_s + BQ;
-  int* kseg_s = kpos_s + BKV;
+__global__ void __launch_bounds__(MMA_THREADS, 2) packed_attention_dq_kernel(Args a) {
+  constexpr int DP = DH + 8;
+  constexpr int KS = DH / 16;  // k-steps over dh
+  constexpr int NT = DH / 8;   // n-tiles of dq
+  static_assert(BQ <= RING_STAGES * RING_BK, "the epilogue stages dq in the k tiles");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
 
   const int S = a.S, Sk = a.Sk, H = a.H;
-  const int q0 = blockIdx.x * BQ;
+  // the longest query tiles (most keys under the causal frontier) first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
   const int h = blockIdx.y;
   const int bi = blockIdx.z;
-  const int kvh = h / (H / a.Hkv);
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const KvRing<DH> ring(smem_raw, a, bi, h / (H / a.Hkv));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const size_t q_stride = static_cast<size_t>(H) * DH;
+  const size_t q_off = (static_cast<size_t>(bi) * S * H + h) * DH;
+  const float scale2 = a.scale * LOG2E;  // exp(x scale) = exp2(x scale2)
 
-  load_query_tile<DH>(a, bi, h, q0, q_s, do_s, qpos_s, qseg_s, qend_s, lse_s, d_s);
+  const int n_kt = (key_end(a, q0) + RING_BK - 1) / RING_BK;
+  ring.start(n_kt);
 
-  float acc[4][CPT];
+  // this thread's two query rows: ids, lse, the Q and dO fragments straight
+  // from device memory into registers, and D = rowsum(do * o) from the
+  // stored bf16 o (each row's products sit in one quad)
+  const int s_lo = q0 + warp * 16;
+  int qpos[2], qseg[2], qlim[2];
+  bool qok[2];
+  const Span q_span = query_rows(a, bi, s_lo, g, qpos, qseg, qlim, qok);
+  uint32_t qf[KS][4], dof[KS][4];
+  load_a_rows<KS>(qf, a.q + q_off, q_stride, s_lo, g, t4, qok);
+  load_a_rows<KS>(dof, a.d_o + q_off, q_stride, s_lo, g, t4, qok);
+  float lse2[2], dsum[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const int s = s_lo + g + 8 * i;
+    // exp(x scale - lse) = exp2(x scale2 - lse2); a row past S gives p = 0
+    lse2[i] = (qok[i] ? a.lse_in[(static_cast<size_t>(bi) * H + h) * S + s] : LSE_MASKED) * LOG2E;
+  }
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-
-  const int kv_end = key_end(a, q0);
-  for (int k0 = 0; k0 < kv_end; k0 += BKV) {
-    __syncthreads();  // the previous tile's k, v and ds are no longer read
-    for (int i = tid; i < BKV * DH; i += THREADS) {
-      const int kr = i / DH, d = i % DH, key = k0 + kr;
-      const size_t off = ((static_cast<size_t>(bi) * Sk + key) * a.Hkv + kvh) * DH + d;
-      kt_s[d * KP + kr] = key < Sk ? __bfloat162float(a.k[off]) : 0.f;
-      vt_s[d * KP + kr] = key < Sk ? __bfloat162float(a.v[off]) : 0.f;
-    }
-    for (int i = tid; i < BKV; i += THREADS) {
-      const int key = k0 + i;
-      kpos_s[i] = key < Sk ? a.kpos[static_cast<size_t>(bi) * Sk + key] : 0;
-      kseg_s[i] = key < Sk ? a.kseg[static_cast<size_t>(bi) * Sk + key] : 0;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = q_s[(ty * 4 + i) * QP + d];
-        ov[i] = do_s[(ty * 4 + i) * QP + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = kt_s[d * KP + tx + 16 * j];
-        vv[j] = vt_s[d * KP + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] += qv[i] * kv[j];
-          dp[i][j] += ov[i] * vv[j];
-        }
+    for (int j = 0; j < 4; ++j) {
+      const int i = j & 1;
+      if (!qok[i]) continue;
+      const float2 o = bf16x2_to_float2(*reinterpret_cast<const uint32_t*>(
+          a.o + q_off + (s_lo + g + 8 * i) * q_stride + kk * 16 + (j >> 1) * 8 + 2 * t4));
+      const float2 d = bf16x2_to_float2(dof[kk][j]);
+      dsum[i] += d.x * o.x + d.y * o.y;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float ds = 0.f;
-        if (visible(a, k0 + c, qpos_s[r], qseg_s[r], qend_s[r], kpos_s[c], kseg_s[c])) {
-          const float p = expf(s[i][j] * a.scale - lse_s[r]);
-          ds = p * (dp[i][j] - d_s[r]) * a.scale;
-        }
-        ds_s[r * KP + c] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BKV; ++c) {
-      float dv[4], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dv[i] = ds_s[(ty * 4 + i) * KP + c];
-#pragma unroll
-      for (int cc = 0; cc < CPT; ++cc) kv[cc] = kt_s[(tx + 16 * cc) * KP + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int cc = 0; cc < CPT; ++cc) acc[i][cc] += dv[i] * kv[cc];
-    }
+  for (int i = 0; i < 2; ++i) {
+    dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], 1);
+    dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], 2);
   }
 
+  float dq[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = q0 + ty * 4 + i;
-    if (s >= S) continue;
+  for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      const int d = tx + 16 * c;
-      a.out0[((static_cast<size_t>(bi) * S + s) * H + h) * DH + d] = __float2bfloat16(acc[i][c]);
+    for (int e = 0; e < 4; ++e) dq[nt][e] = 0.f;
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int buf = it % RING_STAGES, k0 = it * RING_BK;
+    ring.advance(it, n_kt);
+    const __nv_bfloat16* kt = ring.k_s + buf * RING_BK * DP;
+    const __nv_bfloat16* vt = ring.v_s + buf * RING_BK * DP;
+    const int* kp = ring.kpos_s + buf * RING_BK;
+    const int* ks = ring.kseg_s + buf * RING_BK;
+    // two 32-key halves, each classified on its own (one key per lane): S
+    // and dP on 32 keys keep the registers in budget beside Q, dO and dQ
+#pragma unroll 1
+    for (int c0 = 0; c0 < RING_BK; c0 += 32) {
+      const int key = k0 + c0 + lane;
+      const int kind = tile_kind(a.causal, q_span,
+                                 warp_span(kp[c0 + lane], ks[c0 + lane], key, key < Sk, 0, 0, 0,
+                                           false, k0 + c0 + 32 <= Sk));
+      // kind 0: this warp's rows see no key of the half
+      if (kind == 0) continue;
+
+      // S = Q K^T and dP = dO V^T: 16 rows x 32 keys per warp, 4 n-tiles
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int row = c0 + np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+          uint32_t b[4];
+          ldmatrix_x4(b, kt + row * DP + col);
+          mma_bf16(sc[2 * np], qf[kk], b[0], b[1]);
+          mma_bf16(sc[2 * np + 1], qf[kk], b[2], b[3]);
+          ldmatrix_x4(b, vt + row * DP + col);
+          mma_bf16(dp[2 * np], dof[kk], b[0], b[1]);
+          mma_bf16(dp[2 * np + 1], dof[kk], b[2], b[3]);
+        }
+
+      // dS / scale = P (dP - D), P = exp(S scale - lse); 0 where the key is
+      // not visible (element by element only on a partly visible half);
+      // dQ takes the scale at the end
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1, c = c0 + nt * 8 + 2 * t4 + (e & 1);
+          const float p = exp2_fast(fmaf(sc[nt][e], scale2, -lse2[i]));
+          const float ds = p * (dp[nt][e] - dsum[i]);
+          sc[nt][e] =
+              kind == 1 && !sees(a, k0 + c, qpos[i], qseg[i], qlim[i], kp[c], ks[c]) ? 0.f : ds;
+        }
+
+      // dQ += dS K: dS from registers as three bf16 terms, K fragments by
+      // ldmatrix.trans (the keys are the contraction)
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t dsa[3][4];
+        acc_to_a(dsa, sc[2 * kk], sc[2 * kk + 1]);
+        const int row = c0 + kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+        for (int dpi = 0; dpi < DH / 16; ++dpi) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, kt + row * DP + dpi * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int t = 0; t < 3; ++t) {
+            mma_bf16(dq[2 * dpi], dsa[t], b[0], b[1]);
+            mma_bf16(dq[2 * dpi + 1], dsa[t], b[2], b[3]);
+          }
+        }
+      }
     }
   }
+  cp_async_wait<0>();  // (only empty groups are left)
+  __syncthreads();     // every warp is done with the ring
+
+  // each warp stages its rows in its own rows of the first k tile
+  store_rows<DH>(dq, a.scale, a.scale, ring.k_s + warp * 16 * DP, a.out0 + q_off, q_stride,
+                 s_lo, S);
 }
 
 // ---- dk / dv -----------------------------------------------------------------
@@ -966,16 +1003,14 @@ cudaError_t launch(Kind kind, const Args& a, int B, cudaStream_t stream) {
   void (*fn)(Args);
   size_t smem;
   dim3 grid;
-  int threads = MMA_THREADS;
   if (kind == Kind::kFwd) {
     fn = packed_attention_fwd_kernel<DH>;
-    smem = fwd_smem<DH>();
-    grid = dim3((a.S + FWD_BQ - 1) / FWD_BQ, a.H, B);
+    smem = ring_smem<DH>();
+    grid = dim3((a.S + BQ - 1) / BQ, a.H, B);
   } else if (kind == Kind::kDq) {
     fn = packed_attention_dq_kernel<DH>;
-    smem = dq_smem<DH>();
+    smem = ring_smem<DH>();
     grid = dim3((a.S + BQ - 1) / BQ, a.H, B);
-    threads = THREADS;
   } else {
     fn = packed_attention_dkv_kernel<DH>;
     smem = dkv_smem<DH>();
@@ -984,12 +1019,11 @@ cudaError_t launch(Kind kind, const Args& a, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  if (kind != Kind::kDq) {  // room for two blocks' tiles per SM
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-  }
-  fn<<<grid, threads, smem, stream>>>(a);
+  // room for two blocks' tiles per SM
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  fn<<<grid, MMA_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 

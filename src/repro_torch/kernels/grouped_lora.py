@@ -9,9 +9,10 @@ whose task is -1 gives 0 and contributes no gradient.
 The CUDA kernels (``csrc/grouped_lora.cu``) take a different task on every
 row, so the decode rows of four tenants share one launch; the rank-space
 activations ``h`` stay in f32 on chip and are written out only for the
-backward.  On the H100 the least time of each is set by bytes: the present
-tasks' A and B at decode (M = 8), the rows of x, g, y and dx at training and
-prefill (M ~ 3-4 k).  This first version's time is set instead by its f32
+backward.  They run the stack rank in tiles of 64, with one rounding to
+bf16 after the f32 sum over every tile.  On the H100 the least time of each
+is set by bytes: the present tasks' A and B at decode (M = 8), the rows of
+x, g, y and dx at training and prefill (M ~ 3-4 k).  This first version's time is set instead by its f32
 CUDA-core products and unoverlapped tile loads; the source's header says
 how the design spreads the work.
 :class:`GroupedLoRAFunction` makes the kernels one differentiable op; the
@@ -32,7 +33,9 @@ from repro_torch.kernels import _build
 # wrapper's two kernels count as one launch
 launch_counts = {"grouped_lora": 0, "grouped_lora_bwd": 0}
 
-_RMAX = 64
+# the largest stack rank (``RANK_LIMIT`` in the source: a 16-row tile's
+# rank rows stay in shared memory); the kernels run the rank in tiles of 64
+_RANK_LIMIT = 3072
 
 
 def grouped_lora_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -67,8 +70,8 @@ def _check(x, a, b, row_task, scale):
         raise ValueError(f"grouped_lora: inconsistent shapes x{tuple(x.shape)} "
                          f"a{tuple(a.shape)} b{tuple(b.shape)} "
                          f"row_task{tuple(row_task.shape)} scale{tuple(scale.shape)}")
-    if not 1 <= r <= _RMAX:
-        raise ValueError(f"grouped_lora kernel takes ranks 1..{_RMAX}, got {r}")
+    if not 1 <= r <= _RANK_LIMIT:
+        raise ValueError(f"grouped_lora kernel takes ranks 1..{_RANK_LIMIT}, got {r}")
     if M == 0:
         raise ValueError("grouped_lora kernel takes at least one row")
     for name, t in (("x", x), ("a", a), ("b", b), ("row_task", row_task), ("scale", scale)):

@@ -352,8 +352,10 @@ class MambaScanFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh):
+        from repro_torch.kernels.ops import aligned
+
         q, k, v, la, li, r, hin, hfin = ctx.saved_tensors
         dq, dkk, dvv, dla, dli, dh0 = mamba_scan_backward_cuda(
-            q, k, v, la, li, r, hin, hfin, dy.to(q.dtype).contiguous(),
+            q, k, v, la, li, r, hin, hfin, aligned(dy.to(q.dtype)),
             dh.float().contiguous(), ctx.chunk)
         return dq, dkk, dvv, dla, dli, None, dh0, None

@@ -56,6 +56,17 @@ def _needs_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when it is contiguous and 16-byte aligned, else a
+    contiguous copy in a fresh allocation (which the allocator aligns).
+    The kernels' ``cp.async`` and vector loads read 16 bytes at a time; a
+    contiguous view at an odd storage offset passes ``.contiguous()``
+    unchanged and would be refused by the wrappers' alignment checks."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def launch_counts() -> Dict[str, int]:
     """Launches of each CUDA kernel wrapper since the last reset."""
     return {name: n for mod in _KERNELS for name, n in mod.launch_counts.items()}
@@ -130,7 +141,7 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             [torch.where(keep > 0, -1, -2).to(torch.int32), segment_ids], dim=1)
     bq, bk = _pa.tile_sizes(S, k.shape[1], block_q, block_k)
     if _use_kernel(q):
-        args = (q.contiguous(), k.contiguous(), v.contiguous(), positions, segment_ids,
+        args = (aligned(q), aligned(k), aligned(v), positions, segment_ids,
                 k_positions.contiguous(), k_segment_ids.contiguous(), causal, bq, bk)
         if _needs_grad(q, k, v):
             return _pa.PackedAttentionFunction.apply(*args)
@@ -188,6 +199,7 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     M, K, N = math.prod(batch_shape), math.prod(x.shape[nb:]), math.prod(out_shape)
     x2, q2, s2 = x.reshape(M, K), q.reshape(K, N), scale.reshape(N)
     if _use_kernel(x):
+        # (the kernel reads x and q by element where they are not aligned)
         args = (x2.contiguous(), q2.contiguous(), s2.contiguous())
         if _needs_grad(x):
             y = _qm.QuantMatmulFunction.apply(*args)
@@ -226,7 +238,7 @@ def mamba_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: tor
         r = (reset > 0).to(torch.int32)
     li, h0 = log_input.float(), h0.float()
     if _use_kernel(q):
-        args = (q.contiguous(), k.contiguous(), v.contiguous(), la.contiguous(),
+        args = (aligned(q), aligned(k), aligned(v), la.contiguous(),
                 li.contiguous(), r.contiguous() if r is not None else None, h0.contiguous(), Q)
         if _needs_grad(q, k, v, la, li, h0):
             return _ms.MambaScanFunction.apply(*args)

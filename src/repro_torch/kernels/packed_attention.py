@@ -25,11 +25,11 @@ is the sentinel 1e30.  (The Pallas kernel gives the mean of v over the key
 tiles it visited for such a row: its p is not masked again after exp.  No
 row of the serving or training path is fully masked.)
 
-The CUDA forward and dk/dv kernels (``csrc/packed_attention.cu``) run their
-products on the H100's tensor cores (``mma.sync`` on bf16 tiles that
-``cp.async`` copies into shared memory, f32 accumulators); the dq kernel
-still runs them on the CUDA cores in f32.  See the source's header.  The
-kernels take 16-byte aligned q, k, v, o and do.
+The CUDA forward, dq and dk/dv kernels (``csrc/packed_attention.cu``) run
+their products on the H100's tensor cores (``mma.sync`` on bf16 tiles that
+``cp.async`` copies into shared memory, f32 accumulators).  See the
+source's header.  The kernels take 16-byte aligned q, k, v, o and do;
+``ops.packed_attention`` hands them aligned copies where a caller's are not.
 :class:`PackedAttentionFunction` makes them one differentiable op.
 """
 from __future__ import annotations
@@ -208,8 +208,10 @@ class PackedAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        from repro_torch.kernels.ops import aligned
+
         saved = ctx.saved_tensors
-        do = do.contiguous()
+        do = aligned(do)
         dq = packed_attention_dq_cuda(*saved, do, *ctx.rule)
         dk, dv = packed_attention_dkv_cuda(*saved, do, *ctx.rule)
         return dq, dk, dv, None, None, None, None, None, None, None

@@ -105,6 +105,34 @@ def test_grouped_lora_op_grads_match_both_tiers():
             np.testing.assert_allclose(g, wg, err_msg=f"{impl} {leaf}", **F32)
 
 
+@pytest.mark.parametrize("r", [96, 128])
+def test_grouped_lora_op_above_rank_64_matches_pallas(r):
+    """ops.grouped_lora at a stack rank above 64 (the CUDA kernels run it in
+    rank tiles of 64) with mixed per-task ranks: values and dx/dA/dB against
+    kops.grouped_lora on the Pallas kernel in interpret mode."""
+    rs = np.random.RandomState(13)
+    B, S, d_in, d_out = 4, 8, 32, 40
+    x, a, b, scale, _ = _lora_case(rs, B * S, d_in, d_out, (r, 8, r - 40), r)
+    x = x.reshape(B, S, d_in)
+    w = rs.randn(B, S, d_out).astype(np.float32)
+    rt = np.asarray([2, -1, 0, 1], np.int32)
+
+    def port(*t):
+        return ops.grouped_lora(*t, torch.from_numpy(rt), torch.from_numpy(scale))
+
+    y = port(*(torch.from_numpy(t) for t in (x, a, b))).numpy()
+    got = _grads_torch(port, (x, a, b), w)
+    jops.set_impl("pallas_interpret")
+    try:
+        y_want = np.asarray(jops.grouped_lora(x, a, b, rt, scale))
+        want = _grads_jax(lambda *t: jops.grouped_lora(*t, rt, scale), (x, a, b), w)
+    finally:
+        jops.set_impl("xla")
+    np.testing.assert_allclose(y, y_want, **F32)
+    for leaf, g, wg in zip(("dx", "dA", "dB"), got, want):
+        np.testing.assert_allclose(g, wg, err_msg=leaf, **F32)
+
+
 # ---------------------------------------------------------------------------
 # packed attention
 # ---------------------------------------------------------------------------

@@ -329,6 +329,22 @@ def test_decode_attention_bf16():
     np.testing.assert_allclose(out, np.asarray(pal, np.float32), **BF16)
 
 
+def test_aligned_copies_only_a_misaligned_or_strided_operand():
+    """ops.aligned: a contiguous view at an odd storage offset (which
+    ``.contiguous()`` returns as it is) becomes an equal copy on a 16-byte
+    boundary; an aligned contiguous tensor comes back as itself."""
+    base = torch.arange(1 + 4 * 24, dtype=torch.float32).to(torch.bfloat16)
+    view = base[1:].view(4, 24)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    assert view.contiguous().data_ptr() == view.data_ptr()
+    out = ops.aligned(view)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 0
+    assert out.data_ptr() != view.data_ptr() and torch.equal(out, view)
+    assert ops.aligned(out) is out
+    strided = ops.aligned(base[:96].view(4, 24).t())
+    assert strided.is_contiguous() and torch.equal(strided, base[:96].view(4, 24).t())
+
+
 @pytest.mark.parametrize("name", ["grouped_lora", "grouped_lora_bwd", "packed_attention",
                                   "packed_attention_dq", "packed_attention_dkv",
                                   "decode_attention", "quant_matmul"])
