@@ -9,10 +9,13 @@ multi-task fine-tuning on the hybrid zamba2-2.7b (Mamba2 + shared attention).
 Phases, one JSON line each (several for the kernel phases):
 
 1. device        -- nvidia-smi name and power limit, torch and CUDA versions;
-2. build         -- nvcc builds every kernel under src/repro_torch/csrc;
+2. build, ptxas  -- nvcc builds every kernel under src/repro_torch/csrc;
+                    each kernel's registers and spill bytes from ptxas;
 3. kernels       -- each forward kernel against its plain PyTorch version at
                     the serving path's full-width bf16 shapes, with times
-                    (CUDA events, median of 25 runs, L2 flushed before each);
+                    (CUDA events, median of 25 runs, L2 flushed before each,
+                    and the profiler's device time); decode attention also
+                    at Smax 1000 and 2048 and on a misaligned q;
                     quant_matmul at every BaseOp shape of the decode step
                     (M = 8), the bind prefill (4096) and the training step
                     (2816), and a ragged one, with the backward's plain dx
@@ -22,8 +25,9 @@ Phases, one JSON line each (several for the kernel phases):
                     forwards that save h / the logsumexp, the grouped LoRA
                     backward and the packed attention dq and dk/dv kernels,
                     each against autograd of the plain version, with times;
-                    grouped LoRA at stack ranks 64, 96 and 128 (the kernels'
-                    rank tiles); packed attention on edge layouts and on
+                    grouped LoRA at stack ranks 8 to 128 (the kernels'
+                    rank tiles) and on 64-row tiles whose rows change task;
+                    packed attention on edge layouts and on
                     q, k, v at a misaligned storage offset;
                     for zamba2-2.7b grouped LoRA at the Mamba2 projections
                     (2560 -> 10448, 5120 -> 2560) and the shared block's
@@ -37,7 +41,10 @@ Phases, one JSON line each (several for the kernel phases):
                     generated to completion through PEFTEngine, with the
                     kernels' launch counts checked and a profile of three
                     micro steps; then serve_check, a teacher-forced rerun on
-                    the kernels and on the plain versions, logits compared;
+                    the kernels and on the plain versions, logits compared,
+                    beside a second plain path (``plain_split``: decode
+                    attention in the Pallas kernel's split order) whose
+                    distance from the first is the check's noise floor;
 6. train         -- llama3.2-3b at full width and depth, seed-0 backbone,
                     tenants sst2:lora:8, qa:lora:16, rte:adapter:8, sst2:ia3
                     planned into one hTask; one warm-up and six timed
@@ -95,16 +102,25 @@ KERNEL_TOL = 2 * 2.0 ** -8
 # Logits after 28 bf16 layers: every layer rounds its residual stream, and
 # the kernels round their outputs after f32 sums taken in another order than
 # the plain versions, so per-layer differences of a few units in the last
-# place compound.  5% of the largest logit stays far below what a routing,
-# masking or cache fault gives (an error of the order of the logits).
-LOGIT_TOL = 0.05
+# place compound over the 64 teacher-forced steps.  Two plain paths that
+# differ only in the order of decode attention's f32 sums (``plain_split``:
+# the Pallas kernel's split order; no kernel involved) came S = 4.143% of
+# the largest logit apart at their worst step (mean 3.40%), bit for bit in
+# two runs made before the decode-attention and grouped-LoRA kernels were
+# redesigned (NVIDIA H100 80GB HBM3, 700 W), while the kernel path sat
+# 4.95% from the plain one: the former 5% gate lay inside the noise of two
+# right answers.  The gate is the larger of 5% and
+# 2 S (two such spreads), rounded up to 0.005: 8.5%.  It stays far below a
+# routing, masking or cache fault (an error of the order of the logits); the
+# f32 guard holds the kernel path to the plain path's accuracy.
+LOGIT_TOL = 0.085
 # On the int8 backbone the BaseOp products differ between the two paths too
 # (kernel vs plain int8 product, where the bf16 paths share one cuBLAS
 # product), so more roundings compound.  Two plain int8 paths that differ
 # only in where the scale is applied (after the sum, as the Pallas kernel
 # does, or before it, as the JAX xla tier does) came 5.3% of the largest
 # logit apart over serve_check_int8's 64 steps on an H100, the kernel path
-# 5.0% from the plain one: LOGIT_TOL lies inside the noise of two right
+# 5.0% from the plain one: a 5% gate lay inside the noise of two right
 # answers.  10% bounds the sum of two such spreads and stays far below a
 # fault; the f32 guard holds the kernel path to the plain path's accuracy.
 INT8_LOGIT_TOL = 0.10
@@ -318,24 +334,27 @@ def kernel_phase(torch, timer):
                 raise AssertionError("grouped_lora: a row_task = -1 row is not exactly 0")
             err, rel, tol = compare(out, ref, f"grouped_lora M={M} {d_in}x{d_out}")
             ms = timer(lambda: grouped_lora_cuda(x, a, b, rt, scale))
+            dev_ms = kernel_device_ms(torch, timer, lambda: grouped_lora_cuda(x, a, b, rt, scale),
+                                      "grouped_lora_pair")
             plain_ms = timer(lambda: grouped_lora_plain(x, a, b, rt, scale))
             nbytes = 2 * (M * d_in + present * r * (d_in + d_out) + M * d_out) + 4 * (M + T)
             flops = 2.0 * active_rows * r * (d_in + d_out)
             bms, by = bound_ms(nbytes, flops)
-            per_shape[(M, d_in, d_out)] = (ms, plain_ms, bms, err)
+            per_shape[(M, d_in, d_out)] = (ms, plain_ms, bms, dev_ms, err)
             emit({"phase": "kernels", "kernel": "grouped_lora", "M": M, "d_in": d_in,
                   "d_out": d_out, "T": T, "r": r, "max_abs_err": err, "max_rel_err": rel,
-                  "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                  "bound_by": by, "library_ms": None})
+                  "tol": tol, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                  "bound_ms": bms, "bound_by": by, "library_ms": None})
     # one layer of one decode step: the seven LoRA sites at M = 8
     layer = [(3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072), (3072, 8192),
              (3072, 8192), (8192, 3072)]
     sums = [sum(per_shape[(8, di, do)][i] for di, do in layer) for i in range(3)]
+    devs = [per_shape[(8, di, do)][3] for di, do in layer]
     results["grouped_lora"] = {
         "shape": "M=8, T=4, r=64: the seven LoRA sites of one layer of one decode step (sum)",
-        "ms": sums[0], "plain_ms": sums[1], "bound_ms": sums[2],
-        "bound_by": "bytes", "library_ms": None,
-        "max_abs_err": max(v[3] for v in per_shape.values())}
+        "ms": sums[0], "device_ms": None if None in devs else sum(devs), "plain_ms": sums[1],
+        "bound_ms": sums[2], "bound_by": "bytes", "library_ms": None,
+        "max_abs_err": max(v[4] for v in per_shape.values())}
 
     # ---- packed attention: prefill shape, plain and with a 16-row prefix ----
     B, S, H, Hkv, dh, P = 8, 512, 24, 8, 128, 16
@@ -394,7 +413,19 @@ def kernel_phase(torch, timer):
           "max_abs_err": err, "max_rel_err": rel, "tol": tol})
     results["packed_attention"]["max_abs_err"] = max(pa_err, err)
 
-    # ---- decode attention: 8 rows over a 1024-row cache, mixed windows ----
+    results["decode_attention"] = decode_kernel_case(torch, timer, g, H, Hkv, dh)
+    return results
+
+
+def decode_kernel_case(torch, timer, g, H, Hkv, dh):
+    """Decode attention against its plain version: 8 rows over a 1024-row
+    cache with mixed windows (the serving path's shape), timed beside SDPA
+    over the whole cache under the window mask; then the edge cases."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    dev, bf16 = "cuda", torch.bfloat16
     Bd, Smax = 8, 1024
     qd = torch.randn((Bd, 1, H, dh), generator=g, device=dev).to(bf16)
     kc = torch.randn((Bd, Smax, Hkv, dh), generator=g, device=dev).to(bf16)
@@ -416,7 +447,7 @@ def kernel_phase(torch, timer):
     qt = qd.transpose(1, 2).contiguous()
     kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     dev_ms = kernel_device_ms(torch, timer, lambda: ops.decode_attention(qd, kc, vc, end, start),
-                              "decode_stage")  # both stages
+                              "decode_attention_kernel")
 
     def sdpa():
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :],
@@ -431,11 +462,57 @@ def kernel_phase(torch, timer):
           "max_rel_err": rel, "tol": tol, "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
           "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
           "library_device_ms": lib_dev_ms})
-    results["decode_attention"] = {
+    return {
         "shape": f"B={Bd}, Smax={Smax}, H={H}, Hkv={Hkv}, dh={dh}, {window} window rows",
         "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms, "library_device_ms": lib_dev_ms, "max_abs_err": err}
-    return results
+        "library_ms": lib_ms, "library_device_ms": lib_dev_ms,
+        "max_abs_err": max(err, _decode_edge_cases(torch, g, H, Hkv, dh))}
+
+
+def _decode_edge_cases(torch, g, H, Hkv, dh):
+    """Decode attention through ``ops.decode_attention`` against the plain
+    version where the kernel's splits meet their edges, one line each:
+    Smax = 1000 (the last split partly masked), Smax = 2048 (the split
+    widened to 256 rows, two chunks a block, so that a cluster holds 8
+    blocks) and q as a view two bytes past a 16-byte boundary, which ops
+    hands the kernel as an aligned copy.  Windows reach into the last split,
+    start mid-split, hold one row or none (finite zeros).  One launch each.
+    Returns the largest error."""
+    from repro_torch.kernels import ops
+
+    bf16, dev, Bd = torch.bfloat16, "cuda", 8
+    worst = 0.0
+    for case, Smax in (("smax1000", 1000), ("smax2048", 2048), ("misaligned_q", 1024)):
+        kc = torch.randn((Bd, Smax, Hkv, dh), generator=g, device=dev).to(bf16)
+        vc = torch.randn((Bd, Smax, Hkv, dh), generator=g, device=dev).to(bf16)
+        if case == "misaligned_q":
+            base = torch.randn((Bd * H * dh + 1,), generator=g, device=dev).to(bf16)
+            qd = base[1:].view(Bd, 1, H, dh)
+            if qd.data_ptr() % 16 == 0:
+                raise AssertionError("decode_attention case misaligned_q: q is 16-byte aligned")
+        else:
+            qd = torch.randn((Bd, 1, H, dh), generator=g, device=dev).to(bf16)
+        start = torch.tensor([0, 0, 100, 0, 5, 0, Smax // 2 + 3, 0], dtype=torch.int32,
+                             device=dev)
+        end = torch.tensor([Smax, Smax - 1, 513, 300, 6, 1, Smax - 24, 0], dtype=torch.int32,
+                           device=dev)
+        before = ops.launch_counts()["decode_attention"]
+        out = ops.decode_attention(qd, kc, vc, end, start)
+        launched = ops.launch_counts()["decode_attention"] - before
+        with ops.force_plain():
+            ref = ops.decode_attention(qd, kc, vc, end, start)
+        torch.cuda.synchronize()
+        if launched != 1:
+            raise AssertionError(f"decode_attention case {case}: {launched} launches, want 1")
+        if not torch.isfinite(out.float()).all() or out[7].abs().max().item() != 0.0:
+            raise AssertionError(f"decode_attention case {case}: the empty window is not "
+                                 f"finite zeros")
+        err, rel, tol = compare(out, ref, f"decode_attention case {case}")
+        worst = max(worst, err)
+        emit({"phase": "kernels", "kernel": "decode_attention", "case": case, "B": Bd,
+              "Smax": Smax, "H": H, "Hkv": Hkv, "dh": dh, "q_data_ptr_mod_16": qd.data_ptr() % 16,
+              "max_abs_err": err, "max_rel_err": rel, "tol": tol})
+    return worst
 
 
 QMM_SHAPES = ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072))  # (K, N)
@@ -538,6 +615,25 @@ def plain_scale_first():
             yield
     finally:
         qm.quant_matmul_plain = plain
+
+
+@contextlib.contextmanager
+def plain_split():
+    """The plain versions, with decode attention in the Pallas kernel's own
+    order (a partial softmax per split of ``SPLIT`` cache rows, then the
+    online-softmax combine) where the plain version sums over the whole
+    window at once.  The two are the same function with their f32 sums in
+    another order: their distance is the noise floor of serve_check."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    plain = da.decode_attention_plain
+    da.decode_attention_plain = da.decode_attention_split_plain
+    try:
+        with ops.force_plain():
+            yield
+    finally:
+        da.decode_attention_plain = plain
 
 
 def densify(torch, tree):
@@ -661,7 +757,7 @@ def serve_phase(torch, backbone_dtype="bfloat16", bf16_run=None):
     with torch.no_grad():
         prof = profile_device(torch, lambda: engine.dispatch_decode_micro(slots, scales), 3,
                               {"grouped_lora": ("grouped_lora",),
-                               "decode_attention": ("decode_stage",),
+                               "decode_attention": ("decode_attention_kernel",),
                                "quant_matmul": ("qmm_",)})
     emit({"phase": "profile", "path": "serve micro step" + suffix, **prof,
           "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
@@ -684,11 +780,13 @@ def serve_phase(torch, backbone_dtype="bfloat16", bf16_run=None):
         "f32": (densify(torch, backbone),
                 tree_map(lambda t: t.float(), adapters), torch.float32, ops.force_plain),
     }
+    modes["plain_split"] = (backbone, adapters, torch.bfloat16, plain_split)
     if int8:
         modes["plain_scale_first"] = (backbone, adapters, torch.bfloat16, plain_scale_first)
     # per step: max |difference| over the live rows, relative to the largest
     # |logit| of the second path of the pair
-    steps_rel = {"kernel_vs_plain": [], "kernel_vs_f32": [], "plain_vs_f32": []}
+    steps_rel = {"kernel_vs_plain": [], "kernel_vs_f32": [], "plain_vs_f32": [],
+                 "plain_split_vs_plain": []}
     if int8:
         steps_rel["plain_scale_first_vs_plain"] = []
     worst = {"scale": 0.0, "argmax_agree": 1.0}
@@ -739,6 +837,7 @@ def serve_phase(torch, backbone_dtype="bfloat16", bf16_run=None):
           "argmax_agreement_min": worst["argmax_agree"],
           "kernel_vs_f32_max_rel": top["kernel_vs_f32"],
           "plain_vs_f32_max_rel": top["plain_vs_f32"],
+          "plain_split_vs_plain_max_rel": top["plain_split_vs_plain"],
           "plain_scale_first_vs_plain_max_rel": top.get("plain_scale_first_vs_plain"),
           "rel_err_by_step": {k: [round(x, 5) for x in v] for k, v in steps_rel.items()}})
     if not top["kernel_vs_plain"] <= tol:
@@ -845,8 +944,12 @@ def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what,
         err_b = max(compare(o, ref, f"{where} {n}", GRAD_TOL["grouped_lora_bwd"])[0]
                     for n, o, ref in zip(("dx", "dA", "dB"), (dx, da, db), refs))
         ms_f = timer(lambda: gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True))
+        dev_f = kernel_device_ms(torch, timer, lambda: gl.grouped_lora_cuda(
+            x, a, b, rt, scale, save_h=True), "grouped_lora_pair")
         plain_f = timer(lambda: gl.grouped_lora_plain(x, a, b, rt, scale))
         ms_b = timer(lambda: gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy))
+        dev_b = kernel_device_ms(torch, timer, lambda: gl.grouped_lora_bwd_cuda(
+            x, a, b, rt, scale, h, gy), "grouped_lora")  # the pair and reduce kernels
         plain_b = _autograd_ms(torch, timer, y_ref, (xr, ar, br), gy)
         ab = 2 * T * r * (d_in + d_out)
         work = {"fwd": (2 * (M * d_in + M * d_out) + ab + 4 * (M * r + M + T),
@@ -855,22 +958,25 @@ def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what,
                         4.0 * active * r * (d_in + d_out))}
         bf, byf = bound_ms(*work["fwd"])
         bb, byb = bound_ms(*work["bwd"])
-        per_shape[(d_in, d_out)] = {"fwd": (ms_f, plain_f, err_f) + work["fwd"],
-                                    "bwd": (ms_b, plain_b, err_b) + work["bwd"]}
+        per_shape[(d_in, d_out)] = {"fwd": (ms_f, plain_f, err_f) + work["fwd"] + (dev_f,),
+                                    "bwd": (ms_b, plain_b, err_b) + work["bwd"] + (dev_b,)}
         emit({"phase": "train_kernels", "kernel": "grouped_lora", "model": tag, "M": M,
               "rows_with_lora": active, "d_in": d_in, "d_out": d_out, "T": T, "r": r,
-              "fwd_save_h": {"ms": ms_f, "plain_ms": plain_f, "bound_ms": bf, "bound_by": byf,
-                             "max_abs_err": err_f},
-              "bwd": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bb, "bound_by": byb,
-                      "max_abs_err": err_b, "tol_rel": GRAD_TOL["grouped_lora_bwd"]}})
+              "fwd_save_h": {"ms": ms_f, "device_ms": dev_f, "plain_ms": plain_f,
+                             "bound_ms": bf, "bound_by": byf, "max_abs_err": err_f},
+              "bwd": {"ms": ms_b, "device_ms": dev_b, "plain_ms": plain_b, "bound_ms": bb,
+                      "bound_by": byb, "max_abs_err": err_b,
+                      "tol_rel": GRAD_TOL["grouped_lora_bwd"]}})
     results = {}
     for key, name in (("fwd", "grouped_lora_train"), ("bwd", "grouped_lora_bwd")):
         ms, plain, nbytes, flops = (sum(per_shape[sh][key][i] for sh in layer)
                                     for i in (0, 1, 3, 4))
+        devs = [per_shape[sh][key][5] for sh in layer]
         bms, by = bound_ms(nbytes, flops)
         results[name] = {
             "shape": f"M={M}, T={T}, r={r}: {layer_what} of one training micro step (sum)",
-            "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "ms": ms, "device_ms": None if None in devs else sum(devs), "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
             "max_abs_err": max(v[key][2] for v in per_shape.values())}
     return results, (rt, scale, r, M)
 
@@ -1137,13 +1243,15 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
 
 
 def _lora_rank_cases(torch, timer, g, rows, row_len):
-    """Grouped LoRA above one rank tile of the kernels: stack ranks 96 and
-    128 with mixed per-task ranks (each tenant's B rows past its own rank
-    zero, as a padded stack holds them), three tasks and no-adapter rows;
-    stack rank 64 (one tile) alike, as the baseline of their times.  The
-    forward at decode (M = 8, a task per row) against the plain version;
-    the forward (saving h) and the backward at the training rows against
-    the plain version and autograd of it.  One line each."""
+    """Grouped LoRA at stack ranks 8, 16 and 64 (one rank tile of the
+    kernels) and 96 and 128 (two), with mixed per-task ranks (each tenant's
+    B rows past its own rank zero, as a padded stack holds them), three
+    tasks and no-adapter rows, which must come out exactly 0 (y, h, dx);
+    rank 64 is the baseline of the times.  The forward at decode (M = 8, a
+    task per row) against the plain version; the forward (saving h) and the
+    backward at the training rows against the plain version and autograd of
+    it; then tiles whose rows change task (``_lora_mixed_tile_case``).  One
+    line each."""
     from repro_torch.kernels import grouped_lora as gl
 
     bf16, dev, i32 = torch.bfloat16, "cuda", torch.int32
@@ -1151,7 +1259,8 @@ def _lora_rank_cases(torch, timer, g, rows, row_len):
     M = rows * row_len
     rt = (torch.arange(rows, device=dev) % 4 - 1).to(i32).repeat_interleave(row_len)
     rt8 = torch.tensor([0, 1, 2, -1, 2, 1, 0, 2], dtype=i32, device=dev)
-    for r, ranks in ((64, (64, 16, 40)), (96, (96, 16, 64)), (128, (128, 8, 100))):
+    for r, ranks in ((8, (8, 4, 8)), (16, (16, 8, 12)), (64, (64, 16, 40)),
+                     (96, (96, 16, 64)), (128, (128, 8, 100))):
         T = len(ranks)
         a = (torch.randn((T, d_in, r), generator=g, device=dev) * 0.02).to(bf16)
         b = torch.randn((T, r, d_out), generator=g, device=dev) * 0.02
@@ -1161,8 +1270,9 @@ def _lora_rank_cases(torch, timer, g, rows, row_len):
         scale = torch.tensor([16.0 / rk for rk in ranks], dtype=torch.float32, device=dev)
         where = f"grouped_lora rank {r} ranks {ranks}"
         x8 = torch.randn((8, d_in), generator=g, device=dev).to(bf16)
-        err = {"fwd_M8": compare(gl.grouped_lora_cuda(x8, a, b, rt8, scale),
-                                 gl.grouped_lora_plain(x8, a, b, rt8, scale), where + " M=8")[0]}
+        y8 = gl.grouped_lora_cuda(x8, a, b, rt8, scale)
+        err = {"fwd_M8": compare(y8, gl.grouped_lora_plain(x8, a, b, rt8, scale),
+                                 where + " M=8")[0]}
         x = torch.randn((M, d_in), generator=g, device=dev).to(bf16)
         gy = torch.randn((M, d_out), generator=g, device=dev).to(bf16)
         y, h = gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True)
@@ -1174,6 +1284,9 @@ def _lora_rank_cases(torch, timer, g, rows, row_len):
         for t in range(T):
             h_ref = torch.where((rt == t)[:, None], x.float() @ a[t].float(), h_ref)
         torch.cuda.synchronize()
+        if any(o[m].abs().max().item() != 0.0 for o, m in ((y8, rt8 < 0), (y, rt < 0),
+                                                            (h, rt < 0), (dx, rt < 0))):
+            raise AssertionError(f"{where}: a row_task = -1 row is not exactly 0")
         err["fwd"] = compare(y, y_ref, f"{where} M={M}")[0]
         err["h"] = compare(h, h_ref, f"{where} M={M} h", F32_TOL)[0]
         for n, o, ref in zip(("dx", "dA", "dB"), (dx, da, db), refs):
@@ -1184,6 +1297,44 @@ def _lora_rank_cases(torch, timer, g, rows, row_len):
               "fwd_save_h_ms": timer(lambda: gl.grouped_lora_cuda(x, a, b, rt, scale,
                                                                   save_h=True)),
               "bwd_ms": timer(lambda: gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy))})
+    _lora_mixed_tile_case(torch, timer, g)
+
+
+def _lora_mixed_tile_case(torch, timer, g):
+    """Grouped LoRA at M = 4096 (the bind's rows) with the task changing
+    every 24 rows (-1, 0, 1, 2, 3 in turn), so that most 64-row tiles of the
+    kernel hold three tasks: the forward (saving h) and the backward against
+    the plain version and autograd of it; the -1 rows exactly 0.  One line."""
+    from repro_torch.kernels import grouped_lora as gl
+
+    bf16, dev = torch.bfloat16, "cuda"
+    M, d_in, d_out, T, r = 4096, 3072, 1024, 4, 64
+    rt = (torch.arange(M, device=dev) // 24 % 5 - 1).to(torch.int32)
+    scale = torch.tensor([2.0, 1.0, 2.0, 0.5], dtype=torch.float32, device=dev)
+    x = torch.randn((M, d_in), generator=g, device=dev).to(bf16)
+    gy = torch.randn((M, d_out), generator=g, device=dev).to(bf16)
+    a = (torch.randn((T, d_in, r), generator=g, device=dev) * 0.02).to(bf16)
+    b = (torch.randn((T, r, d_out), generator=g, device=dev) * 0.02).to(bf16)
+    y, h = gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True)
+    dx, da, db = gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)
+    xr, ar, br = (t.clone().requires_grad_(True) for t in (x, a, b))
+    y_ref = gl.grouped_lora_plain(xr, ar, br, rt, scale)
+    refs = torch.autograd.grad(y_ref, (xr, ar, br), gy)
+    h_ref = torch.zeros((M, r), device=dev)
+    for t in range(T):
+        h_ref = torch.where((rt == t)[:, None], x.float() @ a[t].float(), h_ref)
+    torch.cuda.synchronize()
+    where = "grouped_lora mixed-task tiles M=4096"
+    if any(o[rt < 0].abs().max().item() != 0.0 for o in (y, h, dx)):
+        raise AssertionError(f"{where}: a row_task = -1 row is not exactly 0")
+    err = {"fwd": compare(y, y_ref, where)[0], "h": compare(h, h_ref, where + " h", F32_TOL)[0]}
+    for n, o, ref in zip(("dx", "dA", "dB"), (dx, da, db), refs):
+        err[n] = compare(o, ref, f"{where} {n}", GRAD_TOL["grouped_lora_bwd"])[0]
+    emit({"phase": "train_kernels", "kernel": "grouped_lora", "case": "mixed_task_tiles",
+          "M": M, "d_in": d_in, "d_out": d_out, "T": T, "r": r, "task_run_rows": 24,
+          "max_abs_err": err, "tol_rel": KERNEL_TOL,
+          "fwd_save_h_ms": timer(lambda: gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True)),
+          "bwd_ms": timer(lambda: gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy))})
 
 
 def _scan_case(torch, g, B, S, H, resets, h0_zero, reset_rows=None):
@@ -1569,6 +1720,7 @@ def main() -> int:
 
     emit({"phase": "build", "seconds": _build.build_all(),
           "sources": [p.name for p in _build.sources()]})
+    emit({"phase": "ptxas", "kernels": _build.ptxas_report()})
     torch.cuda.synchronize()
 
     # the plain versions are the reference here: keep their f32 matmuls in

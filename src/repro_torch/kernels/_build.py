@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -86,6 +87,31 @@ def build_all() -> float:
     for src in todo:
         _LIBS[src.stem] = ctypes.CDLL(str(_target(src)))
     return time.perf_counter() - t0
+
+
+def ptxas_report() -> List[dict]:
+    """Registers and spill bytes of every kernel of every built source, from
+    the ``-Xptxas -v`` lines of the build logs (mangled kernel names)."""
+    out = []
+    for src in sources():
+        log = _target(src).with_suffix(".log")
+        if not log.exists():
+            continue
+        fn = None
+        spill = (0, 0)
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                fn, spill = m.group(1), (0, 0)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and fn:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn:
+                out.append({"source": src.name, "kernel": fn, "registers": int(m.group(1)),
+                            "spill_stores": spill[0], "spill_loads": spill[1]})
+                fn = None
+    return out
 
 
 def function(lib: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:

@@ -12,9 +12,11 @@ activations ``h`` stay in f32 on chip and are written out only for the
 backward.  They run the stack rank in tiles of 64, with one rounding to
 bf16 after the f32 sum over every tile.  On the H100 the least time of each
 is set by bytes: the present tasks' A and B at decode (M = 8), the rows of
-x, g, y and dx at training and prefill (M ~ 3-4 k).  This first version's time is set instead by its f32
-CUDA-core products and unoverlapped tile loads; the source's header says
-how the design spreads the work.
+x, g, y and dx at training and prefill (M ~ 3-4 k).  The pair kernel runs
+both rank-space products on the tensor cores (``mma.sync``, h fed back as
+three bf16 terms) behind a 16-byte ``cp.async`` ring; at decode each task
+of the call gets its own cluster of blocks, so its A and B are read once;
+the source's header says how the design spreads the work.
 :class:`GroupedLoRAFunction` makes the kernels one differentiable op; the
 scale is a constant (no gradient), as the training path holds it.
 

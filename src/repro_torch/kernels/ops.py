@@ -168,7 +168,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
         cache_start = torch.zeros((B,), dtype=torch.int32, device=dev)
     cache_start = torch.as_tensor(cache_start, device=dev).to(torch.int32).reshape(-1).expand(B)
     if _use_kernel(q):
-        return _da.decode_attention_cuda(q.contiguous(), k_cache, v_cache,
+        return _da.decode_attention_cuda(aligned(q), aligned(k_cache), aligned(v_cache),
                                          cache_len.contiguous(), cache_start.contiguous())
     return _da.decode_attention_plain(q, k_cache, v_cache, cache_len, cache_start)
 
