@@ -9,8 +9,11 @@ multi-task fine-tuning on the hybrid zamba2-2.7b (Mamba2 + shared attention).
 Phases, one JSON line each (several for the kernel phases):
 
 1. device        -- nvidia-smi name and power limit, torch and CUDA versions;
-2. build, ptxas  -- nvcc builds every kernel under src/repro_torch/csrc;
-                    each kernel's registers and spill bytes from ptxas;
+2. build, ptxas, -- nvcc builds every kernel under src/repro_torch/csrc;
+   sass             each kernel's registers and spill bytes from ptxas;
+                    the tensor-core instruction (HGMMA for the wgmma
+                    kernel, HMMA for the mma.sync ones) counted in every
+                    instantiation's SASS by cuobjdump;
 3. kernels       -- each forward kernel against its plain PyTorch version at
                     the serving path's full-width bf16 shapes, with times
                     (CUDA events, median of 25 runs, L2 flushed before each,
@@ -19,14 +22,21 @@ Phases, one JSON line each (several for the kernel phases):
                     quant_matmul at every BaseOp shape of the decode step
                     (M = 8), the bind prefill (4096) and the training step
                     (2816), and a ragged one, with the backward's plain dx
-                    product timed at the training shapes;
+                    product timed at the training shapes; then M = 1, 8,
+                    64, 65 and 300 across its route and cluster switches,
+                    and x and scale at misaligned offsets, each run twice
+                    for the same bits;
 4. train_kernels -- at the training paths' shapes (one fused micro-batch of
                     11 rows x 256 from the planner): for llama3.2-3b the
                     forwards that save h / the logsumexp, the grouped LoRA
                     backward and the packed attention dq and dk/dv kernels,
-                    each against autograd of the plain version, with times;
-                    grouped LoRA at stack ranks 8 to 128 (the kernels'
-                    rank tiles) and on 64-row tiles whose rows change task;
+                    each against autograd of the plain version, with times
+                    (the backward's pair kernel and per-task reduction
+                    also apart, the reduction beside its own byte bound);
+                    grouped LoRA at stack ranks 8 to 320 (the kernels'
+                    rank tiles) and on 64-row tiles whose rows change task,
+                    the backward at M = 2856 with an empty slot, and the
+                    backward run twice for the same bits;
                     packed attention on edge layouts and on
                     q, k, v at a misaligned storage offset;
                     for zamba2-2.7b grouped LoRA at the Mamba2 projections
@@ -522,6 +532,37 @@ QMM_LAYER = ((3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072), (3072, 8192
 QMM_M = {"decode": 8, "prefill": 4096, "train": 2816}
 
 
+# the tensor-core instruction each kernel built on the tensor cores must
+# hold in its machine code, every instantiation: (library, kernel, opcode);
+# decode attention and the mamba_scan kernels run on the CUDA cores
+SASS_EXPECT = (("quant_matmul", "qmm_wgmma_kernel", "HGMMA"),
+               ("quant_matmul", "qmm_mma_kernel", "HMMA"),
+               ("grouped_lora", "grouped_lora_pair_kernel", "HMMA"),
+               ("grouped_lora", "grouped_lora_reduce_kernel", "HMMA"),
+               ("packed_attention", "packed_attention_fwd_kernel", "HMMA"),
+               ("packed_attention", "packed_attention_dq_kernel", "HMMA"),
+               ("packed_attention", "packed_attention_dkv_kernel", "HMMA"))
+
+
+def sass_phase() -> None:
+    """Each tensor-core kernel's SASS (``cuobjdump``) holds its tensor-core
+    instruction in every instantiation: fails otherwise.  One line with
+    the counts."""
+    from repro_torch.kernels import _build
+
+    by_lib = {}
+    rows = []
+    for lib, kernel, op in SASS_EXPECT:
+        if lib not in by_lib:
+            by_lib[lib] = _build.sass_opcodes(lib, ("HGMMA", "HMMA"))
+        found = {fn: c[op] for fn, c in by_lib[lib].items() if kernel in fn}
+        if not found or min(found.values()) == 0:
+            raise AssertionError(f"sass: {kernel} in {lib}.cu lacks {op}: {found}")
+        rows.append({"source": f"{lib}.cu", "kernel": kernel, "opcode": op,
+                     "instantiations": len(found), "counts": sorted(found.values())})
+    emit({"phase": "sass", "kernels": rows})
+
+
 def quant_kernel_phase(torch, timer):
     """quant_matmul against its plain version at every (M, K, N) of the int8
     paths, and a ragged shape; the backward's dx product at the training
@@ -544,8 +585,9 @@ def quant_kernel_phase(torch, timer):
             ref = qm.quant_matmul_plain(x, q, scale)
             torch.cuda.synchronize()
             err, rel, tol = compare(out, ref, f"quant_matmul M={Mx} K={K} N={N}")
+            _same_bits(torch, out, qm.quant_matmul_cuda(x, q, scale), f"quant_matmul M={Mx}")
             line = {"phase": "kernels", "kernel": "quant_matmul", "path": path, "M": Mx,
-                    "K": K, "N": N, "plan": list(qm.launch_plan(Mx, K, N)),
+                    "K": K, "N": N, "plan": list(qm.plan_of(x, q, scale)[0]),
                     "max_abs_err": err, "max_rel_err": rel, "tol": tol}
             if K == 40:  # the ragged case: checked only
                 ragged_err = err
@@ -594,9 +636,72 @@ def quant_kernel_phase(torch, timer):
             "shape": f"M={QMM_M[path]}: the seven BaseOp products of one layer (sum)",
             **total, "bound_ms": bms, "bound_by": by, "library": library}
     out = results["decode"]
-    out["max_abs_err"] = max(out["max_abs_err"], ragged_err)
+    out["max_abs_err"] = max(out["max_abs_err"], ragged_err, _quant_edge_cases(torch, g))
     out["prefill_variant"], out["train_variant"] = results["prefill"], results["train"]
     return {"quant_matmul": out}
+
+
+def _same_bits(torch, a, b, what: str) -> None:
+    """Two runs of a kernel on the same inputs: the same bits (fixed-order sums)."""
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: two runs on the same inputs differ")
+
+
+def _quant_edge_cases(torch, g):
+    """quant_matmul across its route and cluster switches: M = 1, 8, 64
+    (mma.sync, K split over clusters), 65 and 300 (wgmma, a ragged token
+    tile) at (K, N) = (8192, 3072) and (3072, 1024), and the ragged
+    (40, 72) at M = 300 (element loads); then x, and scale, as views at a
+    misaligned storage offset at M = 8 and 2816, through
+    ``ops.quant_matmul`` (which copies them aligned: wgmma above 64 rows)
+    and straight into the wrapper (mma.sync: element loads for x, scalar
+    reads of scale).  Each against the plain version, run twice for the
+    same bits, one launch each.  One line each, with the plan the wrapper
+    ran; returns the largest error."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
+
+    dev, bf16 = "cuda", torch.bfloat16
+    worst = 0.0
+
+    def case(x, q, scale, what, fn):
+        nonlocal worst
+        before = qm.launch_counts["quant_matmul"]
+        out = fn(x, q, scale)
+        launches = qm.launch_counts["quant_matmul"] - before
+        err, rel, tol = compare(out, qm.quant_matmul_plain(x, q, scale), what)
+        _same_bits(torch, out, fn(x, q, scale), what)
+        if launches != 1:
+            raise AssertionError(f"{what}: {launches} launches, not 1")
+        worst = max(worst, err)
+        return {"max_abs_err": err, "max_rel_err": rel, "tol": tol, "launches": launches}
+
+    def operands(M, K, N, offset=0, scale_offset=0):
+        x = torch.randn((M * K + offset,), generator=g, device=dev).to(bf16)[offset:].view(M, K)
+        q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        scale = torch.rand((N + scale_offset,), generator=g, device=dev) * 2e-4 + 1e-4
+        return x, q, scale[scale_offset:]
+
+    shapes = [(M, K, N) for M in (1, 8, 64, 65, 300) for K, N in ((8192, 3072), (3072, 1024))]
+    for M, K, N in shapes + [(300, 40, 72)]:
+        x, q, scale = operands(M, K, N)
+        res = case(x, q, scale, f"quant_matmul edge M={M} K={K} N={N}", qm.quant_matmul_cuda)
+        emit({"phase": "kernels", "kernel": "quant_matmul", "case": "edge", "M": M, "K": K,
+              "N": N, "plan": list(qm.plan_of(x, q, scale)[0]), **res})
+    via_ops = lambda x, q, s: ops.quant_matmul(x, q, s, "md,df->mf")  # noqa: E731
+    for what, offsets in (("x", {"offset": 1}), ("scale", {"scale_offset": 1})):
+        for M in (8, 2816):
+            x, q, scale = operands(M, 3072, 3072, **offsets)
+            for how, fn in (("ops", via_ops), ("wrapper", qm.quant_matmul_cuda)):
+                res = case(x, q, scale, f"quant_matmul misaligned {what} M={M} via {how}", fn)
+                ran = (x, q, scale) if how == "wrapper" else map(ops.aligned, (x, q, scale))
+                emit({"phase": "kernels", "kernel": "quant_matmul", "case": f"misaligned_{what}",
+                      "via": how, "M": M, "K": 3072, "N": 3072,
+                      "x_data_ptr_mod_16": x.data_ptr() % 16,
+                      "scale_data_ptr_mod_8": scale.data_ptr() % 8,
+                      "plan": list(qm.plan_of(*ran)[0]), **res})
+    return worst
 
 
 @contextlib.contextmanager
@@ -934,6 +1039,9 @@ def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what,
         for t in range(T):
             h_ref = torch.where((rt == t)[:, None], x.float() @ a[t].float(), h_ref)
         dx, da, db = gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)
+        for n, o, o2 in zip(("dx", "dA", "dB"), (dx, da, db),
+                            gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)):
+            _same_bits(torch, o, o2, f"grouped_lora backward {d_in}x{d_out} {n}")
         refs = torch.autograd.grad(y_ref, (xr, ar, br), gy, retain_graph=True)
         torch.cuda.synchronize()
         if y[rt < 0].abs().max().item() != 0.0 or dx[rt < 0].abs().max().item() != 0.0:
@@ -948,25 +1056,37 @@ def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what,
             x, a, b, rt, scale, save_h=True), "grouped_lora_pair")
         plain_f = timer(lambda: gl.grouped_lora_plain(x, a, b, rt, scale))
         ms_b = timer(lambda: gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy))
-        dev_b = kernel_device_ms(torch, timer, lambda: gl.grouped_lora_bwd_cuda(
-            x, a, b, rt, scale, h, gy), "grouped_lora")  # the pair and reduce kernels
+        bwd = lambda: gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)  # noqa: E731
+        dev_b = kernel_device_ms(torch, timer, bwd, "grouped_lora")  # the pair and reduce kernels
+        # the backward's two kernels apart: the pair kernel (dh, dx) and the
+        # per-task reduction (dA, dB)
+        dev_pair = kernel_device_ms(torch, timer, bwd, "grouped_lora_pair")
+        dev_red = kernel_device_ms(torch, timer, bwd, "reduce")
         plain_b = _autograd_ms(torch, timer, y_ref, (xr, ar, br), gy)
         ab = 2 * T * r * (d_in + d_out)
         work = {"fwd": (2 * (M * d_in + M * d_out) + ab + 4 * (M * r + M + T),
                         2.0 * active * r * (d_in + d_out)),
                 "bwd": (2 * (2 * M * d_in + M * d_out) + 2 * ab + 4 * (M * r + M + T),
-                        4.0 * active * r * (d_in + d_out))}
+                        4.0 * active * r * (d_in + d_out)),
+                # the reduction alone: x and g read once, h and dh read once,
+                # bf16 dA and dB written once
+                "reduce": (2 * M * (d_in + d_out) + 2 * 4 * M * r + ab + 4 * (M + T),
+                           2.0 * active * r * (d_in + d_out))}
         bf, byf = bound_ms(*work["fwd"])
         bb, byb = bound_ms(*work["bwd"])
+        br_ms, byr = bound_ms(*work["reduce"])
         per_shape[(d_in, d_out)] = {"fwd": (ms_f, plain_f, err_f) + work["fwd"] + (dev_f,),
-                                    "bwd": (ms_b, plain_b, err_b) + work["bwd"] + (dev_b,)}
+                                    "bwd": (ms_b, plain_b, err_b) + work["bwd"] + (dev_b,),
+                                    "split": (dev_pair, dev_red) + work["reduce"]}
         emit({"phase": "train_kernels", "kernel": "grouped_lora", "model": tag, "M": M,
               "rows_with_lora": active, "d_in": d_in, "d_out": d_out, "T": T, "r": r,
               "fwd_save_h": {"ms": ms_f, "device_ms": dev_f, "plain_ms": plain_f,
                              "bound_ms": bf, "bound_by": byf, "max_abs_err": err_f},
               "bwd": {"ms": ms_b, "device_ms": dev_b, "plain_ms": plain_b, "bound_ms": bb,
                       "bound_by": byb, "max_abs_err": err_b,
-                      "tol_rel": GRAD_TOL["grouped_lora_bwd"]}})
+                      "tol_rel": GRAD_TOL["grouped_lora_bwd"],
+                      "pair_device_ms": dev_pair, "reduce_device_ms": dev_red,
+                      "reduce_bound_ms": br_ms, "reduce_bound_by": byr}})
     results = {}
     for key, name in (("fwd", "grouped_lora_train"), ("bwd", "grouped_lora_bwd")):
         ms, plain, nbytes, flops = (sum(per_shape[sh][key][i] for sh in layer)
@@ -978,6 +1098,12 @@ def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what,
             "ms": ms, "device_ms": None if None in devs else sum(devs), "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "max_abs_err": max(v[key][2] for v in per_shape.values())}
+    pairs, reds = ([per_shape[sh]["split"][i] for sh in layer] for i in (0, 1))
+    rbms, rby = bound_ms(*(sum(per_shape[sh]["split"][i] for sh in layer) for i in (2, 3)))
+    results["grouped_lora_bwd"].update({
+        "pair_device_ms": None if None in pairs else sum(pairs),
+        "reduce_device_ms": None if None in reds else sum(reds),
+        "reduce_bound_ms": rbms, "reduce_bound_by": rby})
     return results, (rt, scale, r, M)
 
 
@@ -1237,9 +1363,43 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
     _, da3, db3 = gl.grouped_lora_bwd_cuda(x3, a3, b3, rt, s3, h3, g3)
     if da3[2].abs().max().item() != 0.0 or db3[2].abs().max().item() != 0.0:
         raise AssertionError("grouped_lora backward: an unused slot's gradient is not 0")
+    _lora_ragged_empty_case(torch, g, rt)
     _lora_rank_cases(torch, timer, g, plan.htasks[0].rows, plan.htasks[0].row_len)
     results.update(_attention_train_kernels(torch, timer, g, cfg, plan, cfg.name))
     return results
+
+
+def _lora_ragged_empty_case(torch, g, rt):
+    """The grouped-LoRA backward at M = 2816 + 40 (not a multiple of the
+    reduction's 64-row chunks: the path's rows, then 40 rows of slot 1)
+    with four slots, slot 3 routed no row: against autograd of the plain
+    version, dA and dB of slot 3 exactly 0, two runs the same bits."""
+    from repro_torch.kernels import grouped_lora as gl
+
+    bf16, dev = torch.bfloat16, "cuda"
+    d_in, d_out, T, r = 3072, 1024, 4, 16
+    rt = torch.cat([rt, torch.ones(40, dtype=torch.int32, device=dev)])
+    M = rt.shape[0]
+    scale = torch.tensor([2.0, 1.0, 0.5, 1.0], dtype=torch.float32, device=dev)
+    x = torch.randn((M, d_in), generator=g, device=dev).to(bf16)
+    gy = torch.randn((M, d_out), generator=g, device=dev).to(bf16)
+    a = (torch.randn((T, d_in, r), generator=g, device=dev) * 0.02).to(bf16)
+    b = (torch.randn((T, r, d_out), generator=g, device=dev) * 0.02).to(bf16)
+    _, h = gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True)
+    outs = gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)
+    where = f"grouped_lora backward M={M}, slot 3 empty"
+    for n, o, o2 in zip(("dx", "dA", "dB"), outs, gl.grouped_lora_bwd_cuda(
+            x, a, b, rt, scale, h, gy)):
+        _same_bits(torch, o, o2, f"{where} {n}")
+    xr, ar, br = (t.clone().requires_grad_(True) for t in (x, a, b))
+    refs = torch.autograd.grad(gl.grouped_lora_plain(xr, ar, br, rt, scale), (xr, ar, br), gy)
+    err = {n: compare(o, ref, f"{where} {n}", GRAD_TOL["grouped_lora_bwd"])[0]
+           for n, o, ref in zip(("dx", "dA", "dB"), outs, refs)}
+    if outs[1][3].abs().max().item() != 0.0 or outs[2][3].abs().max().item() != 0.0:
+        raise AssertionError(f"{where}: the empty slot's dA or dB is not exactly 0")
+    emit({"phase": "train_kernels", "kernel": "grouped_lora_bwd", "case": "ragged_empty_slot",
+          "M": M, "d_in": d_in, "d_out": d_out, "T": T, "r": r, "empty_slot": 3,
+          "max_abs_err": err, "tol_rel": GRAD_TOL["grouped_lora_bwd"]})
 
 
 def _lora_rank_cases(torch, timer, g, rows, row_len):
@@ -1260,7 +1420,7 @@ def _lora_rank_cases(torch, timer, g, rows, row_len):
     rt = (torch.arange(rows, device=dev) % 4 - 1).to(i32).repeat_interleave(row_len)
     rt8 = torch.tensor([0, 1, 2, -1, 2, 1, 0, 2], dtype=i32, device=dev)
     for r, ranks in ((8, (8, 4, 8)), (16, (16, 8, 12)), (64, (64, 16, 40)),
-                     (96, (96, 16, 64)), (128, (128, 8, 100))):
+                     (96, (96, 16, 64)), (128, (128, 8, 100)), (320, (320, 64, 200))):
         T = len(ranks)
         a = (torch.randn((T, d_in, r), generator=g, device=dev) * 0.02).to(bf16)
         b = torch.randn((T, r, d_out), generator=g, device=dev) * 0.02
@@ -1277,6 +1437,9 @@ def _lora_rank_cases(torch, timer, g, rows, row_len):
         gy = torch.randn((M, d_out), generator=g, device=dev).to(bf16)
         y, h = gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True)
         dx, da, db = gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)
+        for n, o, o2 in zip(("dx", "dA", "dB"), (dx, da, db),
+                            gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)):
+            _same_bits(torch, o, o2, f"{where} {n}")
         xr, ar, br = (t.clone().requires_grad_(True) for t in (x, a, b))
         y_ref = gl.grouped_lora_plain(xr, ar, br, rt, scale)
         refs = torch.autograd.grad(y_ref, (xr, ar, br), gy)
@@ -1721,6 +1884,7 @@ def main() -> int:
     emit({"phase": "build", "seconds": _build.build_all(),
           "sources": [p.name for p in _build.sources()]})
     emit({"phase": "ptxas", "kernels": _build.ptxas_report()})
+    sass_phase()
     torch.cuda.synchronize()
 
     # the plain versions are the reference here: keep their f32 matmuls in

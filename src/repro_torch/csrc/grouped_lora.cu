@@ -60,9 +60,10 @@
 //     phase 1 computes and exchanges one rank tile at a time, phase 2 sums
 //     over every rank tile in f32 before it rounds an output to bf16 once.
 //     Above 256 the 16-row form takes every M (its h fits shared memory).
-//   * The per-task sums dA and dB run in a second kernel: one block per
-//     (64 output columns, slot, dA or dB) walks all rows in order, skipping
-//     32-row chunks that hold no row of its slot, once per rank tile.
+//   * The per-task sums dA and dB run in a second kernel on the tensor
+//     cores: a cluster per (slot, 128 columns, rank tile) whose blocks share
+//     the slot's 64-row chunks and meet through distributed shared memory;
+//     it writes bf16 dA and dB itself (see `grouped_lora_reduce_kernel`).
 //   * Registers: `__launch_bounds__(128, 1)` lets ptxas take what the
 //     pair kernel needs (up to 255, no spill); with the thread count alone
 //     it held every instantiation to 128 registers or fewer and spilled.
@@ -78,8 +79,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 128;      // pair kernel: 4 warps
-constexpr int RED_THREADS = 256;  // reduce kernel
+constexpr int THREADS = 128;  // pair kernel: 4 warps
 constexpr int RT = 64;    // rank columns per rank tile
 constexpr int BK = 64;    // phase-1 reduction rows of W1 per tile
 constexpr int BN = 64;    // phase-2 output columns of W2 per tile
@@ -180,6 +180,14 @@ __device__ __forceinline__ void split3(float2 x, uint32_t& hi, uint32_t& mid, ui
   mid = *reinterpret_cast<const uint32_t*>(&t);
   back = __bfloat1622float2(t);
   lo = pack_bf16(x.x - back.x, x.y - back.y);
+}
+
+// x0, x1 as two bf16 pairs, hi + lo, whose sum is x0, x1 to 16 significant
+// bits (as split3, one term fewer)
+__device__ __forceinline__ void split2(float2 x, __nv_bfloat162& hi, __nv_bfloat162& lo) {
+  hi = __floats2bfloat162_rn(x.x, x.y);
+  const float2 back = __bfloat1622float2(hi);
+  lo = __floats2bfloat162_rn(x.x - back.x, x.y - back.y);
 }
 
 // B fragments of two n-tiles (16 columns from n0) for one k-step (16 rows
@@ -619,82 +627,282 @@ cudaError_t run_pair(PairArgs p, cudaStream_t stream) {
   return launch_pair<64, 3, CL>(p, stream);
 }
 
-constexpr int RC = 64;  // output columns per reduction block
-constexpr int RM = 32;  // rows per reduction chunk
+// ---- the per-task reduction: dA and dB ----
+//
+//   dA[t][c][j] = sum over rows m of task t of x[m][c] dh[m][j]           (c < d_in)
+//   dB[t][j][c] = scale[t] sum over rows m of task t of h[m][j] g[m][c]   (c < d_out)
+//
+// Both are out[j][c] = sum_m V[m][j] U[m][c] with U the bf16 rows (x or g)
+// and V the f32 rank-space rows (dh or h).  A cluster of RD_CL blocks takes
+// one (task, 128 columns c, rank tile of RJ): each block finds the 64-row
+// chunks that hold a row of its task (a pass over row_task on the device)
+// and sums a contiguous share of them on the tensor cores, mma.m16n8k16 with
+// A = V^T (rank rows; f32 V as two bf16 terms, hi + lo, which keep it to
+// 16 significant bits) and B = U (columns c), both by ldmatrix.trans from
+// row-major chunk tiles.  Chunks stream through a 3-stage cp.async ring;
+// rows of other tasks are zero-filled and never read.  The shares meet
+// through distributed shared memory: each block sums a slice of the columns
+// over the cluster in rank order and writes it as bf16 straight from the f32
+// sum, once.  A slot with no rows sums nothing and writes exact zeros.
+// Rank tiles are 16 wide for r <= 16 (the training path's stacks) and 64
+// wide above, one per grid z.  What bounds it on the H100: bytes, the
+// slot's rows of x and g (each read once, by the cluster of its column
+// tile) and of dh and h (once per column tile), against 2 M r (d_in +
+// d_out) operations a term.
 
-// blockIdx.z == 0: da[t][c][j] = sum_m x[m][c] dh[m][j]          (c < d_in)
-// blockIdx.z == 1: db[t][j][c] = scale[t] sum_m h[m][j] g[m][c]  (c < d_out)
-// over the rows m of task t, in row order, a rank tile of RT columns j at a
-// time.
-__global__ void __launch_bounds__(RED_THREADS)
-grouped_lora_reduce_kernel(const __nv_bfloat16* __restrict__ x,
-                           const __nv_bfloat16* __restrict__ g,
-                           const float* __restrict__ dh, const float* __restrict__ h,
-                           const int* __restrict__ row_task, const float* __restrict__ scale,
-                           float* __restrict__ da, float* __restrict__ db, int M, int d_in,
-                           int d_out, int r) {
-  __shared__ float u_s[RM * RC];
-  __shared__ float v_s[RM * RT];
-  __shared__ int any_s;
-  const int dB = blockIdx.z;
-  const int C = dB ? d_out : d_in;
-  const int c0 = blockIdx.x * RC;
-  if (c0 >= C) return;
-  const int t = blockIdx.y;
-  const __nv_bfloat16* U = dB ? g : x;
-  const float* V = dB ? h : dh;
-  const int tid = threadIdx.x;
-  const int c = tid % RC;
-  const int jg = tid / RC;  // this thread's ranks in the tile: jg, jg + 4, ...
-  const float f = dB ? scale[t] : 1.f;
-  for (int j0 = 0; j0 < r; j0 += RT) {
-    const int jn = min(RT, r - j0);
-    float acc[RT / 4];
-#pragma unroll
-    for (int q = 0; q < RT / 4; ++q) acc[q] = 0.f;
+constexpr int RD_THREADS = 128;  // 4 warps x 32 columns
+constexpr int RD_CT = 128;       // columns c of a block
+constexpr int RD_CHUNK = 64;     // rows of a chunk
+constexpr int RD_STAGES = 3;
+constexpr int RD_CL = 4;         // blocks of a cluster
+constexpr int RD_US = RD_CT + 8;  // a U tile row in bf16 (ldmatrix rows on distinct banks)
+constexpr int RD_MAX_M = 1 << 20;
 
-    for (int m0 = 0; m0 < M; m0 += RM) {
-      __syncthreads();  // the previous chunk is no longer read
-      if (tid == 0) any_s = 0;
-      __syncthreads();
-      if (tid < RM && m0 + tid < M && row_task[m0 + tid] == t) any_s = 1;
-      __syncthreads();
-      if (!any_s) continue;
-      for (int i = tid; i < RM * RC; i += RED_THREADS) {
-        const int mm = i / RC, cc = i % RC, m = m0 + mm;
-        u_s[i] = (m < M && row_task[m] == t && c0 + cc < C)
-                     ? __bfloat162float(U[static_cast<size_t>(m) * C + c0 + cc])
-                     : 0.f;
-      }
-      for (int i = tid; i < RM * RT; i += RED_THREADS) {
-        const int mm = i / RT, j = i % RT, m = m0 + mm;
-        v_s[i] = (m < M && row_task[m] == t && j < jn) ? V[static_cast<size_t>(m) * r + j0 + j]
-                                                       : 0.f;
-      }
-      __syncthreads();
-      for (int mm = 0; mm < RM; ++mm) {
-        const float uv = u_s[mm * RC + c];
+template <int RJ>
+struct RdShape {
+  static constexpr int JT = RJ / 16;                      // rank m16 tiles
+  static constexpr int U_TILE = RD_CHUNK * RD_US * 2;      // bytes
+  static constexpr int V_TILE = RD_CHUNK * RJ * 4;         // f32 [64][RJ]
+  static constexpr int STAGE = U_TILE + V_TILE;
+  static constexpr int VS = RJ + 8;                       // a split-V row in bf16
+  static constexpr int SPLIT = RD_CHUNK * VS * 2;          // bytes, one term
+  static constexpr int ES = RD_CT + 4;                    // an exchange row in f32
+  static constexpr int FIXED = RD_STAGES * STAGE + 2 * SPLIT;
+  static_assert(RJ * ES * 4 <= RD_STAGES * STAGE, "the exchange reuses the ring");
+};
+
+template <int RJ>
+__host__ __device__ constexpr int rd_smem(int M) {
+  const int nch = (M + RD_CHUNK - 1) / RD_CHUNK;
+  return RdShape<RJ>::FIXED + (nch + 15) / 16 * 16 + 4 * nch;  // + chunk flags and list
+}
+
+struct RdArgs {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* g;
+  const float* dh;
+  const float* h;
+  const int* row_task;
+  const float* scale;
+  __nv_bfloat16* da;
+  __nv_bfloat16* db;
+  int M, d_in, d_out, T, r;
+  int tiles_a;  // column tiles of dA; those of dB follow
+};
+
+// The copies of one chunk (rows [m0, m0 + 64)) into a ring slot: U's
+// columns [c0, c0 + 128) and V's [j0, j0 + RJ), rows of task t only, zeros
+// elsewhere; one commit group.
+template <int RJ>
+__device__ __forceinline__ void rd_issue(const __nv_bfloat16* U, const float* V, int C,
+                                         const RdArgs& p, int t, int m0, int c0, int j0,
+                                         uint8_t* slot, bool vec_u, bool vec_v) {
+  using S = RdShape<RJ>;
+  __nv_bfloat16* ut = reinterpret_cast<__nv_bfloat16*>(slot);
+  float* vt = reinterpret_cast<float*>(slot + S::U_TILE);
+  for (int v = threadIdx.x; v < RD_CHUNK * (RD_CT / 8); v += RD_THREADS) {
+    const int row = v / (RD_CT / 8), c = c0 + v % (RD_CT / 8) * 8, m = m0 + row;
+    const bool mine = m < p.M && p.row_task[m] == t;
+    __nv_bfloat16* d = ut + row * RD_US + v % (RD_CT / 8) * 8;
+    const __nv_bfloat16* src = U + static_cast<size_t>(m) * C + c;
+    if (vec_u) {
+      const bool ok = mine && c < C;
+      cp_async16(d, ok ? src : U, ok);
+    } else {
 #pragma unroll
-        for (int q = 0; q < RT / 4; ++q)
-          if (jg + 4 * q < jn) acc[q] += uv * v_s[mm * RT + jg + 4 * q];
-      }
+      for (int e = 0; e < 8; ++e) d[e] = mine && c + e < C ? src[e] : __float2bfloat16(0.f);
     }
-    if (c0 + c < C) {
+  }
+  for (int v = threadIdx.x; v < RD_CHUNK * (RJ / 4); v += RD_THREADS) {
+    const int row = v / (RJ / 4), j = j0 + v % (RJ / 4) * 4, m = m0 + row;
+    const bool mine = m < p.M && p.row_task[m] == t;
+    float* d = vt + row * RJ + v % (RJ / 4) * 4;
+    const float* src = V + static_cast<size_t>(m) * p.r + j;
+    if (vec_v) {
+      const bool ok = mine && j < p.r;
+      cp_async16(d, ok ? src : V, ok);
+    } else {
 #pragma unroll
-      for (int q = 0; q < RT / 4; ++q) {
-        const int j = j0 + jg + 4 * q;
-        if (jg + 4 * q >= jn) continue;
-        if (dB)
-          db[(static_cast<size_t>(t) * r + j) * d_out + c0 + c] = acc[q] * f;
-        else
-          da[(static_cast<size_t>(t) * d_in + c0 + c) * r + j] = acc[q] * f;
+      for (int e = 0; e < 4; ++e) d[e] = mine && j + e < p.r ? src[e] : 0.f;
+    }
+  }
+  cp_async_commit();
+}
+
+// grid ((tiles of dA + tiles of dB) * RD_CL, T, rank tiles); see above.
+template <int RJ>
+__global__ void __launch_bounds__(RD_THREADS) grouped_lora_reduce_kernel(RdArgs p) {
+  using S = RdShape<RJ>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int n_list_s;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tile = blockIdx.x / RD_CL, t = blockIdx.y, j0 = blockIdx.z * RJ;
+  const bool is_b = tile >= p.tiles_a;
+  const int C = is_b ? p.d_out : p.d_in;
+  const int c0 = (is_b ? tile - p.tiles_a : tile) * RD_CT;
+  const __nv_bfloat16* U = is_b ? p.g : p.x;
+  const float* V = is_b ? p.h : p.dh;
+  const bool vec_u = C % 8 == 0 && (reinterpret_cast<uintptr_t>(U) & 15) == 0;
+  const bool vec_v = p.r % 4 == 0 && (reinterpret_cast<uintptr_t>(V) & 15) == 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  uint8_t* ring = smem;
+  __nv_bfloat16* vhi = reinterpret_cast<__nv_bfloat16*>(smem + RD_STAGES * S::STAGE);
+  __nv_bfloat16* vlo = vhi + RD_CHUNK * S::VS;
+  const int nch = (p.M + RD_CHUNK - 1) / RD_CHUNK;
+  uint8_t* flag = smem + S::FIXED;
+  int* list = reinterpret_cast<int*>(flag + (nch + 15) / 16 * 16);
+
+  // the chunks that hold a row of task t, in row order
+  for (int i = tid; i < nch; i += RD_THREADS) flag[i] = 0;
+  __syncthreads();
+  for (int m = tid; m < p.M; m += RD_THREADS)
+    if (p.row_task[m] == t) flag[m / RD_CHUNK] = 1;
+  __syncthreads();
+  if (warp == 0) {
+    int n = 0;
+    for (int base = 0; base < nch; base += 32) {
+      const bool f = base + lane < nch && flag[base + lane];
+      const unsigned bal = __ballot_sync(0xffffffffu, f);
+      if (f) list[n + __popc(bal & ((1u << lane) - 1))] = base + lane;
+      n += __popc(bal);
+    }
+    if (lane == 0) n_list_s = n;
+  }
+  __syncthreads();
+  const int n_all = n_list_s;
+  const int lo = rank * n_all / RD_CL, n = (rank + 1) * n_all / RD_CL - lo;
+
+  float acc[S::JT][4][4];
+#pragma unroll
+  for (int jt = 0; jt < S::JT; ++jt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[jt][nt][e] = 0.f;
+
+  for (int i = 0; i < RD_STAGES - 1; ++i) {
+    if (i < n)
+      rd_issue<RJ>(U, V, C, p, t, list[lo + i] * RD_CHUNK, c0, j0, ring + i * S::STAGE, vec_u,
+                   vec_v);
+    else
+      cp_async_commit();
+  }
+  const int row_s = tid >> 1, half = tid & 1;  // this thread's share of the split
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<RD_STAGES - 2>();
+    __syncthreads();  // chunk i landed; chunk i - 1's slot and split terms are free
+    const int nx = i + RD_STAGES - 1;
+    if (nx < n)
+      rd_issue<RJ>(U, V, C, p, t, list[lo + nx] * RD_CHUNK, c0, j0,
+                   ring + (nx % RD_STAGES) * S::STAGE, vec_u, vec_v);
+    else
+      cp_async_commit();
+    const uint8_t* slot = ring + (i % RD_STAGES) * S::STAGE;
+    const __nv_bfloat16* ut = reinterpret_cast<const __nv_bfloat16*>(slot);
+    const float* vt = reinterpret_cast<const float*>(slot + S::U_TILE);
+    // V's rows as two bf16 terms
+#pragma unroll
+    for (int jj = 0; jj < RJ / 2; jj += 2) {
+      const int j = half * (RJ / 2) + jj;
+      split2(*reinterpret_cast<const float2*>(vt + row_s * RJ + j),
+             *reinterpret_cast<__nv_bfloat162*>(vhi + row_s * S::VS + j),
+             *reinterpret_cast<__nv_bfloat162*>(vlo + row_s * S::VS + j));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < RD_CHUNK / 16; ++kk) {
+      const int mrow = kk * 16 + (lane & 7);
+      uint32_t b[2][4];  // U's columns warp * 32 + [0, 16) and [16, 32)
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(b[np], ut + (mrow + ((lane >> 3) & 1) * 8) * RD_US + warp * 32 +
+                                     np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int jt = 0; jt < S::JT; ++jt) {
+        uint32_t ah[4], al[4];  // V^T's rank rows jt * 16 + [0, 16)
+        const int off = (mrow + (lane >> 4) * 8) * S::VS + jt * 16 + ((lane >> 3) & 1) * 8;
+        ldmatrix_x4_trans(ah, vhi + off);
+        ldmatrix_x4_trans(al, vlo + off);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const uint32_t b0 = b[nt >> 1][(nt & 1) * 2], b1 = b[nt >> 1][(nt & 1) * 2 + 1];
+          mma_bf16(acc[jt][nt], al, b0, b1);
+          mma_bf16(acc[jt][nt], ah, b0, b1);
+        }
       }
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring becomes the exchange
+
+  // partials [RJ][RD_CT] f32: acc[jt][nt] holds rank rows jt * 16 + g (+8)
+  // and columns warp * 32 + nt * 8 + 2c (+1)
+  float* ex = reinterpret_cast<float*>(ring);
+  const int g = lane >> 2, c = lane & 3;
+#pragma unroll
+  for (int jt = 0; jt < S::JT; ++jt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int j = jt * 16 + g, cc = warp * 32 + nt * 8 + 2 * c;
+      *reinterpret_cast<float2*>(ex + j * S::ES + cc) = make_float2(acc[jt][nt][0], acc[jt][nt][1]);
+      *reinterpret_cast<float2*>(ex + (j + 8) * S::ES + cc) =
+          make_float2(acc[jt][nt][2], acc[jt][nt][3]);
+    }
+  cluster.sync();
+  // this block's columns [rank * cols, (rank + 1) * cols), summed over the
+  // cluster in rank order, rounded once to bf16
+  constexpr int cols = RD_CT / RD_CL;
+  const float f = is_b ? p.scale[t] : 1.f;
+  for (int e = tid; e < cols * RJ; e += RD_THREADS) {
+    // dA is [c][j] in memory, dB [j][c]: the faster index runs along memory
+    const int j = is_b ? e / cols : e % RJ, cl = is_b ? e % cols : e / RJ;
+    const int cc = rank * cols + cl;
+    if (c0 + cc >= C || j0 + j >= p.r) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < RD_CL; ++q) sum += cluster.map_shared_rank(ex, q)[j * S::ES + cc];
+    const __nv_bfloat16 out = __float2bfloat16(sum * f);
+    if (is_b)
+      p.db[(static_cast<size_t>(t) * p.r + j0 + j) * p.d_out + c0 + cc] = out;
+    else
+      p.da[(static_cast<size_t>(t) * p.d_in + c0 + cc) * p.r + j0 + j] = out;
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
+template <int RJ>
+cudaError_t launch_reduce(const RdArgs& p, cudaStream_t stream) {
+  auto kernel = grouped_lora_reduce_kernel<RJ>;
+  const int smem = rd_smem<RJ>(p.M);
+  static int raised = 0;  // the largest shared memory granted so far
+  if (smem > raised) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    raised = smem;
+  }
+  const int tiles_b = (p.d_out + RD_CT - 1) / RD_CT;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((p.tiles_a + tiles_b) * RD_CL, p.T, (p.r + RJ - 1) / RJ);
+  cfg.blockDim = dim3(RD_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = RD_CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 bool bad_sizes(int M, int d_in, int d_out, int T, int r) {
-  return M <= 0 || d_in <= 0 || d_out <= 0 || T <= 0 || r <= 0 || r > RANK_LIMIT;
+  return M <= 0 || d_in <= 0 || d_out <= 0 || T <= 0 || r <= 0 || r > RANK_LIMIT ||
+         M > RD_MAX_M;
 }
 
 }  // namespace
@@ -728,8 +936,9 @@ extern "C" int grouped_lora_fwd(const void* x, const void* a, const void* b,
 }
 
 // The forward's x, a, b, row_task, scale, its saved h [M, r] f32 and the output
-// gradient g [M, d_out] bf16 -> dx [M, d_in] bf16, da [T, d_in, r] f32,
-// db [T, r, d_out] f32; dh [M, r] f32 is scratch.  Two launches on the stream.
+// gradient g [M, d_out] bf16 -> dx [M, d_in] bf16, da [T, d_in, r] bf16,
+// db [T, r, d_out] bf16; dh [M, r] f32 is scratch.  Two launches on the stream:
+// the pair kernel (dh, dx), then the per-task reduction (dA, dB).
 extern "C" int grouped_lora_bwd(const void* x, const void* a, const void* b,
                                 const void* row_task, const void* scale, const void* h,
                                 const void* g, void* dx, void* dh, void* da, void* db, int M,
@@ -756,14 +965,13 @@ extern "C" int grouped_lora_bwd(const void* x, const void* a, const void* b,
   p.backward = 1;
   cudaError_t err = run_pair(p, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int widest = d_in > d_out ? d_in : d_out;
-  dim3 grid((widest + RC - 1) / RC, T, 2);
-  grouped_lora_reduce_kernel<<<grid, RED_THREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
-      static_cast<const float*>(dh), static_cast<const float*>(h),
-      static_cast<const int*>(row_task), static_cast<const float*>(scale),
-      static_cast<float*>(da), static_cast<float*>(db), M, d_in, d_out, r);
-  return static_cast<int>(cudaGetLastError());
+  RdArgs q{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(g),
+           static_cast<const float*>(dh), static_cast<const float*>(h),
+           static_cast<const int*>(row_task), static_cast<const float*>(scale),
+           static_cast<__nv_bfloat16*>(da), static_cast<__nv_bfloat16*>(db), M, d_in, d_out,
+           T, r, (d_in + RD_CT - 1) / RD_CT};
+  err = r <= 16 ? launch_reduce<16>(q, st) : launch_reduce<64>(q, st);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* grouped_lora_error_string(int err) {

@@ -114,6 +114,40 @@ def ptxas_report() -> List[dict]:
     return out
 
 
+_SASS_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def parse_sass(text: str, opcodes: Sequence[str]) -> Dict[str, Dict[str, int]]:
+    """``cuobjdump -sass`` text -> {function: {opcode: count}}: each
+    instruction counts under its opcode's stem (``HGMMA.64x256x16.F32``
+    counts as ``HGMMA``), a predicate guard aside."""
+    out: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in text.splitlines():
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict.fromkeys(opcodes, 0)
+            continue
+        m = _SASS_OPCODE.search(line)
+        if m and fn is not None and m.group(1) in out[fn]:
+            out[fn][m.group(1)] += 1
+    return out
+
+
+def sass_opcodes(lib: str, opcodes: Sequence[str]) -> Dict[str, Dict[str, int]]:
+    """The machine code of the built library ``lib`` (its kernels' SASS, by
+    ``cuobjdump`` beside ``nvcc``): per kernel, how many instructions of
+    each of ``opcodes`` it holds."""
+    build_all()
+    src = next(s for s in sources() if s.stem == lib)
+    tool = str(Path(_nvcc()).with_name("cuobjdump"))
+    text = subprocess.run([tool, "-sass", str(_target(src))], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    return parse_sass(text, opcodes)
+
+
 def function(lib: str, name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """A C function of library ``lib`` with its argument types declared
     (pointers and the stream as ``c_void_p``, sizes as ``c_int``)."""

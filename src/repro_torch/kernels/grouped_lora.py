@@ -15,8 +15,11 @@ is set by bytes: the present tasks' A and B at decode (M = 8), the rows of
 x, g, y and dx at training and prefill (M ~ 3-4 k).  The pair kernel runs
 both rank-space products on the tensor cores (``mma.sync``, h fed back as
 three bf16 terms) behind a 16-byte ``cp.async`` ring; at decode each task
-of the call gets its own cluster of blocks, so its A and B are read once;
-the source's header says how the design spreads the work.
+of the call gets its own cluster of blocks, so its A and B are read once.
+The backward's per-task reduction (dA, dB) runs on the tensor cores too
+(dh and h as two bf16 terms), a cluster per (task, 128 columns) sharing
+the task's 64-row chunks, and writes bf16 gradients itself; the source's
+header says how the design spreads the work.
 :class:`GroupedLoRAFunction` makes the kernels one differentiable op; the
 scale is a constant (no gradient), as the training path holds it.
 
@@ -32,12 +35,16 @@ import torch
 from repro_torch.kernels import _build
 
 # launches of the CUDA kernels (plain calls are not counted); the backward
-# wrapper's two kernels count as one launch
+# wrapper's two kernels (the pair kernel's dh and dx, then the per-task
+# reduction's dA and dB) count as one launch
 launch_counts = {"grouped_lora": 0, "grouped_lora_bwd": 0}
 
 # the largest stack rank (``RANK_LIMIT`` in the source: a 16-row tile's
 # rank rows stay in shared memory); the kernels run the rank in tiles of 64
 _RANK_LIMIT = 3072
+# the most rows of a call (``RD_MAX_M``: the reduction keeps a flag and an
+# index per 64-row chunk in shared memory)
+_MAX_ROWS = 1 << 20
 
 
 def grouped_lora_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -74,8 +81,8 @@ def _check(x, a, b, row_task, scale):
                          f"row_task{tuple(row_task.shape)} scale{tuple(scale.shape)}")
     if not 1 <= r <= _RANK_LIMIT:
         raise ValueError(f"grouped_lora kernel takes ranks 1..{_RANK_LIMIT}, got {r}")
-    if M == 0:
-        raise ValueError("grouped_lora kernel takes at least one row")
+    if not 1 <= M <= _MAX_ROWS:
+        raise ValueError(f"grouped_lora kernel takes 1..{_MAX_ROWS} rows, got {M}")
     for name, t in (("x", x), ("a", a), ("b", b), ("row_task", row_task), ("scale", scale)):
         if not t.is_contiguous():
             raise ValueError(f"grouped_lora kernel takes contiguous tensors ({name} is not)")
@@ -112,8 +119,9 @@ def grouped_lora_bwd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                           g: torch.Tensor):
     """The CUDA backward: the forward's arguments, its saved ``h`` [M, r]
     f32 and the output gradient ``g`` [M, d_out] -> ``(dx, da, db)`` in the
-    types of x, a and b.  dA and dB are summed per task in f32 in row order;
-    a slot no row routes to gets exact zeros."""
+    types of x, a and b.  dA and dB are summed per task in f32 in a fixed
+    order and rounded to bf16 once; a slot no row routes to gets exact
+    zeros."""
     _check(x, a, b, row_task, scale)
     M, d_in = x.shape
     T, _, r = a.shape
@@ -127,8 +135,8 @@ def grouped_lora_bwd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     dev = x.device
     dx = torch.empty_like(x)
     dh = torch.empty((M, r), dtype=torch.float32, device=dev)
-    da = torch.empty((T, d_in, r), dtype=torch.float32, device=dev)
-    db = torch.empty((T, r, d_out), dtype=torch.float32, device=dev)
+    da = torch.empty((T, d_in, r), dtype=a.dtype, device=dev)
+    db = torch.empty((T, r, d_out), dtype=b.dtype, device=dev)
     fn = _build.function("grouped_lora", "grouped_lora_bwd",
                          [_build.P] * 11 + [_build.I] * 5 + [_build.P])
     err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), row_task.data_ptr(),
@@ -136,7 +144,7 @@ def grouped_lora_bwd_cuda(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              da.data_ptr(), db.data_ptr(), M, d_in, d_out, T, r, _stream(x))
     _build.check("grouped_lora", err)
     launch_counts["grouped_lora_bwd"] += 1
-    return dx, da.to(a.dtype), db.to(b.dtype)
+    return dx, da, db
 
 
 class GroupedLoRAFunction(torch.autograd.Function):

@@ -9,7 +9,8 @@ stays int8 in device memory; the CUDA kernel (``csrc/quant_matmul.cu``)
 widens each tile on chip.  On the H100 its least time is set by the weight
 bytes at decode (M = 8) and by the tensor-core operations at prefill and
 training (M in the thousands); the source's header says how the design
-meets each.
+meets each: ``wgmma`` fed by TMA above 64 rows, ``mma.sync`` with K split
+over a thread-block cluster at and below.  Every call is one launch.
 
 :class:`QuantMatmulFunction` makes the kernel differentiable with respect
 to x (the backbone is frozen).  Its backward is the JAX package's plain
@@ -28,14 +29,13 @@ import torch
 
 from repro_torch.kernels import _build
 
-# launches of the CUDA kernel (plain calls are not counted); a split-K
-# launch's reduction kernel counts with it as one
+# launches of the CUDA kernel (plain calls are not counted)
 launch_counts = {"quant_matmul": 0}
 
-# (BM, BN, BK) of the kernel's two tile shapes (csrc/quant_matmul.cu)
-_SMALL_M_TILE = (16, 128, 64)
-_LARGE_M_TILE = (128, 128, 32)
-_SMALL_M_MAX = 64
+_TILE_N = 128       # columns n of a block, both kernels (csrc/quant_matmul.cu)
+_BK = 64            # k of a pipeline stage
+_SMALL_M_MAX = 64   # tokens of one slice of the mma.sync kernel
+_MAX_CLUSTER = 16   # blocks of a cluster (past the portable 8; the H100 schedules 16)
 
 
 def quant_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -43,19 +43,40 @@ def quant_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) ->
     return ((x.float() @ q.float()) * scale.float()).to(x.dtype)
 
 
-def launch_plan(M: int, K: int, N: int, sms: int = 132):
-    """(small-M tile?, k_chunk, splits) of one launch: K splits across
-    blocks only when the output tiles number fewer than the SMs, into
-    chunks of at least two BK steps, aiming at two blocks per SM."""
-    small = M <= _SMALL_M_MAX
-    bm, bn, bk = _SMALL_M_TILE if small else _LARGE_M_TILE
-    tiles = math.ceil(M / bm) * math.ceil(N / bn)
-    k_steps = math.ceil(K / bk)
-    splits = 1
-    if tiles < sms:
-        splits = max(1, min(math.ceil(2 * sms / tiles), k_steps // 2))
-    k_chunk = math.ceil(k_steps / splits) * bk
-    return small, k_chunk, math.ceil(K / k_chunk)
+def launch_plan(M: int, K: int, N: int, sms: int = 132, tma: bool = True):
+    """(route, nt8, cluster, k_span) of one launch.  ``"wgmma"`` takes
+    M > 64 when TMA can read the operands (``tma``: K % 8 == 0,
+    N % 16 == 0, 16-byte aligned x and q); it covers K in one block.
+    ``"mma"`` takes the rest in slices of ``8 * nt8`` tokens (nt8 a power
+    of two up to 8); clusters of ``cluster`` blocks split K into shares of
+    ``k_span``, doubling while the blocks number fewer than the SMs and
+    each share keeps at least two 64-deep stages."""
+    if M > _SMALL_M_MAX and tma:
+        return "wgmma", 0, 1, K
+    nt8 = 1
+    while 8 * nt8 < min(M, _SMALL_M_MAX):
+        nt8 *= 2
+    tiles = math.ceil(N / _TILE_N) * math.ceil(M / (8 * nt8))
+    k_steps = math.ceil(K / _BK)
+    cluster = 1
+    while cluster < _MAX_CLUSTER and tiles * cluster < sms and 4 * cluster <= k_steps:
+        cluster *= 2
+    return "mma", nt8, cluster, math.ceil(k_steps / cluster) * _BK
+
+
+_SMS: dict = {}     # device index -> SM count, read once
+_PLANS: dict = {}   # (M, K, N, device index, tma) -> launch_plan
+
+
+def _plan(M: int, K: int, N: int, dev: torch.device, tma: bool):
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (M, K, N, idx, tma)
+    plan = _PLANS.get(key)
+    if plan is None:
+        if idx not in _SMS:
+            _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+        plan = _PLANS[key] = launch_plan(M, K, N, _SMS[idx], tma)
+    return plan
 
 
 def _check(x, q, scale):
@@ -78,23 +99,33 @@ def _check(x, q, scale):
             raise ValueError(f"quant_matmul kernel takes contiguous tensors ({name} is not)")
 
 
+_ROUTES = {"mma": 0, "wgmma": 1}  # the C entry's `route`
+
+
+def plan_of(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
+    """(plan, vec) of a call on these CUDA operands: ``vec`` when x and q
+    allow 16-byte copies (K % 8 == 0, N % 16 == 0, both 16-byte aligned);
+    TMA, and so the ``"wgmma"`` route, needs besides an 8-byte aligned
+    scale, which its epilogue reads as pairs."""
+    M, K = x.shape
+    N = q.shape[1]
+    vec = K % 8 == 0 and N % 16 == 0 and x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
+    return _plan(M, K, N, x.device, vec and scale.data_ptr() % 8 == 0), vec
+
+
 def quant_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel on the arguments of :func:`quant_matmul_plain` (bf16
     x, int8 q, f32 scale, contiguous on one card) -> bf16 [M, N]."""
     _check(x, q, scale)
     M, K = x.shape
     N = q.shape[1]
-    dev = x.device
-    small, k_chunk, splits = launch_plan(
-        M, K, N, torch.cuda.get_device_properties(dev).multi_processor_count)
-    vec = K % 8 == 0 and N % 16 == 0 and x.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0
-    y = torch.empty((M, N), dtype=x.dtype, device=dev)
-    part = torch.empty((splits, M, N), dtype=torch.float32, device=dev) if splits > 1 else None
+    (route, nt8, cluster, k_span), vec = plan_of(x, q, scale)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     fn = _build.function("quant_matmul", "quant_matmul_fwd",
-                         [_build.P] * 5 + [_build.I] * 7 + [_build.P])
-    err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-             part.data_ptr() if part is not None else None, M, K, N, int(small), k_chunk,
-             splits, int(vec), torch.cuda.current_stream(dev).cuda_stream)
+                         [_build.P] * 4 + [_build.I] * 8 + [_build.P])
+    err = fn(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), M, K, N,
+             _ROUTES[route], nt8, cluster, k_span, int(vec),
+             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("quant_matmul", err)
     launch_counts["quant_matmul"] += 1
     return y

@@ -283,15 +283,73 @@ def test_adapter_grads_int8_equal_dense_dequantized():
 
 
 def test_launch_plan_covers_k_on_the_main_path_shapes():
-    for M in (8, 2816, 4096, 5):
+    # one launch per call at every M: wgmma over all of K above 64 rows,
+    # else one mma.sync launch whose clusters split K (no second pass)
+    for M in (1, 5, 8, 64, 65, 300, 2816, 4096):
         for K, N in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072), (40, 72)):
-            small, k_chunk, splits = launch_plan(M, K, N)
-            bk = 64 if small else 32
-            assert small == (M <= 64) and k_chunk % bk == 0
-            assert (splits - 1) * k_chunk < K <= splits * k_chunk
-            if M >= 2816:
-                assert splits == 1  # enough output tiles to fill the card
-    assert launch_plan(8, 3072, 1024)[2] > 1  # decode at N = 1024 splits K
+            tma = K % 8 == 0 and N % 16 == 0
+            route, nt8, cluster, k_span = launch_plan(M, K, N, tma=tma)
+            if M > 64 and tma:
+                assert (route, cluster, k_span) == ("wgmma", 1, K)
+                continue
+            assert route == "mma" and nt8 in (1, 2, 4, 8)
+            assert 8 * nt8 >= min(M, 64) and (nt8 == 1 or 4 * nt8 < min(M, 64))
+            assert cluster in (1, 2, 4, 8, 16)  # the H100 schedules clusters of 16
+            assert k_span % 64 == 0 and cluster * k_span >= K > (cluster - 1) * k_span
+    assert launch_plan(8, 3072, 1024)[2] == 16  # decode at N = 1024: the widest split
+    assert launch_plan(8, 3072, 3072)[2] * 24 >= 132  # enough blocks to fill the card
+    assert launch_plan(300, 40, 72, tma=False)[0] == "mma"  # TMA cannot read N = 72
+
+
+def test_plan_is_cached_per_shape_and_device(monkeypatch):
+    # the wrapper's plan: launch_plan at the card's SM count, read once and
+    # cached per (M, K, N, device, TMA-able); no CUDA call once seeded
+    from repro_torch.kernels import quant_matmul as qm
+
+    monkeypatch.setattr(qm, "_SMS", {0: 132})
+    monkeypatch.setattr(qm, "_PLANS", {})
+    dev = torch.device("cuda", 0)
+    for M, K, N, tma in ((8, 3072, 1024, True), (2816, 3072, 3072, True), (300, 40, 72, False)):
+        plan = qm._plan(M, K, N, dev, tma)
+        assert plan == launch_plan(M, K, N, 132, tma)
+        assert qm._plan(M, K, N, dev, tma) is plan
+    assert set(qm._PLANS) == {(8, 3072, 1024, 0, True), (2816, 3072, 3072, 0, True),
+                              (300, 40, 72, 0, False)}
+
+
+def test_plan_of_reads_operand_alignment(monkeypatch):
+    # TMA (the wgmma route) needs 16-byte aligned x and q and an 8-byte
+    # aligned scale; 16-byte copies (vec) ask nothing of scale
+    from repro_torch.kernels import quant_matmul as qm
+
+    monkeypatch.setattr(qm, "_plan", lambda M, K, N, dev, tma: (M, K, N, tma))
+    M, K, N = 300, 64, 32
+    xb = torch.zeros(M * K + 8, dtype=torch.bfloat16)
+    q = torch.zeros((K, N), dtype=torch.int8)
+    sb = torch.zeros(N + 2)
+    assert q.data_ptr() % 16 == 0 and xb.data_ptr() % 16 == 0 and sb.data_ptr() % 8 == 0
+    for x_off in (0, 1, 8):
+        for s_off in (0, 1, 2):
+            x, scale = xb[x_off:x_off + M * K].view(M, K), sb[s_off:s_off + N]
+            vec = x.data_ptr() % 16 == 0
+            assert qm.plan_of(x, q, scale) == ((M, K, N, vec and s_off % 2 == 0), vec)
+    x = xb[:M * K].view(M, K)
+    assert qm.plan_of(x[:, :36].contiguous(), q[:36], sb[:N])[1] is False  # K % 8 != 0
+
+
+def test_int8_widening_is_exact():
+    # the kernels' int8 -> bf16 step, transcribed: bf16(128 + (b & 0x7f))
+    # minus bf16(b < 0 ? 256 : 128), both built from bits, is b for every byte
+    b = np.arange(-128, 128, dtype=np.int8)
+    u = b.view(np.uint8).astype(np.uint32)
+
+    def bf16_bits(bits):
+        return (bits << 16).astype(np.uint32).view(np.float32)
+
+    v = bf16_bits((u & 0x7F) | 0x4300)
+    s = bf16_bits((u & 0x80) | 0x4300)
+    out = torch.from_numpy(v).bfloat16() - torch.from_numpy(s).bfloat16()
+    assert torch.equal(out.float(), torch.from_numpy(b.astype(np.float32)))
 
 
 # ---------------------------------------------------------------------------
