@@ -21,7 +21,10 @@ path, and the reference on the card; autograd differentiates it.
 The CUDA kernels (``csrc/mamba_scan.cu``): the forward and the state
 backward run one block per (batch row, head) with a loop over its chunks,
 where the Pallas grid carried the state across sequential grid steps; the
-chunk backward runs one block per (chunk, batch row, head).
+chunk backward runs one block per (chunk, batch row, head).  The forward
+and the chunk backward run their products on the tensor cores (``mma.sync``
+on bf16 tiles, the f32 factors as three bf16 terms, f32 accumulators; see
+the source's header); the state backward on the CUDA cores.
 :class:`MambaScanFunction` makes them one differentiable op over (q, k, v,
 la, li, h0); the ``dla`` of the telescoping identity (a segment-bounded
 reverse cumsum of the kernel's per-position rows, plus the final-state term
@@ -30,6 +33,7 @@ kernels, as the JAX package takes it outside its Pallas kernels.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -215,6 +219,42 @@ def mamba_scan_backward_plain(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
+
+
+# the C source's kernel kinds (``mamba_scan_occupancy``)
+_KINDS = {"mamba_scan_fwd": 0, "mamba_scan_bwd_state": 1, "mamba_scan_bwd_chunk": 2}
+
+
+def smem_bytes(kernel: str, chunk: int) -> int:
+    """Dynamic shared memory of one block of ``kernel`` (a key of
+    ``_KINDS``) at chunk length ``chunk``, as the C source sizes it.  The
+    tensor-core kernels' layout is fixed: a ring of three stages of two
+    64 x 72 bf16 tiles, the state's three bf16 terms (3 x 64 x 72), a
+    16 x 72 stage for each of 4 warps, six per-row vectors of 256 and 40
+    ints.  The
+    state backward holds q and dy [QP, 66] bf16 and three [QP] vectors,
+    QP the chunk rounded up to 64."""
+    if kernel not in _KINDS or not 1 <= chunk <= _QMAX:
+        raise ValueError(f"smem_bytes: kernel in {sorted(_KINDS)} and chunk 1..{_QMAX}; got "
+                         f"{kernel!r}, {chunk}")
+    if kernel == "mamba_scan_bwd_state":
+        qp = -(-chunk // 64) * 64
+        return 2 * qp * 66 * 2 + 3 * qp * 4
+    tile = 64 * 72 * 2
+    return 3 * 2 * tile + 3 * tile + 4 * 16 * 72 * 2 + 6 * _QMAX * 4 + 40 * 4
+
+
+def occupancy(kernel: str, chunk: int) -> dict:
+    """On the card: a block's dynamic shared memory and how many blocks of
+    ``kernel`` an SM holds at chunk length ``chunk`` (the C entry
+    ``mamba_scan_occupancy``: ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    with the launch's attributes set)."""
+    smem_bytes(kernel, chunk)  # refuses what the kernels do not take
+    out = ctypes.POINTER(ctypes.c_int)
+    fn = _build.function("mamba_scan", "mamba_scan_occupancy", [_build.I, _build.I, out, out])
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    _build.check("mamba_scan", fn(_KINDS[kernel], chunk, ctypes.byref(smem), ctypes.byref(blocks)))
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 def _check(q, k, v, la, li, r, chunk, state=None):

@@ -88,6 +88,61 @@ def packed_attention_plain(q, k, v, positions, segment_ids, k_positions,
     return o.reshape(B, S, H, dh).to(q.dtype)
 
 
+# the stored-o path's forward, bound here: a caller may put
+# packed_attention_stored_o_plain in packed_attention_plain's place
+_plain_forward = packed_attention_plain
+
+
+class _StoredOPlainFunction(torch.autograd.Function):
+    """The plain forward, and a plain backward that takes D = rowsum(do * o)
+    from the forward's stored output ``o`` (in q's type), as the Pallas
+    ``_dq_kernel`` / ``_dkv_kernel`` and the CUDA kernels do, where autograd
+    of :func:`packed_attention_plain` differentiates its f32 o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, segment_ids, k_positions, k_segment_ids, causal,
+                bq, bk):
+        ints = (positions, segment_ids, k_positions, k_segment_ids)
+        o = _plain_forward(q, k, v, *ints, causal, bq, bk)
+        ctx.save_for_backward(q, k, v, *ints, o)
+        ctx.rule = (causal, bq, bk)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, positions, segment_ids, k_positions, k_segment_ids, o = ctx.saved_tensors
+        B, S, H, dh = q.shape
+        Hkv = k.shape[2]
+        G = H // Hkv
+        scale = 1.0 / math.sqrt(dh)
+        q5 = q.float().reshape(B, S, Hkv, G, dh)
+        kf, vf = k.float(), v.float()
+        mask = visible_mask(positions, segment_ids, k_positions, k_segment_ids,
+                            *ctx.rule)[:, :, None, None, :]
+        s = torch.einsum("bqkgd,bpkd->bqkgp", q5, kf) * scale
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
+        p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
+        do5 = do.float().reshape(B, S, Hkv, G, dh)
+        d = (do5 * o.float().reshape(B, S, Hkv, G, dh)).sum(dim=-1, keepdim=True)
+        ds = p * (torch.einsum("bqkgd,bpkd->bqkgp", do5, vf) - d) * scale
+        dq = torch.einsum("bqkgp,bpkd->bqkgd", ds, kf).reshape(B, S, H, dh)
+        dk = torch.einsum("bqkgp,bqkgd->bpkd", ds, q5)
+        dv = torch.einsum("bqkgp,bqkgd->bpkd", p, do5)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None, None)
+
+
+def packed_attention_stored_o_plain(q, k, v, positions, segment_ids, k_positions,
+                                    k_segment_ids, causal: bool = True, bq: int = 128,
+                                    bk: int = 128) -> torch.Tensor:
+    """:func:`packed_attention_plain` whose backward reads D = rowsum(do * o)
+    from the stored o in q's type (the Pallas backward's choice): a second
+    plain path, with no kernel, for the noise floor of the training checks."""
+    return _StoredOPlainFunction.apply(q, k, v, positions, segment_ids, k_positions,
+                                       k_segment_ids, causal, bq, bk)
+
+
 def _check(q, k, v, ints):
     if not q.is_cuda:
         raise ValueError("packed_attention_cuda takes CUDA tensors")

@@ -238,6 +238,39 @@ def test_mamba_scan_backward_kernels_plain_match_autograd(case):
         np.testing.assert_allclose(y2.numpy(), y1[:, c * Q_:(c + 1) * Q_].numpy(), **F32)
 
 
+@pytest.mark.parametrize("kernel", ["mamba_scan_fwd", "mamba_scan_bwd_state",
+                                    "mamba_scan_bwd_chunk"])
+def test_mamba_scan_smem_bytes_follow_the_cuda_source(kernel):
+    """``smem_bytes`` (which chip_smoke holds the card's own report,
+    ``occupancy``, to) against the C source: the constants its formula
+    assumes are the source's; the tensor-core kernels take 98,464 bytes at
+    any chunk, so two blocks share an H100 SM (233,472 bytes, 1 KB reserved
+    a block); the state backward's tiles follow the chunk rounded up to 64.
+    Bad arguments are refused here, before any build."""
+    import re
+
+    from repro_torch.kernels import mamba_scan as ms
+
+    src = (Path(ms.__file__).parent.parent / "csrc" / "mamba_scan.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
+    assert {k: consts[k] for k in ("D", "TP", "MMA_THREADS", "TR", "DP", "STAGES", "QMAX",
+                                   "MAX_ITEMS")} == {
+        "D": "64", "TP": "D + 2", "MMA_THREADS": "128", "TR": "64", "DP": "D + 8",
+        "STAGES": "3", "QMAX": "256", "MAX_ITEMS": "32"}
+    got = {Q: ms.smem_bytes(kernel, Q) for Q in (1, 40, 64, 65, 256)}
+    if kernel == "mamba_scan_bwd_state":
+        assert got == {Q: 2 * QP * 66 * 2 + 3 * QP * 4
+                       for Q, QP in ((1, 64), (40, 64), (64, 64), (65, 128), (256, 256))}
+    else:
+        assert set(got.values()) == {98464}
+        assert 2 * (98464 + 1024) <= 233472 < 3 * (98464 + 1024)
+    for bad in ((kernel, 0), (kernel, 257), ("mamba_scan", 64)):
+        with pytest.raises(ValueError):
+            ms.smem_bytes(*bad)
+        with pytest.raises(ValueError):
+            ms.occupancy(*bad)
+
+
 # ---------------------------------------------------------------------------
 # The Mamba2 block and the hybrid model
 # ---------------------------------------------------------------------------

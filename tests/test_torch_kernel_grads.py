@@ -226,3 +226,56 @@ def test_packed_attention_plain_grads_match_pallas_at_kernel_widths(dh):
         block_q=8, block_k=8, interpret=True), (q, k, v), w)
     for leaf, g, wg in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(g, wg, err_msg=leaf, **F32)
+
+
+@pytest.mark.parametrize("dh", [64, 80, 128])
+def test_packed_attention_stored_o_backward_matches_pallas_bf16(dh):
+    """The second plain path of chip_smoke's training checks
+    (``packed_attention_stored_o_plain``: D = rowsum(do * o) from the stored
+    bf16 o) on bf16 q, k, v behind a wildcard / unseen prefix, GQA (G = 3),
+    tiles of 8: dq, dk, dv within one bf16 unit (2^-8 of the largest |g|)
+    of the Pallas kernels' VJP in interpret mode, which reads the stored o
+    too; within four units (2^-6, the allowance GRAD_TOL gives the packed
+    attention kernels) of autograd of ``packed_attention_plain``, which
+    differentiates the f32 o; and closer to the Pallas dq and dk than that
+    autograd is."""
+    from repro_torch.kernels.packed_attention import (packed_attention_plain,
+                                                      packed_attention_stored_o_plain,
+                                                      tile_sizes)
+
+    rs = np.random.RandomState(40 + dh)
+    B, S, P, H, Hkv = 2, 40, 8, 6, 2
+    cut = S // 3
+    seg = np.repeat(np.asarray([[0, 1]] * B, np.int32), [cut, S - cut], axis=1)
+    pos = np.concatenate([np.arange(cut), np.arange(S - cut)])[None].repeat(B, 0)
+    pos = pos.astype(np.int32)
+    pseg = np.full((B, P), -2, np.int32)
+    pseg[0, ::2] = -1
+    pseg[1, :5] = -1
+    kpos = np.concatenate([np.full((B, P), -1, np.int32), pos], 1)
+    kseg = np.concatenate([pseg, seg], 1)
+    qkv = [jnp.asarray(rs.randn(*shape), jnp.bfloat16)
+           for shape in ((B, S, H, dh), (B, S + P, Hkv, dh), (B, S + P, Hkv, dh))]
+    w = rs.randn(B, S, H, dh).astype(np.float32)
+    bq, bk = tile_sizes(S, S + P, 8, 8)
+    ints = [torch.from_numpy(a) for a in (pos, seg, kpos, kseg)]
+
+    def torch_grads(fn):
+        ts = [torch.from_numpy(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+              .requires_grad_(True) for a in qkv]
+        (fn(*ts, *ints, True, bq, bk).float() * torch.from_numpy(w)).sum().backward()
+        return [t.grad.float().numpy() for t in ts]
+
+    got = torch_grads(packed_attention_stored_o_plain)
+    auto = torch_grads(packed_attention_plain)
+    want = jax.grad(lambda *xs: (packed_attention_pallas(
+        *xs, segment_ids=seg, positions=pos, k_segment_ids=kseg, k_positions=kpos,
+        block_q=8, block_k=8, interpret=True).astype(jnp.float32) * w).sum(),
+        argnums=(0, 1, 2))(*qkv)
+    want = [np.asarray(g.astype(jnp.float32)) for g in want]
+    for leaf, g, a, wg in zip(("dq", "dk", "dv"), got, auto, want):
+        unit = np.abs(wg).max() * 2.0 ** -8
+        assert np.abs(g - wg).max() <= unit, leaf
+        assert np.abs(g - a).max() <= 4 * unit, leaf
+        if leaf != "dv":  # (dv does not read D)
+            assert np.abs(g - wg).max() < np.abs(a - wg).max(), leaf

@@ -6,8 +6,11 @@ training path reached, and that state depends on the tokens it trained on.
 This script repeats that on the llama3.2-3b bf16 path for ``N`` token
 seeds: a fresh engine, the warm-up iteration and ``chip_smoke.TRAIN_ITERS``
 iterations on loaders seeded ``0 .. N - 1``, then ``train_check``.  One
-JSON line per seed with its three distances (each the worst leaf's, as a
-share of that leaf's largest f32 |g|), then a summary line.
+JSON line per seed with its four distances (each the worst leaf's, as a
+share of that leaf's largest f32 |g|): kernel vs plain, kernel vs f32,
+plain vs f32, and ``plain_stored_o_vs_plain``, the distance of two plain
+paths (``chip_smoke.plain_stored_o``) that is the gate's noise floor; then
+a summary line whose ``S`` is the worst of the last over the seeds.
 
     PYTHONHASHSEED=0 python3 train_check_spread.py [ROOT] [N]
 
@@ -76,6 +79,9 @@ def main() -> int:
                       "tol": c.GRAD_PATH_TOL,
                       "kernel_vs_plain": sorted(r["kernel_vs_plain"] for r in rows),
                       "plain_vs_f32": sorted(r["plain_vs_f32"] for r in rows),
+                      "plain_stored_o_vs_plain": sorted(r["plain_stored_o_vs_plain"]
+                                                        for r in rows),
+                      "S": max(r["plain_stored_o_vs_plain"] for r in rows),
                       "seconds": time.time() - t0}), flush=True)
     return 0
 
