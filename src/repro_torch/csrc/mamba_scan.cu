@@ -31,17 +31,20 @@
 // head, well under 295 per byte: bound by bytes.  The chunk backward does
 // about three times the forward's products on four tiles (q, k, v, dy) in
 // and three out, and is bound by bytes too; the state backward reads q and
-// dy only.  The two tensor-core kernels below stay several times above that
-// bound at the training shape: each warp's chain of products, decays and
-// splits for a pair of slabs waits on latency, with 8 warps to an SM.
+// dy only where a chunk's products feed its outputs (rows before the
+// chunk's first reset), and dhf, and writes gexit and dh0: on a packed
+// training batch, whose rows open with a reset, the three states alone.
+// The forward and the chunk backward stay several times above their bound
+// at the training shape: each warp's chain of products, decays and splits
+// for a pair of slabs waits on latency, with 8 warps to an SM.
 //
-// The forward and the chunk backward run on the tensor cores: every product
+// All three kernels run on the tensor cores: every product
 // is mma.sync.m16n8k16 on bf16 operands with f32 accumulators, fed by
 // ldmatrix (.trans where the operand's rows are the contraction), as in
 // packed_attention.cu.  q, k, v and dy are bf16 and exact as operands.  The
 // f32 factors -- the decay-masked scores P, the states H, H_in and G_exit,
-// and w_j k_j of the state update -- enter as three bf16 terms whose sum is
-// the f32 value (`split3`), so every product keeps f32 precision: h, hin,
+// and w_j k_j and ec_i q_i of the state updates -- enter as three bf16
+// terms whose sum is the f32 value (`split3`), so every product keeps f32 precision: h, hin,
 // dli, dcum and dh0 are held to 1e-5 of their largest magnitude.  Per-row
 // scales go on the f32 result where the algebra allows (ec_i (q_i H),
 // ec_i (dy_i H_in^T), w_t (v_t G_exit^T), w_t (k_t G_exit)): the state term
@@ -61,7 +64,9 @@
 // ring of packed_attention.cu), rows padded to 72 values so that the rows
 // an ldmatrix reads fall in distinct banks.  The f32 state sits in shared
 // memory as its three bf16 terms, read by ldmatrix like the tiles.  98,464
-// bytes a block, so two blocks share an SM.
+// bytes a block, so two blocks share an SM.  The state backward's k-steps
+// are the ring's 16-row slabs, its rows are the contraction, and its warps
+// own 16 rows of the [dk, dv] state each.
 //
 // Tile classes.  The reset counts are sorted within a chunk, so a 64 x 64
 // tile whose key rows all lie in earlier segments than its query rows has
@@ -72,7 +77,8 @@
 // where ec, or w, is 0 on every row, and where the state is 0 everywhere (a
 // block-wide OR over it: h0 = 0 in training, and G_exit = 0 there, the final
 // state getting no gradient).  On a packed training batch many off-diagonal
-// tiles are dead.
+// tiles are dead, and the state backward, whose products stop at a chunk's
+// first reset row, has no live tile at all.
 //
 // A chunk's set-up (`chunk_prologue`): the reset counts by a shuffle scan
 // over the lanes, then the warps in order; cum in the plain version's
@@ -89,10 +95,12 @@
 // The forward runs one block per (b, h) with a loop over that row's chunks,
 // the state carried in f32 registers between chunks (each warp holds 16 of
 // its 64 rows) and, during one, as its three bf16 terms in shared memory
-// (their sum is exact);
-// the chunk backward runs one block per (chunk, b, h) and carries nothing.
-// The state backward is the first port's (one block per (b, h), f32 products
-// on the CUDA cores, a sequential in-chunk sum in one thread).
+// (their sum is exact); the state backward runs the same way from the last
+// chunk, G in f32 registers throughout, the next chunk's tiles in flight
+// while a chunk's update and set-up run, gexit and dh0 leaving as 16-byte
+// rows through a per-warp f32 stage; the chunk backward runs one block per
+// (chunk, b, h) and carries nothing.  All three share one shared-memory
+// layout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -125,128 +133,12 @@ struct Args {
   bf16* dv;
   float* dcum;         // [B, S, H]
   float* dli;
-  int S, H, Q, n, QP;
+  int S, H, Q, n;
+  int want_dh0;        // state bwd: dh0 is wanted (else the first chunk's products are skipped)
 };
 
 __device__ __forceinline__ size_t row_off(const Args& a, int b, int t, int h) {
   return (static_cast<size_t>(b) * a.S + t) * a.H + h;
-}
-
-// ---- the state backward (CUDA cores) ------------------------------------------
-
-constexpr int THREADS = 256;  // 16 x 16: a thread owns 4 x 4 of a 64 x 64 tile
-constexpr int SB = 64;        // sub-block rows
-constexpr int TP = D + 2;     // bf16 tile row stride (33 words)
-
-// Rows t0 .. t0 + Q - 1 of head h of x [B, S, H, D] into a [QP][TP] bf16
-// tile, 16 bytes a load; rows past Q are zero.
-__device__ void load_tile(const Args& a, bf16* dst, const bf16* src, int b, int t0, int h) {
-  for (int i = threadIdx.x; i < a.QP * 8; i += THREADS) {
-    const int row = i >> 3, part = i & 7;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < a.Q) val = *reinterpret_cast<const uint4*>(src + row_off(a, b, t0 + row, h) * D + part * 8);
-    uint32_t* w = reinterpret_cast<uint32_t*>(dst + row * TP + part * 8);
-    w[0] = val.x;
-    w[1] = val.y;
-    w[2] = val.z;
-    w[3] = val.w;
-  }
-}
-
-// The chunk's vectors cum and seg (sequential inclusive sums) and ec.  Ends
-// with a barrier.
-__device__ void chunk_vectors(const Args& a, int b, int t0, int h, float* cum, int* seg,
-                              float* ec) {
-  const int Q = a.Q, tid = threadIdx.x;
-  for (int i = tid; i < Q; i += THREADS) {
-    cum[i] = a.la[row_off(a, b, t0 + i, h)];
-    seg[i] = a.r != nullptr ? a.r[static_cast<size_t>(b) * a.S + t0 + i] : 0;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float c = 0.f;
-    int s = 0;
-    for (int i = 0; i < Q; ++i) {
-      c += cum[i];
-      cum[i] = c;
-      s += seg[i];
-      seg[i] = s;
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < Q; i += THREADS) ec[i] = seg[i] == 0 ? expf(cum[i]) : 0.f;
-  __syncthreads();
-}
-
-// acc[dd][e] += sum_j (X[j][ty + 16 dd] * sc[j]) Y[j][tx + 16 e] over the chunk's rows:
-// the outer-product sums of the state updates.
-__device__ __forceinline__ void outer_sum(const bf16* X, const float* sc, const bf16* Y, int Q,
-                                          float acc[4][4]) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll 4
-  for (int j = 0; j < Q; ++j) {
-    float x[4], y[4];
-    const float s = sc[j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = __bfloat162float(X[j * TP + ty + 16 * i]) * s;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) y[c] = __bfloat162float(Y[j * TP + tx + 16 * c]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(x[i], y[c], acc[i][c]);
-  }
-}
-
-size_t state_smem(int QP) {
-  return 2 * static_cast<size_t>(QP) * TP * sizeof(bf16) + 3 * QP * sizeof(float);
-}
-
-__global__ void __launch_bounds__(THREADS) mamba_scan_bwd_state_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  const int QP = a.QP;
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dys = qs + QP * TP;
-  float* cum = reinterpret_cast<float*>(dys + QP * TP);
-  float* ec = cum + QP;
-  int* seg = reinterpret_cast<int*>(ec + QP);
-
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float g[4][4];  // G[ty + 16 i][tx + 16 j], carried in registers
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) g[i][j] = a.dhf[static_cast<size_t>(bh) * D * D + (ty + 16 * i) * D + tx + 16 * j];
-
-  for (int c = a.n - 1; c >= 0; --c) {
-    const int t0 = c * a.Q;
-    __syncthreads();  // the previous chunk's tiles and vectors are no longer read
-    load_tile(a, qs, a.q, b, t0, h);
-    load_tile(a, dys, a.dy, b, t0, h);
-    chunk_vectors(a, b, t0, h, cum, seg, ec);
-    float* gx = a.gexit + (static_cast<size_t>(bh) * a.n + c) * D * D;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gx[(ty + 16 * i) * D + tx + 16 * j] = g[i][j];
-    // exp(cum_last) when no reset row lies in the chunk, else 0
-    const float cdec = seg[a.Q - 1] == 0 ? expf(cum[a.Q - 1]) : 0.f;
-    float upd[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) upd[i][j] = 0.f;
-    outer_sum(qs, ec, dys, a.Q, upd);  // sum_i (ec_i q_i) (x) dy_i
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) g[i][j] = cdec * g[i][j] + upd[i][j];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) a.dh0[static_cast<size_t>(bh) * D * D + (ty + 16 * i) * D + tx + 16 * j] = g[i][j];
 }
 
 // ---- tensor-core building blocks (as in packed_attention.cu) -----------------
@@ -525,6 +417,9 @@ constexpr size_t kStageBytes = sizeof(bf16) * 4 * 16 * DP;
 constexpr size_t kMmaSmem = kRingBytes + kSplitBytes + kStageBytes + 6 * QMAX * sizeof(float) +
                             4 * sizeof(int) + (MAX_ITEMS + 4) * sizeof(int);
 
+// (the state backward's f32 output stages, [4][16][D + 8], in the split's room)
+static_assert(4 * 16 * (D + 8) * sizeof(float) <= kSplitBytes, "state stage");
+
 __device__ Smem carve(unsigned char* base) {
   Smem s;
   s.ring = reinterpret_cast<bf16*>(base);
@@ -576,18 +471,45 @@ __device__ __forceinline__ void split_pair(bf16* split, int i, float2 x) {
     *reinterpret_cast<uint32_t*>(split + (term * D + row) * DP + col) = t[term];
 }
 
+// cum over a chunk's QMAX rows (la of rows at or past Q read as 0), by one
+// warp in the plain version's order: a sequential f32 sum from the first
+// row, each lane adding its eight rows in turn and handing the sum on
+// (exp(cum_i - cum_j) and exp(cum_last - cum_j) magnify a change of cum by
+// |cum|, up to a few hundred at the end of a chunk, so a sum in another
+// order moves h by about F32_TOL)
+__device__ void warp_cumsum(const Args& a, int b, int t0, int h, float* cum) {
+  const int lane = threadIdx.x & 31;
+  float v[QMAX / 32];
+#pragma unroll
+  for (int i = 0; i < QMAX / 32; ++i) {
+    const int row = QMAX / 32 * lane + i;
+    v[i] = row < a.Q ? a.la[row_off(a, b, t0 + row, h)] : 0.f;
+  }
+  float c = 0.f;
+#pragma unroll 1
+  for (int src = 0; src < 32; ++src) {
+    if (lane == src) {
+#pragma unroll
+      for (int i = 0; i < QMAX / 32; ++i) {
+        c += v[i];
+        v[i] = c;
+      }
+    }
+    c = __shfl_sync(0xffffffffu, c, src);
+  }
+#pragma unroll
+  for (int i = 0; i < QMAX / 32; ++i) cum[QMAX / 32 * lane + i] = v[i];
+}
+
 // A chunk's set-up, ending with a barrier: the vectors over its QMAX rows
 // (two per thread), the ring's work list and, when `state` is not null, the
 // f32 state [D][D] there as three bf16 terms; returns whether any value of
 // that state is not 0 (a state of zeros adds nothing, and its products are
 // skipped).  The reset counts' inclusive
 // sums seg come from a shuffle scan (the lanes' runs, then the warps in
-// order); cum is taken in the plain version's order, a sequential f32 sum
-// from the first row, in warp 0: each lane adds its eight rows in turn and
-// hands the sum on (exp(cum_i - cum_j) and exp(cum_last - cum_j) magnify a
-// change of cum by |cum|, up to a few hundred at the end of a chunk, so a
-// sum in another order moves h by about F32_TOL).  Meanwhile the other
-// warps build the work list and split the state.  Then gain, ec and w once
+// order); cum is taken in the plain version's order by warp 0
+// (`warp_cumsum`).  Meanwhile the other warps build the work list and
+// split the state.  Then gain, ec and w once
 // per row.  Rows at or past Q read la = 0 and no reset, so they carry
 // cum_last and seg_last; their gain, ec and w are 0.
 __device__ bool chunk_prologue(const Args& a, int b, int t0, int h, const Smem& s, int nt,
@@ -617,28 +539,7 @@ __device__ bool chunk_prologue(const Args& a, int b, int t0, int h, const Smem& 
   s.seg[2 * tid] = seg + rc[0];
   s.seg[2 * tid + 1] = seg + rc[0] + rc[1];
   __syncthreads();
-  if (warp == 0) {
-    float v[QMAX / 32];
-#pragma unroll
-    for (int i = 0; i < QMAX / 32; ++i) {
-      const int row = QMAX / 32 * lane + i;
-      v[i] = row < Q ? a.la[row_off(a, b, t0 + row, h)] : 0.f;
-    }
-    float c = 0.f;
-#pragma unroll 1
-    for (int src = 0; src < 32; ++src) {
-      if (lane == src) {
-#pragma unroll
-        for (int i = 0; i < QMAX / 32; ++i) {
-          c += v[i];
-          v[i] = c;
-        }
-      }
-      c = __shfl_sync(0xffffffffu, c, src);
-    }
-#pragma unroll
-    for (int i = 0; i < QMAX / 32; ++i) s.cum[QMAX / 32 * lane + i] = v[i];
-  }
+  if (warp == 0) warp_cumsum(a, b, t0, h, s.cum);
   bool nonzero = false;
   if (warp != 0) {
     if (tid == 32) fill_items(s, nt, dkv);
@@ -1079,27 +980,167 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Ar
   cp_async_wait<0>();  // (only empty groups are left)
 }
 
+// ---- state backward -------------------------------------------------------------
+
+// A chunk's first reset row (Q when it has none) by a block-wide min, and
+// the ring's work list for its products: the 64-row tiles whose first row
+// comes before that row (ec is 0 from there on), none when `want` is false.
+// Ends with a barrier.
+__device__ int chunk_first_reset(const Args& a, int b, int t0, const Smem& s, bool want) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int fr = a.Q;
+  if (a.r != nullptr)
+    for (int i = tid; i < a.Q; i += MMA_THREADS)
+      if (a.r[static_cast<size_t>(b) * a.S + t0 + i] > 0) fr = min(fr, i);
+  fr = __reduce_min_sync(0xffffffffu, fr);
+  if (lane == 0) s.wseg[warp] = fr;
+  __syncthreads();
+  fr = min(min(s.wseg[0], s.wseg[1]), min(s.wseg[2], s.wseg[3]));
+  if (tid == 0) {
+    const int n = want ? (fr + TR - 1) / TR : 0;
+    for (int i = 0; i < n; ++i) s.items[i] = i;
+    s.items[MAX_ITEMS] = n;
+  }
+  __syncthreads();
+  return fr;
+}
+
+// A warp's 16 rows x 64 of an f32 [D][D] state (C fragments) to dst through
+// its own [16][D + 8] f32 stage, 16-byte stores of whole rows
+__device__ __forceinline__ void store_state_rows(const float (&acc)[8][4], float* stage,
+                                                 float* dst) {
+  constexpr int SP = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  __syncwarp();  // the stage's previous rows have left
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(stage + (g + 8 * i) * SP + nt * 8 + 2 * t4) =
+          make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * D / 4; i += 32) {
+    const int r = i / (D / 4), c = i % (D / 4);
+    *reinterpret_cast<float4*>(dst + r * D + c * 4) =
+        *reinterpret_cast<const float4*>(stage + r * SP + c * 4);
+  }
+}
+
+// Per (b, h), the chunks from the last to the first: gexit[c] = G, then
+// G <- cdec G + sum_i (ec_i q_i) (x) dy_i, from G = dhf; dh0 = G at the end.
+// Warp w owns rows 16 w .. 16 w + 15 of G (q's columns), all 64 columns
+// (dy's), in f32 C fragments carried across the chunks.  A k-step is a
+// 16-row slab of the chunk: ec_i q_i (q's tile read by ldmatrix.trans, so
+// the rows are the contraction) enters as three bf16 terms, dy as it is.
+// Slabs from the chunk's first reset row on are skipped (ec is 0 there),
+// and the ring loads only tiles that start before it: on a packed training
+// batch, whose rows open with a reset, no q or dy is read at all.  Without
+// want_dh0 the first chunk's products, which feed only dh0, are skipped.
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Smem s = carve(smem_raw);
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int Q = a.Q;
+  const size_t stride = static_cast<size_t>(a.H) * D;
+  const int d0 = warp * 16;
+  // the state split's room, unused here, is each warp's f32 output stage
+  float* stage = reinterpret_cast<float*>(s.split) + warp * 16 * (D + 8);
+
+  float gs[8][4];  // G [d0 + g (+ 8)][nt * 8 + 2 t4 (+ 1)]
+  {
+    const float* src = a.dhf + static_cast<size_t>(bh) * D * D;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(src + (d0 + g + 8 * i) * D + nt * 8 + 2 * t4);
+        gs[nt][2 * i] = x.x;
+        gs[nt][2 * i + 1] = x.y;
+      }
+  }
+  int fr = chunk_first_reset(a, b, (a.n - 1) * Q, s, a.n > 1 || a.want_dh0);
+  const size_t last = row_off(a, b, (a.n - 1) * Q, h) * D;
+  Ring ring{s, a.q + last, a.dy + last, nullptr, nullptr, stride, Q, s.items[MAX_ITEMS]};
+  ring.start();
+
+  for (int c = a.n - 1; c >= 0; --c) {
+    const int t0 = c * Q;
+    const bool want = c > 0 || a.want_dh0;  // this chunk's update feeds gexit or dh0
+    // the chunk's vectors, while its tiles land: ec_i = exp(cum_i) before
+    // the first reset row, cdec = exp(cum_last) when there is none
+    float cdec = 0.f;
+    if (want && fr > 0) {
+      if (warp == 0) warp_cumsum(a, b, t0, h, s.cum);
+      __syncthreads();
+      for (int i = threadIdx.x; i < QMAX; i += MMA_THREADS)
+        s.ec[i] = i < fr ? expf(s.cum[i]) : 0.f;
+      if (fr == Q) cdec = expf(s.cum[Q - 1]);
+      __syncthreads();
+    }
+    store_state_rows(gs, stage, a.gexit + ((static_cast<size_t>(bh) * a.n + c) * D + d0) * D);
+
+    float upd[8][4];  // sum_i (ec_i q_i[d]) dy_i[e] over the chunk, this warp's rows d
+    zero(upd);
+    for (int it = 0; it < ring.n; ++it) {
+      ring.advance(it);
+      const bf16* qt_s = ring.tile(it, 0);
+      const bf16* dyt_s = ring.tile(it, 1);
+#pragma unroll 1
+      for (int sb = 0; sb < 4; ++sb) {
+        const int j0 = it * TR + sb * 16;
+        if (j0 >= fr) break;
+        uint32_t qr[4];
+        ldmatrix_x4_trans(qr, qt_s + (sb * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * DP + d0 +
+                                  ((lane >> 3) & 1) * 8);
+        const float ea = s.ec[j0 + 2 * t4], eb = s.ec[j0 + 2 * t4 + 1];
+        const float ec8a = s.ec[j0 + 8 + 2 * t4], ec8b = s.ec[j0 + 9 + 2 * t4];
+        uint32_t qa[3][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 x = bf16x2_to_float2(qr[j]);
+          const bool hi8 = j >> 1;  // k index 8 + 2 t4 (a2, a3)
+          split3(x.x * (hi8 ? ec8a : ea), x.y * (hi8 ? ec8b : eb), qa[0][j], qa[1][j], qa[2][j]);
+        }
+        slab_apply(upd, qa, dyt_s + sb * 16 * DP);
+      }
+    }
+    cp_async_wait<0>();  // (only empty groups are left)
+    if (c > 0) {
+      // the next chunk's tiles start landing while this one's update runs
+      __syncthreads();  // every warp is done with the ring and the vectors
+      fr = chunk_first_reset(a, b, t0 - Q, s, c > 1 || a.want_dh0);
+      ring.x0 = a.q + row_off(a, b, t0 - Q, h) * D;
+      ring.x1 = a.dy + row_off(a, b, t0 - Q, h) * D;
+      ring.n = s.items[MAX_ITEMS];
+      ring.start();
+    }
+    if (want)
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // as the plain version rounds: the product, then the sum
+          gs[nt][e] = __fadd_rn(__fmul_rn(cdec, gs[nt][e]), upd[nt][e]);
+  }
+  if (a.want_dh0)
+    store_state_rows(gs, stage, a.dh0 + (static_cast<size_t>(bh) * D + d0) * D);
+}
+
 enum class Kind { kFwd, kBwdState, kBwdChunk };
 
-// the kernel of a kind, its dynamic shared memory at chunk length Q and
-// block size; the attributes it launches with are set
-cudaError_t prepare(Kind kind, int Q, void (**fn)(Args), size_t* smem, int* threads) {
-  if (kind == Kind::kFwd) {
-    *fn = mamba_scan_fwd_kernel;
-    *smem = kMmaSmem;
-    *threads = MMA_THREADS;
-  } else if (kind == Kind::kBwdState) {
-    *fn = mamba_scan_bwd_state_kernel;
-    *smem = state_smem((Q + SB - 1) / SB * SB);
-    *threads = THREADS;
-  } else {
-    *fn = mamba_scan_bwd_chunk_kernel;
-    *smem = kMmaSmem;
-    *threads = MMA_THREADS;
-  }
+// the kernel of a kind, its dynamic shared memory (one layout for the
+// three) and block size; the attributes it launches with are set
+cudaError_t prepare(Kind kind, void (**fn)(Args), size_t* smem, int* threads) {
+  *fn = kind == Kind::kFwd ? mamba_scan_fwd_kernel
+        : kind == Kind::kBwdState ? mamba_scan_bwd_state_kernel
+                                  : mamba_scan_bwd_chunk_kernel;
+  *smem = kMmaSmem;
+  *threads = MMA_THREADS;
   cudaError_t err = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(*smem));
-  if (err != cudaSuccess || kind == Kind::kBwdState) return err;
+  if (err != cudaSuccess) return err;
   // room for two blocks' tiles per SM
   return cudaFuncSetAttribute(*fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
@@ -1110,11 +1151,10 @@ int launch(Kind kind, Args a, int B, int dk, int dv, void* stream) {
       a.S % a.Q != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   a.n = a.S / a.Q;
-  a.QP = (a.Q + SB - 1) / SB * SB;
   void (*fn)(Args);
   size_t smem;
   int threads;
-  cudaError_t err = prepare(kind, a.Q, &fn, &smem, &threads);
+  cudaError_t err = prepare(kind, &fn, &smem, &threads);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * a.H);
   if (kind == Kind::kBwdChunk) grid.y = a.n;
@@ -1156,10 +1196,12 @@ extern "C" int mamba_scan_fwd(const void* q, const void* k, const void* v, const
 
 // q [B, S, H, 64] bf16, la [B, S, H] f32, r or null, dy [B, S, H, 64] bf16,
 // dhf [B, H, 64, 64] f32 -> gexit [B * H, S / Q, 64, 64] f32 (each chunk's
-// exit adjoint), dh0 [B, H, 64, 64] f32.
+// exit adjoint) and, when want_dh0, dh0 [B, H, 64, 64] f32 (else dh0 may be
+// null and the first chunk's products are skipped).
 extern "C" int mamba_scan_bwd_state(const void* q, const void* la, const void* r,
                                     const void* dy, const void* dhf, void* gexit, void* dh0,
-                                    int B, int S, int H, int dk, int dv, int Q, void* stream) {
+                                    int B, int S, int H, int dk, int dv, int Q, int want_dh0,
+                                    void* stream) {
   Args a = make_args(S, H, Q);
   a.q = static_cast<const bf16*>(q);
   a.la = static_cast<const float*>(la);
@@ -1168,6 +1210,8 @@ extern "C" int mamba_scan_bwd_state(const void* q, const void* la, const void* r
   a.dhf = static_cast<const float*>(dhf);
   a.gexit = static_cast<float*>(gexit);
   a.dh0 = static_cast<float*>(dh0);
+  a.want_dh0 = want_dh0 != 0;
+  if (a.want_dh0 && dh0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(Kind::kBwdState, a, B, dk, dv, stream);
 }
 
@@ -1205,7 +1249,7 @@ extern "C" int mamba_scan_occupancy(int kind, int Q, int* smem_bytes, int* block
   void (*fn)(Args);
   size_t smem;
   int threads;
-  cudaError_t err = prepare(static_cast<Kind>(kind), Q, &fn, &smem, &threads);
+  cudaError_t err = prepare(static_cast<Kind>(kind), &fn, &smem, &threads);
   if (err != cudaSuccess) return static_cast<int>(err);
   *smem_bytes = static_cast<int>(smem);
   return static_cast<int>(

@@ -59,6 +59,42 @@ def grouped_lora_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     return y.to(x.dtype)
 
 
+def _halves_mm(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y`` with the contraction summed as two halves added at the end:
+    the same sum in another fixed f32 order."""
+    h = x.shape[-1] // 2
+    return x[..., :h] @ y[..., :h, :] + x[..., h:] @ y[..., h:, :]
+
+
+class _HalvesMatmul(torch.autograd.Function):
+    """``x @ y`` whose forward and both backward products sum their
+    contraction as two halves (:func:`_halves_mm`)."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return _halves_mm(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return _halves_mm(g, y.mT), _halves_mm(x.mT, g)
+
+
+def grouped_lora_reordered_plain(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                                 row_task: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """:func:`grouped_lora_plain` with every f32 contraction (x A, h B and
+    the backward's products) summed as two halves added at the end: the
+    same function in another order, no kernel involved; a second plain path
+    for the noise floor of the training checks."""
+    xf = x.float()
+    y = torch.zeros((x.shape[0], b.shape[-1]), dtype=torch.float32, device=x.device)
+    for t in range(a.shape[0]):
+        yt = _HalvesMatmul.apply(_HalvesMatmul.apply(xf, a[t].float()), b[t].float())
+        y = torch.where((row_task == t)[:, None], yt * scale[t].float(), y)
+    return y.to(x.dtype)
+
+
 def _check(x, a, b, row_task, scale):
     if not x.is_cuda:
         raise ValueError("grouped_lora_cuda takes CUDA tensors")

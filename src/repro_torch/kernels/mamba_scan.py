@@ -21,10 +21,9 @@ path, and the reference on the card; autograd differentiates it.
 The CUDA kernels (``csrc/mamba_scan.cu``): the forward and the state
 backward run one block per (batch row, head) with a loop over its chunks,
 where the Pallas grid carried the state across sequential grid steps; the
-chunk backward runs one block per (chunk, batch row, head).  The forward
-and the chunk backward run their products on the tensor cores (``mma.sync``
-on bf16 tiles, the f32 factors as three bf16 terms, f32 accumulators; see
-the source's header); the state backward on the CUDA cores.
+chunk backward runs one block per (chunk, batch row, head).  All three run
+their products on the tensor cores (``mma.sync`` on bf16 tiles, the f32
+factors as three bf16 terms, f32 accumulators; see the source's header).
 :class:`MambaScanFunction` makes them one differentiable op over (q, k, v,
 la, li, h0); the ``dla`` of the telescoping identity (a segment-bounded
 reverse cumsum of the kernel's per-position rows, plus the final-state term
@@ -147,18 +146,22 @@ def _chunk_terms(la, li, r, Q: int):
     return dec, ec, w, cdec
 
 
-def mamba_scan_bwd_state_plain(q, la, r, dy, dhf, chunk: int):
+def mamba_scan_bwd_state_plain(q, la, r, dy, dhf, chunk: int, want_dh0: bool = True):
     """Plain version of the reverse adjoint-state kernel: per chunk, last to
     first, ``gexit[c] = G`` then ``G = cdec G + sum_i ec_i q_i (x) dy_i``
-    from ``G = dhf``; ``dh0`` is the last G (f32 throughout)."""
+    from ``G = dhf``; ``dh0`` is the last G (f32 throughout), or None
+    without ``want_dh0``, the first chunk's update then skipped."""
     B, S, H, dk = q.shape
     n = S // chunk
     g = dhf.float()
     gexit = []
     for c in reversed(range(n)):
+        gexit.append(g)
+        if c == 0 and not want_dh0:
+            g = None
+            break
         sl = slice(c * chunk, (c + 1) * chunk)
         _, ec, _, cdec = _chunk_terms(la[:, sl], None, None if r is None else r[:, sl], chunk)
-        gexit.append(g)
         g = cdec[:, :, None, None] * g + torch.einsum(
             "bihd,bihv->bhdv", q[:, sl].float() * ec[..., None], dy[:, sl].float())
     gexit = torch.stack(gexit[::-1], dim=2).reshape(B * H, n, dk, dy.shape[-1])
@@ -200,20 +203,23 @@ def mamba_scan_bwd_chunk_plain(q, k, v, la, li, r, dy, hin, gexit, chunk: int):
             cat["dcum"], cat["dli"])
 
 
-def _backward(state_fn, chunk_fn, q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int):
+def _backward(state_fn, chunk_fn, q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int,
+              want_dh0: bool = True):
     """The op's backward (``_bwd_call``): the state pass, the chunk pass,
     then dla as the segment-bounded reverse cumsum of dcum with
-    ``<dhf, hfin>`` added at the last position -> (dq, dk, dv, dla, dli, dh0)."""
-    gexit, dh0 = state_fn(q, la, r, dy, dhf, chunk)
+    ``<dhf, hfin>`` added at the last position -> (dq, dk, dv, dla, dli, dh0),
+    dh0 None without ``want_dh0``."""
+    gexit, dh0 = state_fn(q, la, r, dy, dhf, chunk, want_dh0)
     dq, dkk, dvv, dcum, dli = chunk_fn(q, k, v, la, li, r, dy, hin, gexit, chunk)
     dcum[:, -1, :] += torch.einsum("bhkv,bhkv->bh", dhf, hfin)
     return dq, dkk, dvv, seg_rev_cumsum(dcum, r), dli, dh0
 
 
-def mamba_scan_backward_plain(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int):
+def mamba_scan_backward_plain(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int,
+                              want_dh0: bool = True):
     """The backward on the two kernels' plain versions."""
     return _backward(mamba_scan_bwd_state_plain, mamba_scan_bwd_chunk_plain, q, k, v, la, li,
-                     r, hin, hfin, dy, dhf, chunk)
+                     r, hin, hfin, dy, dhf, chunk, want_dh0)
 
 
 # ---------------------------------------------------------------------------
@@ -228,18 +234,14 @@ _KINDS = {"mamba_scan_fwd": 0, "mamba_scan_bwd_state": 1, "mamba_scan_bwd_chunk"
 def smem_bytes(kernel: str, chunk: int) -> int:
     """Dynamic shared memory of one block of ``kernel`` (a key of
     ``_KINDS``) at chunk length ``chunk``, as the C source sizes it.  The
-    tensor-core kernels' layout is fixed: a ring of three stages of two
-    64 x 72 bf16 tiles, the state's three bf16 terms (3 x 64 x 72), a
+    three kernels share one fixed layout: a ring of three stages of two
+    64 x 72 bf16 tiles, the state's three bf16 terms (3 x 64 x 72; the
+    state backward's f32 output stage, 4 x 16 x 72, in their room), a
     16 x 72 stage for each of 4 warps, six per-row vectors of 256 and 40
-    ints.  The
-    state backward holds q and dy [QP, 66] bf16 and three [QP] vectors,
-    QP the chunk rounded up to 64."""
+    ints."""
     if kernel not in _KINDS or not 1 <= chunk <= _QMAX:
         raise ValueError(f"smem_bytes: kernel in {sorted(_KINDS)} and chunk 1..{_QMAX}; got "
                          f"{kernel!r}, {chunk}")
-    if kernel == "mamba_scan_bwd_state":
-        qp = -(-chunk // 64) * 64
-        return 2 * qp * 66 * 2 + 3 * qp * 4
     tile = 64 * 72 * 2
     return 3 * 2 * tile + 3 * tile + 4 * 16 * 72 * 2 + 6 * _QMAX * 4 + 40 * 4
 
@@ -322,20 +324,24 @@ def mamba_scan_cuda(q, k, v, la, li, r, h0, chunk: int, save_states: bool = Fals
     return (y, hout, hin) if save_states else (y, hout)
 
 
-def mamba_scan_bwd_state_cuda(q, la, r, dy, dhf, chunk: int):
+def mamba_scan_bwd_state_cuda(q, la, r, dy, dhf, chunk: int, want_dh0: bool = True):
     """The reverse adjoint-state kernel: ``(gexit [B*H, n, dk, dv], dh0
     [B, H, dk, dv])``, both f32, from q, la, r, the output gradient dy (q's
-    type) and the final-state gradient dhf (f32)."""
+    type) and the final-state gradient dhf (f32).  Without ``want_dh0``
+    dh0 is None and the first chunk's products, which feed only it, are
+    skipped."""
     B, S, H, dk = q.shape
     dv = dy.shape[-1]
     _check(q, q, dy, la, la, r, chunk, dhf)
     n = S // chunk
     gexit = torch.empty((B * H, n, dk, dv), dtype=torch.float32, device=q.device)
-    dh0 = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    dh0 = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device) \
+        if want_dh0 else None
     fn = _build.function("mamba_scan", "mamba_scan_bwd_state",
-                         [_build.P] * 7 + [_build.I] * 6 + [_build.P])
+                         [_build.P] * 7 + [_build.I] * 7 + [_build.P])
     err = fn(q.data_ptr(), la.data_ptr(), _rptr(r), dy.data_ptr(), dhf.data_ptr(),
-             gexit.data_ptr(), dh0.data_ptr(), B, S, H, dk, dv, chunk, _stream(q))
+             gexit.data_ptr(), dh0.data_ptr() if want_dh0 else None, B, S, H, dk, dv, chunk,
+             int(want_dh0), _stream(q))
     _build.check("mamba_scan", err)
     launch_counts["mamba_scan_bwd_state"] += 1
     return gexit, dh0
@@ -371,17 +377,19 @@ def mamba_scan_bwd_chunk_cuda(q, k, v, la, li, r, dy, hin, gexit, chunk: int):
     return dq, dkk, dvv, dcum, dli
 
 
-def mamba_scan_backward_cuda(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int):
+def mamba_scan_backward_cuda(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int,
+                             want_dh0: bool = True):
     """The backward on the two kernels (``dla`` in PyTorch)."""
     return _backward(mamba_scan_bwd_state_cuda, mamba_scan_bwd_chunk_cuda, q, k, v, la, li, r,
-                     hin, hfin, dy, dhf, chunk)
+                     hin, hfin, dy, dhf, chunk, want_dh0)
 
 
 class MambaScanFunction(torch.autograd.Function):
     """The forward (saving the chunk entry states) and the two backward
     kernels as one differentiable op over (q, k, v, la, li, h0); the reset
     rows get no gradient.  ``dy`` is cast to q's type and ``dh`` to f32
-    before the kernels, as the Pallas vjp does."""
+    before the kernels, as the Pallas vjp does.  Where h0 takes no gradient
+    (training's zero state) the state kernel skips dh0."""
 
     @staticmethod
     def forward(ctx, q, k, v, la, li, r, h0, chunk):
@@ -397,5 +405,5 @@ class MambaScanFunction(torch.autograd.Function):
         q, k, v, la, li, r, hin, hfin = ctx.saved_tensors
         dq, dkk, dvv, dla, dli, dh0 = mamba_scan_backward_cuda(
             q, k, v, la, li, r, hin, hfin, aligned(dy.to(q.dtype)),
-            dh.float().contiguous(), ctx.chunk)
+            dh.float().contiguous(), ctx.chunk, ctx.needs_input_grad[6])
         return dq, dkk, dvv, dla, dli, None, dh0, None

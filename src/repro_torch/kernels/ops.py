@@ -7,8 +7,9 @@ kernels: through the op's ``torch.autograd.Function`` (forward kernel
 saving what the backward kernels need) when a gradient is to be taken, to
 the forward-only kernel otherwise.  A failed build or launch raises,
 nothing falls back.  :func:`force_plain` runs the plain versions on the
-card as well; it exists only for the comparison of each kernel with its
-plain version, and nothing on the serving or training path uses it.
+card as well, for every kernel family or for the families it is given; it
+exists only for the comparison of each kernel with its plain version, and
+nothing on the serving or training path uses it.
 
 The signatures follow the JAX package's ops: ``grouped_lora`` takes
 ``x [B, S, d_in]`` with one task per batch row, ``packed_attention`` builds
@@ -34,22 +35,44 @@ from repro_torch.kernels import packed_attention as _pa
 from repro_torch.kernels import quant_matmul as _qm
 
 _KERNELS = (_gl, _pa, _da, _qm, _ms)
-_force_plain = False
+# the kernel families force_plain takes, each as the parts it runs plain
+FAMILIES = {"grouped_lora": ("grouped_lora",),
+            "packed_attention": ("packed_attention_fwd", "packed_attention_bwd"),
+            "packed_attention_fwd": ("packed_attention_fwd",),
+            "packed_attention_bwd": ("packed_attention_bwd",),
+            "decode_attention": ("decode_attention",),
+            "quant_matmul": ("quant_matmul",),
+            "mamba_scan": ("mamba_scan",)}
+_plain: frozenset = frozenset()
 
 
 @contextlib.contextmanager
-def force_plain():
-    """Run the plain versions on CUDA tensors too (kernel comparisons only)."""
-    global _force_plain
-    prev, _force_plain = _force_plain, True
+def force_plain(families=None):
+    """Run the plain versions on CUDA tensors too (kernel comparisons only):
+    of every family, or of those named in ``families`` (keys of
+    ``FAMILIES``), the others staying on their kernels.
+    ``packed_attention_fwd`` runs packed attention's forward plain and its
+    backward on the kernels, ``packed_attention_bwd`` the reverse.  An
+    unknown name raises; a kernel that runs still raises on a failed build
+    or launch."""
+    global _plain
+    names = FAMILIES if families is None else families
+    if isinstance(names, str):
+        raise TypeError("force_plain takes a collection of family names")
+    unknown = sorted(set(names) - set(FAMILIES))
+    if unknown:
+        raise ValueError(f"force_plain: unknown kernel families {unknown}; "
+                         f"known: {sorted(FAMILIES)}")
+    prev = _plain
+    _plain = prev.union(*(FAMILIES[n] for n in names))
     try:
         yield
     finally:
-        _force_plain = prev
+        _plain = prev
 
 
-def _use_kernel(t: torch.Tensor) -> bool:
-    return t.is_cuda and not _force_plain
+def _use_kernel(t: torch.Tensor, part: str) -> bool:
+    return t.is_cuda and part not in _plain
 
 
 def _needs_grad(*ts: torch.Tensor) -> bool:
@@ -90,7 +113,7 @@ def grouped_lora(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     B, S, d_in = x.shape
     x2 = x.reshape(B * S, d_in)
     rows = row_task.to(torch.int32).repeat_interleave(S)
-    if _use_kernel(x):
+    if _use_kernel(x, "grouped_lora"):
         args = (x2.contiguous(), a.contiguous(), b.contiguous(), rows, scale.float())
         if _needs_grad(x, a, b):
             y = _gl.GroupedLoRAFunction.apply(*args)
@@ -140,12 +163,16 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_segment_ids = torch.cat(
             [torch.where(keep > 0, -1, -2).to(torch.int32), segment_ids], dim=1)
     bq, bk = _pa.tile_sizes(S, k.shape[1], block_q, block_k)
-    if _use_kernel(q):
+    fwd, bwd = _use_kernel(q, "packed_attention_fwd"), _use_kernel(q, "packed_attention_bwd")
+    if fwd or bwd:
         args = (aligned(q), aligned(k), aligned(v), positions, segment_ids,
                 k_positions.contiguous(), k_segment_ids.contiguous(), causal, bq, bk)
         if _needs_grad(q, k, v):
-            return _pa.PackedAttentionFunction.apply(*args)
-        return _pa.packed_attention_cuda(*args)
+            if fwd and bwd:
+                return _pa.PackedAttentionFunction.apply(*args)
+            return _pa.HalfPlainFunction.apply(*args, not fwd)
+        if fwd:
+            return _pa.packed_attention_cuda(*args)
     return _pa.packed_attention_plain(q, k, v, positions, segment_ids, k_positions,
                                       k_segment_ids, causal, bq, bk)
 
@@ -167,7 +194,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if cache_start is None:
         cache_start = torch.zeros((B,), dtype=torch.int32, device=dev)
     cache_start = torch.as_tensor(cache_start, device=dev).to(torch.int32).reshape(-1).expand(B)
-    if _use_kernel(q):
+    if _use_kernel(q, "decode_attention"):
         return _da.decode_attention_cuda(aligned(q), aligned(k_cache), aligned(v_cache),
                                          cache_len.contiguous(), cache_start.contiguous())
     return _da.decode_attention_plain(q, k_cache, v_cache, cache_len, cache_start)
@@ -198,7 +225,7 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     batch_shape, out_shape = x.shape[:nb], q.shape[nc:]
     M, K, N = math.prod(batch_shape), math.prod(x.shape[nb:]), math.prod(out_shape)
     x2, q2, s2 = x.reshape(M, K), q.reshape(K, N), scale.reshape(N)
-    if _use_kernel(x):
+    if _use_kernel(x, "quant_matmul"):
         # (TMA, which feeds the kernel above 64 rows, reads aligned operands)
         args = (aligned(x2), aligned(q2), aligned(s2))
         if _needs_grad(x):
@@ -237,7 +264,7 @@ def mamba_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: tor
         la = torch.where(reset[:, :, None] > 0, torch.zeros_like(la), la)
         r = (reset > 0).to(torch.int32)
     li, h0 = log_input.float(), h0.float()
-    if _use_kernel(q):
+    if _use_kernel(q, "mamba_scan"):
         args = (aligned(q), aligned(k), aligned(v), la.contiguous(),
                 li.contiguous(), r.contiguous() if r is not None else None, h0.contiguous(), Q)
         if _needs_grad(q, k, v, la, li, h0):

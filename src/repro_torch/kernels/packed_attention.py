@@ -143,6 +143,87 @@ def packed_attention_stored_o_plain(q, k, v, positions, segment_ids, k_positions
                                        k_segment_ids, causal, bq, bk)
 
 
+def _halves(eq: str, x, y, xd: int, yd: int):
+    """``torch.einsum(eq, x, y)`` with its contraction (dim ``xd`` of x, ``yd``
+    of y) summed as two halves added at the end: the same sum in another
+    fixed f32 order, as a kernel that splits the contraction in two sums it."""
+    n = x.shape[xd]
+    h = n // 2
+    return torch.einsum(eq, x.narrow(xd, 0, h), y.narrow(yd, 0, h)) + \
+        torch.einsum(eq, x.narrow(xd, h, n - h), y.narrow(yd, h, n - h))
+
+
+class _ReorderedPlainFunction(torch.autograd.Function):
+    """:func:`packed_attention_plain` and its backward written out, every f32
+    contraction (q . k and p v forward; do . v, ds k, ds^T q and p^T do
+    backward) summed as two halves (:func:`_halves`).  D = rowsum(do * o)
+    is taken from the f32 o, as autograd of the plain version takes it."""
+
+    @staticmethod
+    def _probs(q, k, v, ints, rule):
+        B, S, H, dh = q.shape
+        Hkv = k.shape[2]
+        q5 = q.float().reshape(B, S, Hkv, H // Hkv, dh)
+        kf, vf = k.float(), v.float()
+        s = _halves("bqkgd,bpkd->bqkgp", q5, kf, 4, 3) * (1.0 / math.sqrt(dh))
+        mask = visible_mask(*ints, *rule)[:, :, None, None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
+        l = p.sum(dim=-1).clamp_min(1e-20)[..., None]
+        o = _halves("bqkgp,bpkd->bqkgd", p, vf, 4, 1) / l
+        return q5, kf, vf, p / l, o
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, segment_ids, k_positions, k_segment_ids, causal,
+                bq, bk):
+        ints = (positions, segment_ids, k_positions, k_segment_ids)
+        ctx.save_for_backward(q, k, v, *ints)
+        ctx.rule = (causal, bq, bk)
+        o = _ReorderedPlainFunction._probs(q, k, v, ints, ctx.rule)[-1]
+        return o.reshape(q.shape).to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, *ints = ctx.saved_tensors
+        q5, kf, vf, p, o = _ReorderedPlainFunction._probs(q, k, v, ints, ctx.rule)
+        do5 = do.float().reshape(o.shape)
+        d = (do5 * o).sum(dim=-1, keepdim=True)
+        ds = p * (_halves("bqkgd,bpkd->bqkgp", do5, vf, 4, 3) - d) * (1.0 / math.sqrt(q.shape[-1]))
+        dq = _halves("bqkgp,bpkd->bqkgd", ds, kf, 4, 1).reshape(q.shape)
+        dk = _halves("bqkgp,bqkgd->bpkd", ds, q5, 1, 1)
+        dv = _halves("bqkgp,bqkgd->bpkd", p, do5, 1, 1)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None, None)
+
+
+def packed_attention_reordered_plain(q, k, v, positions, segment_ids, k_positions,
+                                     k_segment_ids, causal: bool = True, bq: int = 128,
+                                     bk: int = 128) -> torch.Tensor:
+    """:func:`packed_attention_plain` with every f32 contraction of the
+    forward and the backward summed as two halves added at the end: the same
+    function in another order, no kernel involved; a second plain path for
+    the noise floor of the training checks."""
+    return _ReorderedPlainFunction.apply(q, k, v, positions, segment_ids, k_positions,
+                                         k_segment_ids, causal, bq, bk)
+
+
+def packed_attention_lse_plain(q, k, positions, segment_ids, k_positions, k_segment_ids,
+                               causal: bool = True, bq: int = 128,
+                               bk: int = 128) -> torch.Tensor:
+    """The logsumexp [B, H, S] f32 of each query's scaled visible scores,
+    1e30 on rows that see no key: what the CUDA forward saves for the
+    backward kernels."""
+    B, S, H, dh = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bqkgd,bpkd->bqkgp", q.float().reshape(B, S, Hkv, H // Hkv, dh),
+                     k.float()) * (1.0 / math.sqrt(dh))
+    mask = visible_mask(positions, segment_ids, k_positions, k_segment_ids, causal, bq,
+                        bk)[:, :, None, None, :]
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    lse = torch.where(mask.any(dim=-1), lse, torch.full_like(lse, -NEG_INF))
+    return lse.reshape(B, S, H).permute(0, 2, 1).contiguous()
+
+
 def _check(q, k, v, ints):
     if not q.is_cuda:
         raise ValueError("packed_attention_cuda takes CUDA tensors")
@@ -270,3 +351,43 @@ class PackedAttentionFunction(torch.autograd.Function):
         dq = packed_attention_dq_cuda(*saved, do, *ctx.rule)
         dk, dv = packed_attention_dkv_cuda(*saved, do, *ctx.rule)
         return dq, dk, dv, None, None, None, None, None, None, None
+
+
+class HalfPlainFunction(torch.autograd.Function):
+    """Packed attention with one direction plain and the other on the
+    kernels (``ops.force_plain``'s ``packed_attention_fwd`` /
+    ``packed_attention_bwd``; kernel comparisons only).  ``plain_fwd``: the
+    plain forward and its logsumexp, then the dq and dk/dv kernels; else the
+    CUDA forward, then autograd of the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, positions, segment_ids, k_positions, k_segment_ids,
+                causal, bq, bk, plain_fwd):
+        from repro_torch.kernels.ops import aligned
+
+        ints = (positions, segment_ids, k_positions, k_segment_ids)
+        ctx.rule = (causal, bq, bk)
+        ctx.plain_fwd = plain_fwd
+        if plain_fwd:
+            o = aligned(packed_attention_plain(q, k, v, *ints, causal, bq, bk))
+            lse = packed_attention_lse_plain(q, k, *ints, causal, bq, bk)
+            ctx.save_for_backward(q, k, v, *ints, o, lse)
+            return o
+        ctx.save_for_backward(q, k, v, *ints)
+        return packed_attention_cuda(q, k, v, *ints, causal, bq, bk)
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.kernels.ops import aligned
+
+        saved = ctx.saved_tensors
+        if ctx.plain_fwd:
+            do = aligned(do)
+            dq = packed_attention_dq_cuda(*saved, do, *ctx.rule)
+            dk, dv = packed_attention_dkv_cuda(*saved, do, *ctx.rule)
+        else:
+            with torch.enable_grad():
+                qkv = [t.detach().requires_grad_(True) for t in saved[:3]]
+                o = packed_attention_plain(*qkv, *saved[3:], *ctx.rule)
+                dq, dk, dv = torch.autograd.grad(o, qkv, do)
+        return dq, dk, dv, None, None, None, None, None, None, None, None

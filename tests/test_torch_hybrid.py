@@ -209,16 +209,19 @@ def test_mamba_scan_plain_matches_jax(case, ref):
         assert np.all(ts[3].grad.numpy()[reset > 0] == 0.0)
 
 
-@pytest.mark.parametrize("case", ["resets_h0", "no_reset_h0"])
+@pytest.mark.parametrize("case", ["resets_h0", "no_reset_h0", "resets_h0_no_dh0"])
 def test_mamba_scan_backward_kernels_plain_match_autograd(case):
     """The backward as ``MambaScanFunction`` composes it (the state kernel,
     the chunk kernel, then dla as a segment-bounded reverse cumsum with
     ``<dhf, hfin>`` at the last position), on the kernels' plain versions,
     against autograd of the plain forward; the forward's saved entry states
-    against the states the scan passes through."""
+    against the states the scan passes through.  ``_no_dh0``: the backward
+    without ``want_dh0`` (h0 taking no gradient) gives the same gexit and
+    dq, dk, dv, dla, dli bits and no dh0."""
     from repro_torch.kernels import mamba_scan as ms
 
-    arrays, reset, w, w2 = _scan_inputs(case)
+    want_dh0 = not case.endswith("_no_dh0")
+    arrays, reset, w, w2 = _scan_inputs(case.removesuffix("_no_dh0"))
     a = [torch.from_numpy(x) for x in arrays]
     r = None if reset is None else torch.from_numpy(reset).to(torch.int32)
     if r is not None:
@@ -230,6 +233,15 @@ def test_mamba_scan_backward_kernels_plain_match_autograd(case):
     got = ms.mamba_scan_backward_plain(*a[:5], r, hin.detach(), h.detach(), wt, w2t, Q_)
     for name, g1, g2 in zip(("dq", "dk", "dv", "dla", "dli", "dh0"), got, ref):
         np.testing.assert_allclose(g1.numpy(), g2.numpy(), err_msg=name, **F32)
+    if not want_dh0:
+        part = ms.mamba_scan_backward_plain(*a[:5], r, hin.detach(), h.detach(), wt, w2t, Q_,
+                                            want_dh0=False)
+        assert part[5] is None
+        for name, g1, g2 in zip(("dq", "dk", "dv", "dla", "dli"), part, got):
+            assert torch.equal(g1, g2), name
+        gexit, dh0 = ms.mamba_scan_bwd_state_plain(a[0], a[3], r, wt, w2t, Q_, want_dh0=False)
+        assert dh0 is None
+        assert torch.equal(gexit, ms.mamba_scan_bwd_state_plain(a[0], a[3], r, wt, w2t, Q_)[0])
     y1, h1 = ms.mamba_scan_plain(*a[:5], r, a[5], Q_)  # chunk c starts from hin[:, c]
     for c in range(S_ // Q_):
         y2, _ = ms.mamba_scan_plain(*(t[:, c * Q_:(c + 1) * Q_] for t in a[:5]),
@@ -243,27 +255,27 @@ def test_mamba_scan_backward_kernels_plain_match_autograd(case):
 def test_mamba_scan_smem_bytes_follow_the_cuda_source(kernel):
     """``smem_bytes`` (which chip_smoke holds the card's own report,
     ``occupancy``, to) against the C source: the constants its formula
-    assumes are the source's; the tensor-core kernels take 98,464 bytes at
-    any chunk, so two blocks share an H100 SM (233,472 bytes, 1 KB reserved
-    a block); the state backward's tiles follow the chunk rounded up to 64.
-    Bad arguments are refused here, before any build."""
+    assumes are the source's; the three kernels share one layout of 98,464
+    bytes at any chunk, so two blocks share an H100 SM (233,472 bytes, 1 KB
+    reserved a block), and the state backward's f32 output stages fit in
+    the room of the state's three bf16 terms.  Bad arguments are refused
+    here, before any build."""
     import re
 
     from repro_torch.kernels import mamba_scan as ms
 
     src = (Path(ms.__file__).parent.parent / "csrc" / "mamba_scan.cu").read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
-    assert {k: consts[k] for k in ("D", "TP", "MMA_THREADS", "TR", "DP", "STAGES", "QMAX",
+    assert {k: consts[k] for k in ("D", "MMA_THREADS", "TR", "DP", "STAGES", "QMAX",
                                    "MAX_ITEMS")} == {
-        "D": "64", "TP": "D + 2", "MMA_THREADS": "128", "TR": "64", "DP": "D + 8",
-        "STAGES": "3", "QMAX": "256", "MAX_ITEMS": "32"}
+        "D": "64", "MMA_THREADS": "128", "TR": "64", "DP": "D + 8", "STAGES": "3",
+        "QMAX": "256", "MAX_ITEMS": "32"}
+    assert "TP" not in consts and "SB" not in consts  # the CUDA-core kernel's tiles are gone
+    assert "static_assert(4 * 16 * (D + 8) * sizeof(float) <= kSplitBytes" in src
+    assert 4 * 16 * (64 + 8) * 4 <= 3 * 64 * 72 * 2
     got = {Q: ms.smem_bytes(kernel, Q) for Q in (1, 40, 64, 65, 256)}
-    if kernel == "mamba_scan_bwd_state":
-        assert got == {Q: 2 * QP * 66 * 2 + 3 * QP * 4
-                       for Q, QP in ((1, 64), (40, 64), (64, 64), (65, 128), (256, 256))}
-    else:
-        assert set(got.values()) == {98464}
-        assert 2 * (98464 + 1024) <= 233472 < 3 * (98464 + 1024)
+    assert set(got.values()) == {98464}
+    assert 2 * (98464 + 1024) <= 233472 < 3 * (98464 + 1024)
     for bad in ((kernel, 0), (kernel, 257), ("mamba_scan", 64)):
         with pytest.raises(ValueError):
             ms.smem_bytes(*bad)

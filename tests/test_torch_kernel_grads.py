@@ -279,3 +279,113 @@ def test_packed_attention_stored_o_backward_matches_pallas_bf16(dh):
         assert np.abs(g - a).max() <= 4 * unit, leaf
         if leaf != "dv":  # (dv does not read D)
             assert np.abs(g - wg).max() < np.abs(a - wg).max(), leaf
+
+
+# ---------------------------------------------------------------------------
+# the plain versions chip_smoke's training checks take as second right answers
+# ---------------------------------------------------------------------------
+
+
+def _prefix_layout(B, S, P):
+    """Two packed segments per row behind a P-row prefix of wildcard (-1)
+    and unseen (-2) rows: (pos, seg, kpos, kseg)."""
+    cut = S // 3
+    seg = np.repeat(np.asarray([[0, 1]] * B, np.int32), [cut, S - cut], axis=1)
+    pos = np.concatenate([np.arange(cut), np.arange(S - cut)])[None].repeat(B, 0)
+    pos = pos.astype(np.int32)
+    pseg = np.full((B, P), -2, np.int32)
+    pseg[0, ::2] = -1
+    pseg[1, :5] = -1
+    kpos = np.concatenate([np.full((B, P), -1, np.int32), pos], 1)
+    kseg = np.concatenate([pseg, seg], 1)
+    return pos, seg, kpos, kseg
+
+
+@pytest.mark.parametrize("op", ["grouped_lora", "packed_attention"])
+def test_reordered_plain_grads_match_pallas(op):
+    """``chip_smoke.plain_reordered``'s versions (every f32 contraction of
+    the forward and the backward summed as two halves) are the same
+    functions: values and gradients against the Pallas kernels in interpret
+    mode at rtol/atol 1e-5 (grouped LoRA with idle rows; packed attention
+    behind a wildcard / unseen prefix, GQA, tiles of 8)."""
+    from repro_torch.kernels.grouped_lora import grouped_lora_reordered_plain
+    from repro_torch.kernels.packed_attention import packed_attention_reordered_plain, tile_sizes
+
+    rs = np.random.RandomState(50)
+    if op == "grouped_lora":
+        rt = np.repeat(np.asarray([1, -1, 0, 2, 2, -1], np.int32), 8)
+        x, a, b, scale, w = _lora_case(rs, 48, 24, 40, (4, 8, 16), 16)
+        arrays = (x, a, b)
+
+        def port(*t):
+            return grouped_lora_reordered_plain(*t, torch.from_numpy(rt), torch.from_numpy(scale))
+
+        def pallas(*t):
+            return grouped_lora_pallas(*t, rt, scale, block_m=8, block_k=8, interpret=True)
+    else:
+        B, S, P = 2, 40, 16
+        pos, seg, kpos, kseg = _prefix_layout(B, S, P)
+        arrays = (rs.randn(B, S, 6, 64).astype(np.float32),
+                  rs.randn(B, S + P, 2, 64).astype(np.float32),
+                  rs.randn(B, S + P, 2, 64).astype(np.float32))
+        w = rs.randn(B, S, 6, 64).astype(np.float32)
+        bq, bk = tile_sizes(S, S + P, 8, 8)
+        ints = [torch.from_numpy(t) for t in (pos, seg, kpos, kseg)]
+
+        def port(*t):
+            return packed_attention_reordered_plain(*t, *ints, True, bq, bk)
+
+        def pallas(*t):
+            return packed_attention_pallas(*t, segment_ids=seg, positions=pos,
+                                           k_segment_ids=kseg, k_positions=kpos, block_q=8,
+                                           block_k=8, interpret=True)
+    y = port(*(torch.from_numpy(t) for t in arrays)).numpy()
+    np.testing.assert_allclose(y, np.asarray(pallas(*(jnp.asarray(t) for t in arrays))), **F32)
+    for leaf, g, wg in zip(("0", "1", "2"), _grads_torch(port, arrays, w),
+                           _grads_jax(pallas, arrays, w)):
+        np.testing.assert_allclose(g, wg, err_msg=leaf, **F32)
+
+
+def test_packed_attention_lse_plain_matches_pallas():
+    """``packed_attention_lse_plain`` (the logsumexp the backward kernels
+    read, under ``ops.force_plain(["packed_attention_fwd"])``) against the
+    Pallas forward's saved lse in interpret mode, behind a wildcard /
+    unseen prefix, GQA, tiles of 8."""
+    from repro.kernels.packed_attention import _fwd_call
+    from repro_torch.kernels.packed_attention import packed_attention_lse_plain, tile_sizes
+
+    rs = np.random.RandomState(51)
+    B, S, P = 2, 40, 16
+    pos, seg, kpos, kseg = _prefix_layout(B, S, P)
+    q = rs.randn(B, S, 6, 64).astype(np.float32)
+    k = rs.randn(B, S + P, 2, 64).astype(np.float32)
+    bq, bk = tile_sizes(S, S + P, 8, 8)
+    got = packed_attention_lse_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                     *(torch.from_numpy(t) for t in (pos, seg, kpos, kseg)),
+                                     True, bq, bk)
+    _, want = _fwd_call(jnp.asarray(q), jnp.asarray(k), jnp.asarray(k), pos, seg, kpos, kseg,
+                        True, 8, 8, True, True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_force_plain_selects_families():
+    """``ops.force_plain()``: no argument runs every family plain; named
+    families run plain alone (packed attention also by direction), nested
+    selections add up and are undone on exit; an unknown name raises."""
+    every = {p for parts in ops.FAMILIES.values() for p in parts}
+    assert not ops._plain
+    with ops.force_plain():
+        assert ops._plain == every
+    with ops.force_plain(["packed_attention"]):
+        assert ops._plain == {"packed_attention_fwd", "packed_attention_bwd"}
+    with ops.force_plain(["packed_attention_bwd"]):
+        assert ops._plain == {"packed_attention_bwd"}
+        with ops.force_plain(("grouped_lora", "mamba_scan")):
+            assert ops._plain == {"packed_attention_bwd", "grouped_lora", "mamba_scan"}
+        assert ops._plain == {"packed_attention_bwd"}
+    assert not ops._plain
+    for bad in (["grouped_lora", "flash_attention"], "grouped_lora"):
+        with pytest.raises((ValueError, TypeError)):
+            with ops.force_plain(bad):
+                pass
+        assert not ops._plain
