@@ -83,7 +83,22 @@ Phases, one JSON line each (several for the kernel phases):
                     blocks and the shared attention+MLP block), the same
                     tenants on ssm_in, ssm_out, attn_q and attn_v; the plain
                     runs of the check recompute each super-block in the
-                    backward (see ``plain_path``).
+                    backward (see ``plain_path``);
+10. train_methods, train_check_methods -- llama3.2-3b (bf16) with one
+                    tenant of each of the eight PEFT kinds on the attention
+                    sites (one hTask of 27 rows x 256; the prefix tenant's 16
+                    rows padded to 64 key rows): one warm-up iteration, then
+                    five steps under the port's TrainSupervisor, checkpointed
+                    every two steps into a temporary directory with a
+                    simulated failure before step 3; the state restored at
+                    the rollback must equal a host copy taken at the save
+                    bit for bit, every artifact's keys the state's, the
+                    frozen leaves (VeRA's A / B, Diff-Pruning's rows) stay
+                    put and the launch counts match the plan; then
+                    train_check on this path (its plain runs recompute each
+                    layer in the backward).  The train_kernels phase holds
+                    packed attention's three kernels at this path's prefix
+                    shape too (case ``prefix_train``).
 
 Then a {"kernels": [...]} line and last {"ok": true, "device": {...}}.  Any
 failure raises: the script exits non-zero and prints no ok line.  Without a
@@ -109,6 +124,13 @@ SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_gate", "mlp_up", "mlp_down
 TRAIN_TASKS = "sst2:lora:8,qa:lora:16,rte:adapter:8,sst2:ia3"
 # the hybrid tenants' sites: the Mamba2 projections and the shared block's q, v
 ZAMBA_TARGETS = ("ssm_in", "ssm_out", "attn_q", "attn_v")
+# one tenant of each PEFT kind on the attention sites (the train_methods path)
+METHODS_TASKS = ("sst2:lora:8,qa:adapter:8,rte:ia3,sst2:prefix:16,qa:diff:16,rte:dora:8,"
+                 "sst2:vera:64,qa:bitfit")
+# the supervised loop: steps, checkpoint cadence, the step a failure precedes
+METHODS_STEPS, METHODS_CKPT_EVERY, METHODS_FAIL_AT = 5, 2, 3
+# the kinds whose adapter delta runs through the grouped-LoRA kernel
+GROUPED_LORA_KINDS = ("lora", "dora")
 TRAIN_MICRO_BATCH = 8
 TRAIN_LR = 2e-3
 TRAIN_ITERS = 6
@@ -200,6 +222,17 @@ INT8_CHECK_SEEDS = (3, 4, 5, 6, 7, 8)
 # bounds the sum of two such spreads and stays far below a fault; the f32
 # guard holds the kernel path to the plain path's accuracy.
 ZAMBA_GRAD_PATH_TOL = 0.20
+# train_check_methods (one tenant of each of the eight PEFT kinds on
+# llama3.2-3b, bf16, 27 rows x 256): set, as GRAD_PATH_TOL was, from the
+# two second plain paths before the kernel path was gated.  Over token
+# seeds 0-9 (``PYTHONHASHSEED=0 python3 train_check_spread.py . 10
+# methods``, NVIDIA H100 80GB HBM3, 700.00 W) they came 0.0294-0.0336 (S,
+# ``plain_stored_o``) and 0.0573-0.0790 (S', ``plain_reordered``) of a
+# leaf's largest |g| from the plain path, and the kernel path 0.0576-0.0722;
+# no grouped-LoRA or packed-attention call on any seed was further from its
+# plain version than its kernel tolerance.  max(10%, 2 S, 2 S') rounded up
+# to 0.005: 2 S' = 0.158 -> 0.16.
+METHODS_GRAD_PATH_TOL = 0.16
 # The int8 backbone's bytes against the cost model's Eq. 5 term, which
 # counts the BaseOp weights at one byte and the rest at two but not the f32
 # scales (0.1% of the backbone at full width).
@@ -1038,6 +1071,19 @@ def train_plan(backbone_dtype="bfloat16"):
     return cfg, tasks, plan
 
 
+def methods_plan():
+    """The train_methods path: llama3.2-3b (bf16) at full width and depth,
+    one tenant of each PEFT kind (``METHODS_TASKS``), and their plan."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecutionPlanner, ParallelismSpec
+    from repro_torch.launch.train import parse_tasks
+
+    cfg = get_config("llama3.2-3b")
+    tasks = parse_tasks(METHODS_TASKS, TRAIN_MICRO_BATCH)
+    plan = ExecutionPlanner(cfg, ParallelismSpec(num_stages=1)).plan(tasks, n_micro=1)
+    return cfg, tasks, plan
+
+
 def zamba_plan():
     """The hybrid training path's configuration (zamba2-2.7b at full width
     and depth), the same tenants on the Mamba2 projections and the shared
@@ -1057,15 +1103,18 @@ def zamba_plan():
 
 def step_launches(cfg, adapters):
     """Kernel launches of one training micro step, forward and backward,
-    from the model's layout and the LoRA sites of the adapter tree."""
+    from the model's layout and the grouped-LoRA sites (LoRA's and DoRA's)
+    of the adapter tree."""
+    def sites(tree):
+        return sum(len(tree.get(kind, {})) for kind in GROUPED_LORA_KINDS)
+
     if cfg.family == "dense":
         attn, scans = cfg.num_layers, 0
-        lora = len(adapters.get("lora", {})) * cfg.num_layers
+        lora = sites(adapters) * cfg.num_layers
     else:  # hybrid: n_super x (per Mamba2 blocks + the shared block)
         attn = cfg.num_layers // cfg.hybrid_period
         scans = attn * (cfg.hybrid_period - 1)
-        lora = scans * len(adapters["mamba"].get("lora", {})) \
-            + attn * len(adapters["shared_attn"].get("lora", {}))
+        lora = scans * sites(adapters["mamba"]) + attn * sites(adapters["shared_attn"])
     return {"grouped_lora": lora, "grouped_lora_bwd": lora, "packed_attention": attn,
             "packed_attention_dq": attn, "packed_attention_dkv": attn, "mamba_scan": scans,
             "mamba_scan_bwd_state": scans, "mamba_scan_bwd_chunk": scans}
@@ -1076,20 +1125,22 @@ def _autograd_ms(torch, timer, out, inputs, grad):
     return timer(lambda: torch.autograd.grad(out, inputs, grad, retain_graph=True))
 
 
-def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what, tag):
+def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what, tag,
+                        kind="lora"):
     """Grouped LoRA forward (saving h) and backward against autograd of the
-    plain version at M = rows x row_len of the plan's first hTask, the LoRA
-    tenants' rows, stack rank and capacity, for each (d_in, d_out) of
+    plain version at M = rows x row_len of the plan's first hTask, the rows,
+    stack rank and capacity (one slot per tenant) of the tenants of ``kind``
+    (LoRA, or DoRA's direction update), for each (d_in, d_out) of
     ``shapes``; the results sum the shapes of ``layer`` (one layer's or one
-    super-block's LoRA sites)."""
+    super-block's sites)."""
     from repro_torch.kernels import grouped_lora as gl
 
     bf16, dev = torch.bfloat16, "cuda"
     h0 = plan.htasks[0]
     B, S = h0.rows, h0.row_len
     M = B * S
-    lora = [i for i, t in enumerate(tasks) if t.adapter.kind == "lora"]
-    T, r = 2, max(tasks[i].adapter.rank for i in lora)  # capacity 1 -> 2 for two tenants
+    lora = [i for i, t in enumerate(tasks) if t.adapter.kind == kind]
+    T, r = len(lora), max(tasks[i].adapter.rank for i in lora)
     slot = {t: s for s, t in enumerate(lora)}
     row_task = [slot.get(t, -1) for t in plan.segments_for(0).row_task]
     rt = torch.tensor(row_task, dtype=torch.int32, device=dev).repeat_interleave(S)
@@ -1148,8 +1199,8 @@ def _lora_train_kernels(torch, timer, g, tasks, plan, shapes, layer, layer_what,
         per_shape[(d_in, d_out)] = {"fwd": (ms_f, plain_f, err_f) + work["fwd"] + (dev_f,),
                                     "bwd": (ms_b, plain_b, err_b) + work["bwd"] + (dev_b,),
                                     "split": (dev_pair, dev_red) + work["reduce"]}
-        emit({"phase": "train_kernels", "kernel": "grouped_lora", "model": tag, "M": M,
-              "rows_with_lora": active, "d_in": d_in, "d_out": d_out, "T": T, "r": r,
+        emit({"phase": "train_kernels", "kernel": "grouped_lora", "model": tag, "stack": kind,
+              "M": M, "rows_with_lora": active, "d_in": d_in, "d_out": d_out, "T": T, "r": r,
               "fwd_save_h": {"ms": ms_f, "device_ms": dev_f, "plain_ms": plain_f,
                              "bound_ms": bf, "bound_by": byf, "max_abs_err": err_f},
               "bwd": {"ms": ms_b, "device_ms": dev_b, "plain_ms": plain_b, "bound_ms": bb,
@@ -1436,6 +1487,107 @@ def train_kernel_phase(torch, timer, cfg, tasks, plan):
     _lora_ragged_empty_case(torch, g, rt)
     _lora_rank_cases(torch, timer, g, plan.htasks[0].rows, plan.htasks[0].row_len)
     results.update(_attention_train_kernels(torch, timer, g, cfg, plan, cfg.name))
+    return results
+
+
+def methods_kernel_phase(torch, timer, cfg, tasks, plan):
+    """The train_methods path's kernels at its own shapes: grouped LoRA
+    forward and backward for the LoRA stack and for DoRA's direction update
+    at the four attention sites (``_lora_train_kernels`` on this plan, most
+    rows at slot -1); packed attention's forward, dq and dk/dv kernels at the
+    path's prefix shape (case ``prefix_train``): the plan's rows x 256
+    queries behind the prefix tenant's 16 learned rows, padded to 64 as
+    ``ops.padded_prefix_rows`` pads them (Sk = 320, key tiles of 64); the
+    prefix rows wildcards (-1) on the prefix tenant's batch rows and unseen
+    (-2) on the others', the pad rows unseen everywhere.  Each kernel against
+    autograd of the plain version under ``GRAD_TOL``, and run twice for the
+    same bits; the plain version and SDPA with the visibility mask timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import packed_attention as pa
+
+    bf16, dev, i32 = torch.bfloat16, "cuda", torch.int32
+    g = torch.Generator(device=dev).manual_seed(11)
+    results = {}
+    layer = [(3072, 3072), (3072, 1024), (3072, 1024), (3072, 3072)]
+    for kind in ("lora", "dora"):
+        stack, _ = _lora_train_kernels(
+            torch, timer, g, tasks, plan, ((3072, 3072), (3072, 1024)), layer,
+            f"the four {kind} sites of one layer", f"{cfg.name} train_methods", kind)
+        results.update({f"{k}_methods_{kind}": v for k, v in stack.items()})
+    h0 = plan.htasks[0]
+    B, S = h0.rows, h0.row_len
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    arr = plan.alignment[0].arrays()
+    pos = torch.as_tensor(arr["positions"], device=dev)
+    seg = torch.as_tensor(arr["segment_ids"], device=dev)
+    (owner,) = [i for i, t in enumerate(tasks) if t.adapter.kind == "prefix"]
+    rank = tasks[owner].adapter.rank
+    P = ops.padded_prefix_rows(S, rank)
+    owns = torch.as_tensor([t == owner for t in plan.segments_for(0).row_task], device=dev)
+    pseg = torch.full((B, P), -2, dtype=i32, device=dev)
+    pseg[:, :rank] = torch.where(owns, -1, -2).to(i32)[:, None]
+    kpos = torch.cat([torch.full((B, P), -1, dtype=i32, device=dev), pos], 1).contiguous()
+    ints = (pos, seg, kpos, torch.cat([pseg, seg], 1).contiguous())
+    q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+    k = torch.randn((B, S + P, Hkv, dh), generator=g, device=dev).to(bf16)
+    v = torch.randn((B, S + P, Hkv, dh), generator=g, device=dev).to(bf16)
+    do = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+    bq, bk = pa.tile_sizes(S, S + P, cfg.attn_q_block)
+    where = f"packed_attention {cfg.name} case prefix_train"
+    (o, lse), (o_ref, qr, kr, vr), mask, n_dead, (err_f, err_dq, err_dkv) = _attention_check(
+        torch, q, k, v, do, ints, True, bq, bk, where)
+    dq = pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
+    dk, dv = pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
+    o2, lse2 = pa.packed_attention_cuda(q, k, v, *ints, True, bq, bk, save_lse=True)
+    dq2 = pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
+    dk2, dv2 = pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, True, bq, bk)
+    for a, b, what in ((o, o2, "o"), (lse, lse2, "lse"), (dq, dq2, "dq"), (dk, dk2, "dk"),
+                       (dv, dv2, "dv")):
+        _same_bits(torch, a, b, f"{where} {what}")
+    calls = {"fwd": lambda: pa.packed_attention_cuda(q, k, v, *ints, True, bq, bk,
+                                                     save_lse=True),
+             "dq": lambda: pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, True, bq, bk),
+             "dkv": lambda: pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, True,
+                                                         bq, bk)}
+    pairs = int(mask.sum().item()) * H
+    qo, kv = 2 * B * S * H * dh, 2 * B * (S + P) * Hkv * dh
+    ib = 4 * 2 * B * S + 4 * 2 * B * (S + P) + 4 * B * H * S
+    bounds = {"fwd": bound_ms(2 * qo + 2 * kv + ib, 4.0 * dh * pairs),
+              "dq": bound_ms(4 * qo + 2 * kv + ib, 6.0 * dh * pairs),
+              "dkv": bound_ms(3 * qo + 4 * kv + ib, 8.0 * dh * pairs)}
+    plain = {"fwd": timer(lambda: pa.packed_attention_plain(q, k, v, *ints, True, bq, bk)),
+             "dq": _autograd_ms(torch, timer, o_ref, (qr,), do),
+             "dkv": _autograd_ms(torch, timer, o_ref, (kr, vr), do)}
+    # the library: SDPA with the boolean visibility mask [B, 1, S, Sk]
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    dot, am = do.transpose(1, 2).contiguous(), mask[:, None]
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, enable_gqa=True)
+    lib = {"fwd": lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am,
+                                                         enable_gqa=True),
+           "dq": lambda: torch.autograd.grad(o_lib, (qt,), dot, retain_graph=True),
+           "dkv": lambda: torch.autograd.grad(o_lib, (kt, vt), dot, retain_graph=True)}
+    lib = {key: {"library_ms": timer(fn), "library_device_ms": library_device_ms(torch, timer, fn)}
+           for key, fn in lib.items()}
+    line = {"phase": "train_kernels", "kernel": "packed_attention", "model": cfg.name,
+            "case": "prefix_train", "B": B, "S": S, "Sk": S + P, "prefix_rows": rank,
+            "padded_prefix_rows": P, "H": H, "Hkv": Hkv, "dh": dh, "bq": bq, "bk": bk,
+            "rows_seeing_no_key": n_dead, "fwd_lse_max_abs_err": err_f,
+            "dq_max_abs_err": err_dq, "dkv_max_abs_err": err_dkv, "same_bits_twice": True}
+    for name, key, err in (("packed_attention_train_prefix", "fwd", err_f),
+                           ("packed_attention_dq_prefix", "dq", err_dq),
+                           ("packed_attention_dkv_prefix", "dkv", err_dkv)):
+        entry = {"ms": timer(calls[key]),
+                 "device_ms": kernel_device_ms(torch, timer, calls[key],
+                                               f"packed_attention_{key}"),
+                 "plain_ms": plain[key], "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+                 **lib[key], "max_abs_err": err}
+        line[key] = entry
+        results[name] = {"shape": f"B={B}, S={S}, Sk={S + P} ({rank} prefix rows padded "
+                                  f"to {P}), H={H}, Hkv={Hkv}, dh={dh}, causal, loader layout",
+                         **entry}
+    emit(line)
     return results
 
 
@@ -1869,6 +2021,154 @@ def train_phase(torch, cfg, tasks, plan):
     return counts, engine
 
 
+def methods_train_phase(torch, cfg, tasks, plan):
+    """The train_methods path: PEFTEngine.run_iteration on one tenant of
+    each PEFT kind, one warm-up iteration, then ``METHODS_STEPS`` steps under
+    the port's TrainSupervisor (a checkpoint every ``METHODS_CKPT_EVERY``
+    steps into a temporary directory, a simulated failure before step
+    ``METHODS_FAIL_AT``).  Gates: the state restored at the rollback equals,
+    bit for bit, a host copy taken when its checkpoint was saved (adapters,
+    AdamW step, m and v); every artifact's keys are the state's; the frozen
+    leaves (VeRA's A / B, Diff-Pruning's rows) never change; losses finite;
+    launches as the plan implies."""
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.core import ModelGenerator, PEFTEngine
+    from repro_torch.data import HTaskLoader
+    from repro_torch.distributed import (CheckpointStore, SupervisorConfig, TrainSupervisor,
+                                         simulated_failure)
+    from repro_torch.distributed.checkpoint import _flatten_with_paths
+    from repro_torch.kernels import ops
+    from repro_torch.peft.methods import get_method
+
+    gen = ModelGenerator(cfg, seed=0)
+    gen.init_backbone()
+    reg = gen.register_tasks(tasks)
+    engine = PEFTEngine(gen, plan, lr=TRAIN_LR)
+    loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size)
+               for i in range(len(plan.htasks))}
+    emit({"phase": "train_plan_methods", **plan.summary(),
+          "htasks": [{"task_ids": list(h.task_ids), "rows": h.rows, "row_len": h.row_len,
+                      "tokens": h.tokens, "effective_tokens": h.effective_tokens}
+                     for h in plan.htasks],
+          "kind_capacity": reg.mta.kind_capacity, "kind_rank": reg.mta.kind_rank})
+    warm = engine.run_iteration(loaders)
+
+    def frozen_leaves(tree):
+        return {k: t for k, t in _flatten_with_paths(tree)
+                if not t.is_floating_point() or not get_method(k.split("/")[0]).trainable(
+                    k.rsplit("/", 1)[1])}
+
+    frozen = {k: t.clone() for k, t in frozen_leaves(engine.reg.adapter_params).items()}
+    if sorted({k.rsplit("/", 1)[1] for k in frozen}) != ["A", "B", "rows"]:
+        raise AssertionError(f"train_methods: frozen leaves {sorted(frozen)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    steps_run, iters, copies, restored, stalls = [], [], {}, [], []
+    pending = {METHODS_FAIL_AT}
+
+    def hook(i):
+        if i in pending:
+            pending.discard(i)
+            raise simulated_failure()
+
+    def step_fn(state, i):
+        engine.reg.adapter_params, engine.reg.opt_state = state
+        m = engine.run_iteration(loaders)
+        if not (np.isfinite(m.loss) and np.all(np.isfinite(m.per_task_loss))):
+            raise AssertionError(f"train_methods step {i}: non-finite loss {m.per_task_loss}")
+        now = frozen_leaves(engine.reg.adapter_params)
+        for k, t in frozen.items():
+            if not torch.equal(now[k], t):
+                raise AssertionError(f"train_methods step {i}: frozen leaf {k} changed")
+        steps_run.append(i)
+        iters.append((m, engine.throughput(m)))
+        emit({"phase": "train_iteration_methods", "step": i, "loss": m.loss,
+              "per_task_loss": m.per_task_loss.tolist(), "seconds": m.wall_seconds})
+        return engine.reg.adapter_params, engine.reg.opt_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainSupervisor(SupervisorConfig(ckpt_dir=os.path.join(tmp, "sup"),
+                                               ckpt_every=METHODS_CKPT_EVERY),
+                              failure_hook=hook)
+        save_async, resume = sup.ckpt.save_async, sup.resume
+
+        def recording_save(step, tree, extra=None):
+            t0 = time.perf_counter()
+            save_async(step, tree, extra)
+            stalls.append(time.perf_counter() - t0)
+            copies[step] = {k: t.detach().cpu().clone() for k, t in _flatten_with_paths(tree)}
+
+        def recording_resume(init_state, shardings=None):
+            state, i = resume(init_state, shardings)
+            if sup.restarts:
+                restored.append((i, {k: t.detach().cpu().clone()
+                                     for k, t in _flatten_with_paths(state)}))
+            return state, i
+
+        sup.ckpt.save_async, sup.resume = recording_save, recording_resume
+        t0 = time.perf_counter()
+        state = sup.run((engine.reg.adapter_params, engine.reg.opt_state), step_fn,
+                        METHODS_STEPS)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        # the steps before the failure, then again from the last checkpoint
+        want_steps = list(range(METHODS_FAIL_AT)) + list(range(
+            METHODS_FAIL_AT - METHODS_FAIL_AT % METHODS_CKPT_EVERY, METHODS_STEPS))
+        if sup.restarts != 1 or steps_run != want_steps:
+            raise AssertionError(f"train_methods: restarts {sup.restarts}, steps {steps_run}")
+        (at, got), = restored
+        want = copies[at]
+        if list(got) != list(want) or any(
+                got[k].dtype != want[k].dtype or not torch.equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"train_methods: the state restored at step {at} is not the "
+                                 f"one saved there")
+        keys = [k for k, _ in _flatten_with_paths(state)]
+        sizes = {}
+        for step in sorted(copies):
+            path = os.path.join(tmp, "sup", f"step_{step:08d}")
+            if not os.path.isdir(path):  # pruned (keep = 3)
+                continue
+            with open(os.path.join(path, "manifest.json")) as f:
+                if list(json.load(f)["leaves"]) != keys:
+                    raise AssertionError(f"train_methods: step {step}'s keys are not the state's")
+            sizes[step] = sum(os.path.getsize(os.path.join(path, n)) for n in os.listdir(path))
+        t0 = time.perf_counter()
+        CheckpointStore(os.path.join(tmp, "sync")).save(METHODS_STEPS, state)
+        save_s = time.perf_counter() - t0
+    n = len(steps_run) * len(engine._schedule(None))
+    want_counts = dict.fromkeys(counts, 0)
+    want_counts.update({k: n * v for k, v in step_launches(cfg, reg.adapter_params).items()})
+    if counts != want_counts:
+        raise AssertionError(f"kernel launches {counts}, the plan implies {want_counts}")
+    secs = [m.wall_seconds for m, _ in iters]
+    emit({"phase": "train_methods", "model": cfg.name, "layers": cfg.num_layers,
+          "tasks": METHODS_TASKS, "micro_batch": TRAIN_MICRO_BATCH, "lr": TRAIN_LR,
+          "warmup_seconds": warm.wall_seconds, "steps_run": steps_run,
+          "restarts": sup.restarts, "restored_step": at, "restored_bits_equal": True,
+          "checkpointed_steps": sorted(copies), "committed_bytes": sizes,
+          "state_leaves": len(keys), "save_async_call_seconds": stalls,
+          "save_sync_seconds": save_s, "loop_seconds": loop_s, "launches": counts,
+          "seconds_per_iteration_median": statistics.median(secs),
+          "tokens_per_s_median": statistics.median(tp["tokens_per_s"] for _, tp in iters),
+          "effective_tokens_per_s_median": statistics.median(
+              tp["effective_tokens_per_s"] for _, tp in iters),
+          "last_per_task_loss": iters[-1][0].per_task_loss.tolist(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    prof = profile_device(torch, lambda: engine.run_iteration(loaders), 1,
+                          {"grouped_lora": ("grouped_lora",),
+                           "packed_attention": ("packed_attention",),
+                           "f32_matmul": ("sgemm", "f32f32")})
+    emit({"phase": "profile", "path": "train iteration_methods", **prof,
+          "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
+              statistics.median(secs) * 1e3) if prof["device_ms_per_call"] else None})
+    return counts, engine
+
+
 def _seeded_stream(seed: int, vocab: int):
     """Tokens from a numpy seed.  The synthetic corpora seed from Python's
     per-process salted ``hash``, so their batches differ from run to run;
@@ -1880,7 +2180,7 @@ def _seeded_stream(seed: int, vocab: int):
         yield int(rng.randint(1, vocab))
 
 
-def train_check(torch, engine, seed=3, extra=None):
+def train_check(torch, engine, seed=3, extra=None, methods=False):
     """One step's per-task losses and adapter gradients from one state, on
     the kernels, under ops.force_plain(), and under ops.force_plain() on
     f32 copies of the weights, int8 nodes dequantized (the reference); also
@@ -1888,14 +2188,18 @@ def train_check(torch, engine, seed=3, extra=None):
     noise floor: plain_scale_first() on an int8 backbone, plain_stored_o()
     on a bf16 one and plain_reordered() on llama's.  ``extra`` maps more
     runs' names to their contexts (train_check_spread.py's), each reported
-    against the plain run.
-    LoRA B, Adapter up and IA3 s start at zero, which would leave dA and the
-    adapters' down gradients exactly zero: they are filled from ``seed``
-    first, and the batch's tokens come from ``seed`` too."""
+    against the plain run.  ``methods`` marks the train_methods path (its
+    gate, and each layer recomputed in the plain runs' backward).
+    LoRA and DoRA B, Adapter up, IA3 s, Diff-Pruning delta, DoRA dm and
+    VeRA / BitFit b start at zero, which would leave other gradients
+    exactly zero: they are filled from ``seed`` first, and the batch's
+    tokens come from ``seed`` too.  The frozen leaves (Diff-Pruning's
+    integer rows, VeRA's shared A / B) take no gradient and are not
+    compared."""
     from repro_torch.data import HTaskLoader
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import device_put_batch
-    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.peft.methods import get_method
 
     dev = engine.device
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -1903,7 +2207,7 @@ def train_check(torch, engine, seed=3, extra=None):
     def fill(tree):  # depth first, in the tree's order: one draw per filled leaf
         return {k: fill(t) if isinstance(t, dict) else
                 ((torch.randn(t.shape, generator=g, device=dev) * 0.02).to(t.dtype)
-                 if k in ("b", "up", "s") else t)
+                 if k in ("b", "up", "s", "delta", "dm") else t)
                 for k, t in tree.items()}
 
     params = fill(engine.reg.adapter_params)
@@ -1913,11 +2217,11 @@ def train_check(torch, engine, seed=3, extra=None):
                                   for i in range(len(plan.tasks))})
     batch = device_put_batch(next(loader), dev)
     fn = engine._loss_and_grads_fn(0)
-    plain = plain_path(torch, engine.model)
+    plain = plain_path(torch, engine.model, remat=methods)
     runs = {"kernel": (params, engine.backbone, contextlib.nullcontext),
             "plain": (params, engine.backbone, plain),
-            "f32": (tree_map(lambda t: t.float(), params), densify(torch, engine.backbone),
-                    plain)}
+            "f32": (tree_map(lambda t: t.float() if t.is_floating_point() else t, params),
+                    densify(torch, engine.backbone), plain)}
     int8 = engine.model.cfg.backbone_dtype == "int8"
     if int8:
         runs["plain_scale_first"] = (params, engine.backbone, plain_scale_first)
@@ -1925,20 +2229,26 @@ def train_check(torch, engine, seed=3, extra=None):
         runs["plain_stored_o"] = (params, engine.backbone, lambda: _stacked(plain, plain_stored_o))
     hybrid = engine.model.cfg.family == "hybrid"
     if not (int8 or hybrid):
-        runs["plain_reordered"] = (params, engine.backbone, plain_reordered)
+        runs["plain_reordered"] = (params, engine.backbone,
+                                   lambda: _stacked(plain, plain_reordered))
+    rc = recompute(engine.model, methods)
     for name, ctx in (extra or {}).items():
-        runs[name] = (params, engine.backbone, ctx)
+        runs[name] = (params, engine.backbone, lambda ctx=ctx: _stacked(rc, ctx))
+    # the compared leaves: floating and trainable (a path's first registered
+    # method name is its kind)
+    paths = [p for p in _leaf_paths(params) if _leaf(params, p).is_floating_point()
+             and get_method(next(k for k in p if k in engine.reg.mta.kind_tasks)).trainable(p[-1])]
     pt, grads = {}, {}
     for mode, (ad, bb, ctx) in runs.items():
         with ctx():
             _, pt[mode], gr = fn(ad, bb, batch)
-        grads[mode] = tree_leaves(gr)
+        grads[mode] = [_leaf(gr, p) for p in paths]
     torch.cuda.synchronize()
     loss_err = ((pt["kernel"] - pt["plain"]).abs() / pt["plain"].abs()).max().item()
     if not loss_err <= LOSS_TOL:
         raise AssertionError(f"train_check: per-task losses {pt['kernel'].tolist()} vs plain "
                              f"{pt['plain'].tolist()}: relative {loss_err} > {LOSS_TOL}")
-    names = [".".join(path) for path in _leaf_paths(params)]
+    names = [".".join(path) for path in paths]
     pairs = [("kernel", "plain"), ("kernel", "f32"), ("plain", "f32")]
     pairs += [(name, "plain") for name in runs if name.startswith("plain_")]
     pairs += [(name, "plain") for name in extra or {}]
@@ -1951,8 +2261,9 @@ def train_check(torch, engine, seed=3, extra=None):
             err = (grads[a][i].float() - grads[b][i].float()).abs().max().item() / scale
             if err > worst[f"{a}_vs_{b}"][0]:
                 worst[f"{a}_vs_{b}"] = (err, name)
-    tol = INT8_GRAD_PATH_TOL if int8 else (ZAMBA_GRAD_PATH_TOL if hybrid else GRAD_PATH_TOL)
-    suffix = "_int8" if int8 else ("_zamba" if hybrid else "")
+    tol = INT8_GRAD_PATH_TOL if int8 else (ZAMBA_GRAD_PATH_TOL if hybrid else (
+        METHODS_GRAD_PATH_TOL if methods else GRAD_PATH_TOL))
+    suffix = "_int8" if int8 else ("_zamba" if hybrid else ("_methods" if methods else ""))
     emit({"phase": "train_check" + suffix, "seed": seed,
           "per_task_loss_kernel": pt["kernel"].tolist(),
           "per_task_loss_plain": pt["plain"].tolist(), "per_task_loss_f32": pt["f32"].tolist(),
@@ -1977,39 +2288,70 @@ def _stacked(*ctxs):
         yield
 
 
-def plain_path(torch, model):
-    """A context for the plain versions' runs of ``model``.  On the hybrid
-    family each super-block is also recomputed in the backward
-    (``torch.utils.checkpoint``, non-reentrant): the JAX config's
-    ``remat=True`` (``jax.checkpoint`` of the super-block), which changes no
-    value.  Without it autograd of the plain scan would keep several f32
-    [rows, Q, Q, heads] tensors for each of the 45 Mamba2 blocks, more than
-    the card holds beside the f32 backbone.  The kernel path runs without
+def recompute(model, dense=False):
+    """A context factory under which ``model`` recomputes each hybrid
+    super-block in the backward (``torch.utils.checkpoint``,
+    non-reentrant): the JAX config's ``remat=True`` (``jax.checkpoint`` of
+    the super-block), which changes no value.  Without it autograd of the
+    plain scan would keep several f32 [rows, Q, Q, heads] tensors for each
+    of the 45 Mamba2 blocks, more than the card holds beside the f32
+    backbone.  ``dense`` recomputes each dense layer likewise, under the
+    adapter context it ran in: on the train_methods path (27 rows, eight
+    kinds each adding f32 [rows, S, d_out] terms at its sites) one step
+    holds about 60 GB without it.  The kernel path runs without
     recomputation, as training does."""
     from torch.utils.checkpoint import checkpoint
 
-    from repro_torch.kernels import ops
+    from repro_torch.peft.hooks import active_context, adapter_scope
+
+    def remat_block(block):
+        def run(lp, x, **kw):
+            scope = active_context()
+
+            def layer(x):
+                with adapter_scope(scope):
+                    return block(lp, x, **kw)
+            return checkpoint(layer, x, use_reentrant=False)
+        return run
 
     @contextlib.contextmanager
     def ctx():
-        with ops.force_plain():
-            if model.cfg.family != "hybrid":
-                yield
-                return
-            block = model._super_block
-            model._super_block = lambda x, *a, **kw: checkpoint(block, x, *a,
-                                                                use_reentrant=False, **kw)
-            try:
-                yield
-            finally:
-                del model._super_block
+        if model.cfg.family == "hybrid":
+            name, fn = "_super_block", model._super_block
+            wrapped = lambda x, *a, **kw: checkpoint(fn, x, *a,  # noqa: E731
+                                                     use_reentrant=False, **kw)
+        elif dense:
+            name, wrapped = "_block", remat_block(model._block)
+        else:
+            yield
+            return
+        setattr(model, name, wrapped)
+        try:
+            yield
+        finally:
+            delattr(model, name)
     return ctx
+
+
+def plain_path(torch, model, remat=False):
+    """A context for the plain versions' runs of ``model``, recomputing as
+    :func:`recompute` does (dense layers when ``remat``)."""
+    from repro_torch.kernels import ops
+
+    rc = recompute(model, remat)
+    return lambda: _stacked(ops.force_plain, rc)
 
 
 def _leaf_paths(tree, prefix=()):
     """Paths of a nested dict's leaves, in ``tree_leaves`` order."""
     return [p for k, v in tree.items()
             for p in (_leaf_paths(v, prefix + (k,)) if isinstance(v, dict) else [prefix + (k,)])]
+
+
+def _leaf(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def main() -> int:
@@ -2043,6 +2385,8 @@ def main() -> int:
         kern.update(quant_kernel_phase(torch, timer))
     cfg, tasks, plan = train_plan()
     kern.update(train_kernel_phase(torch, timer, cfg, tasks, plan))
+    methods = methods_plan()
+    kern.update(methods_kernel_phase(torch, timer, *methods))
     zamba = zamba_plan()
     kern.update(zamba_kernel_phase(torch, timer, *zamba))
     torch.cuda.synchronize()
@@ -2063,6 +2407,11 @@ def main() -> int:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    counts["train_methods"], engine = methods_train_phase(torch, *methods)
+    train_check(torch, engine, methods=True)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
     counts["train_int8"], engine = train_phase(torch, *train_plan("int8"))
     for seed in INT8_CHECK_SEEDS:
         train_check(torch, engine, seed)
@@ -2076,16 +2425,23 @@ def main() -> int:
     csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"
     kernels = [
         ("grouped_lora", "grouped_lora.cu", "grouped_lora.py:49", "grouped_lora",
-         {"train_variant": "grouped_lora_train", "zamba2_variant": "grouped_lora_train_zamba2"}),
+         {"train_variant": "grouped_lora_train", "zamba2_variant": "grouped_lora_train_zamba2",
+          "methods_variant": "grouped_lora_train_methods_lora",
+          "methods_dora_variant": "grouped_lora_train_methods_dora"}),
         ("grouped_lora_bwd", "grouped_lora.cu", "grouped_lora.py:91", "grouped_lora_bwd",
-         {"zamba2_variant": "grouped_lora_bwd_zamba2"}),
+         {"zamba2_variant": "grouped_lora_bwd_zamba2",
+          "methods_variant": "grouped_lora_bwd_methods_lora",
+          "methods_dora_variant": "grouped_lora_bwd_methods_dora"}),
         ("packed_attention", "packed_attention.cu", "packed_attention.py:60", "packed_attention",
          {"train_variant": "packed_attention_train",
-          "zamba2_variant": "packed_attention_train_zamba2"}),
+          "zamba2_variant": "packed_attention_train_zamba2",
+          "prefix_variant": "packed_attention_train_prefix"}),
         ("packed_attention_dq", "packed_attention.cu", "packed_attention.py:128",
-         "packed_attention_dq", {"zamba2_variant": "packed_attention_dq_zamba2"}),
+         "packed_attention_dq", {"zamba2_variant": "packed_attention_dq_zamba2",
+                                 "prefix_variant": "packed_attention_dq_prefix"}),
         ("packed_attention_dkv", "packed_attention.cu", "packed_attention.py:185",
-         "packed_attention_dkv", {"zamba2_variant": "packed_attention_dkv_zamba2"}),
+         "packed_attention_dkv", {"zamba2_variant": "packed_attention_dkv_zamba2",
+                                  "prefix_variant": "packed_attention_dkv_prefix"}),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:40",
          "decode_attention", {}),
         ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", "quant_matmul", {}),

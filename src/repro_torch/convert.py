@@ -12,11 +12,13 @@ package lays them out, and return the same layout as torch tensors:
   w_out}}`` stacked ``[n_super, per, ...]`` and the one ``shared_attn``
   block (the dense layer's leaves, unstacked);
 * ``adapters_from_numpy``: the ``MultiTaskAdapters`` tree
-  ``{kind: {site: {leaf: [L, capacity, ...]}}}`` of any ported kind (LoRA,
-  Adapter, IA3), with stacks whose capacity exceeds the live task count as
+  ``{kind: {site: {leaf: [L, capacity, ...]}}}`` of any of the eight kinds,
+  with stacks whose capacity exceeds the live task count as
   ``ModelGenerator`` sizes them; hybrid trees hold it twice, under
   ``mamba`` (``[n_super, per, capacity, ...]``) and ``shared_attn``
-  (``[capacity, ...]``).
+  (``[capacity, ...]``).  A kind's shared leaves (VeRA's ``A`` / ``B``)
+  have no capacity axis, and Diff-Pruning's ``rows`` stay int32 (a leaf
+  whose spec names its type keeps it, whatever ``dtype`` asks).
 
 The converters walk the port's spec, so any family the port's ``Model`` and
 ``MultiTaskAdapters`` lay out as the JAX package does converts.

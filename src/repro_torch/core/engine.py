@@ -172,8 +172,9 @@ class PEFTEngine:
     def _loss_and_grads_fn(self, htask_idx: int) -> Callable:
         """``(adapters, backbone, batch) -> (loss, per-task losses, grads)``
         of one hTask's fused batch: the sum of the members' mean losses and
-        its gradient with respect to every adapter leaf (zeros for a leaf no
-        row reached)."""
+        its gradient with respect to every floating adapter leaf (zeros for
+        a leaf no row reached, as for VeRA's frozen A / B; None for an
+        integer leaf)."""
         h = self.plan.htasks[htask_idx]
         segments = self.plan.segments_for(htask_idx)
         local_seg = segments.relabel(h.task_ids)
@@ -182,7 +183,10 @@ class PEFTEngine:
         model, aux_coef = self.model, self.aux_coef
 
         def loss_and_grads(adapters, backbone, batch):
-            leaves = [t.detach().requires_grad_(True) for t in tree_leaves(adapters)]
+            # integer leaves (Diff-Pruning's rows) take no gradient: they pass
+            # through, and their gradient leaf is None
+            leaves = [t.detach().requires_grad_(True) if t.is_floating_point() else t
+                      for t in tree_leaves(adapters)]
             with torch.enable_grad():
                 out = model.forward(backbone, batch, adapters=tree_unflatten(adapters, leaves),
                                     ctx_factory=ctxf)
@@ -192,9 +196,13 @@ class PEFTEngine:
                 for k, v in out["aux"].items():
                     if k == "moe_load_balance":
                         loss = loss + aux_coef * v
-                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-            grads = tree_unflatten(adapters, [torch.zeros_like(l) if g is None else g
-                                              for l, g in zip(leaves, grads)])
+                got = iter(torch.autograd.grad(loss, [l for l in leaves if l.requires_grad],
+                                               allow_unused=True))
+            grads = []
+            for leaf in leaves:
+                g = next(got) if leaf.requires_grad else None
+                grads.append(torch.zeros_like(leaf) if leaf.requires_grad and g is None else g)
+            grads = tree_unflatten(adapters, grads)
             return loss.detach(), pt.detach(), grads
 
         return loss_and_grads
@@ -308,7 +316,10 @@ class PEFTEngine:
     def ensure_decode_pool(self, rows: int, max_len: int, max_new_cap: int) -> Dict[str, Any]:
         """Allocate (or re-allocate on a geometry change) the fused decode
         pool.  A re-allocation bumps ``decode_pool_gen``: in-flight rows are
-        lost and their requests must be bound again."""
+        lost and their requests must be bound again.  Raises
+        ``NotImplementedError`` for a tenant of a kind the pool does not
+        serve yet (``steps.check_servable``)."""
+        steps.check_servable(self.reg.mta)
         pres = self.decode_prefix_reserve()
         geom = (rows, max_len, max_new_cap, pres)
         if self._decode_pool is None or self._decode_geom != geom:

@@ -13,9 +13,9 @@ nothing on the serving or training path uses it.
 
 The signatures follow the JAX package's ops: ``grouped_lora`` takes
 ``x [B, S, d_in]`` with one task per batch row, ``packed_attention`` builds
-the prefix key rows (``ops.py:181-214`` there, without the tile padding
-that existed for the TPU) and takes the Pallas wrapper's ``block_q`` /
-``block_k``, which set its tile-visibility rule, ``decode_attention`` takes
+the prefix key rows with the Pallas tier's padding (``ops.py:181-214``
+there) and takes the Pallas wrapper's ``block_q`` / ``block_k``, which set
+its tile-visibility rule, ``decode_attention`` takes
 scalar or per-row window bounds, ``quant_matmul`` takes a BaseOp site's
 einsum against an int8 weight, ``mamba_scan`` takes ``q/k/v``, the log
 decay and input gates, ``chunk`` and optional ``h0`` / ``reset``.
@@ -27,6 +27,7 @@ import math
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import grouped_lora as _gl
@@ -129,6 +130,18 @@ def grouped_lora(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def padded_prefix_rows(S: int, P: int, block_k: int = 128) -> int:
+    """The prefix row count packed attention runs for ``P`` learned rows
+    before ``S`` keys: the Pallas tier pads P up to a multiple of
+    ``unit = gcd(gcd(S, block_k), 64)`` where S + P would cut the key tile
+    (gcd(S + P, block_k)) below min(unit, 32).  The padding moves the tile
+    rule's key tiles, so the port pads as it does (S = 256, P = 16 -> 64)."""
+    unit = math.gcd(math.gcd(S, block_k), 64)
+    if math.gcd(S + P, block_k) < min(unit, 32):
+        return P + (-P) % unit
+    return P
+
+
 def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      segment_ids: Optional[torch.Tensor] = None,
                      positions: Optional[torch.Tensor] = None,
@@ -139,7 +152,8 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Segment-masked attention over q [B, S, H, dh] and k/v [B, S, Hkv, dh];
     optionally with learned prefix k/v rows ``prefix_kv = (pk, pv)``
     [B, P, Hkv, dh] that every query of a batch row sees when
-    ``prefix_keep`` [B, P] gates them on (default: all on).  ``block_q`` /
+    ``prefix_keep`` [B, P] gates them on (default: all on), padded with
+    gated-off rows to :func:`padded_prefix_rows`.  ``block_q`` /
     ``block_k`` give the tile rule's tiles (``packed_attention.tile_sizes``)."""
     B, S = q.shape[0], q.shape[1]
     dev = q.device
@@ -154,6 +168,12 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         pk, pv = prefix_kv
         P = pk.shape[1]
         keep = prefix_keep if prefix_keep is not None else torch.ones((B, P), device=dev)
+        pad = padded_prefix_rows(S, P, block_k) - P
+        if pad:  # gated-off rows
+            pk = F.pad(pk, (0, 0, 0, 0, 0, pad))
+            pv = F.pad(pv, (0, 0, 0, 0, 0, pad))
+            keep = F.pad(keep, (0, pad))
+            P += pad
         # prefix rows: position -1 (always causally visible), segment -1
         # where the row owns the prefix (wildcard) and -2 where it does not
         k = torch.cat([pk.to(k.dtype), k], dim=1)

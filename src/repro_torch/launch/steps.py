@@ -27,6 +27,22 @@ from repro_torch.peft.methods import get_method
 from repro_torch.peft.multitask import MultiTaskAdapters
 
 _SEED_MAX = 2 ** 62
+# the PEFT kinds whose decode the port holds to the JAX package
+_SERVED_KINDS = frozenset({"lora", "adapter", "ia3"})
+
+
+def check_servable(mta: MultiTaskAdapters) -> None:
+    """Refuse a pool whose tenants include a kind the port does not serve
+    yet: prefix tenants need their soft-prompt rows folded into the cache's
+    prefix region at bind (the JAX ``launch/steps.py`` bind step), which is
+    not ported, and decode of DoRA, VeRA, Diff-Pruning and BitFit tenants is
+    not held to the JAX package yet."""
+    unserved = sorted(set(mta.kind_tasks) - _SERVED_KINDS)
+    if unserved:
+        raise NotImplementedError(
+            f"the decode pool serves {sorted(_SERVED_KINDS)} tenants; {unserved} need the "
+            f"soft-prompt fold into the KV cache's prefix region at bind and decode "
+            f"parity, which are not ported")
 
 
 def device_put_batch(batch: Dict[str, np.ndarray], device: torch.device
@@ -148,6 +164,7 @@ def build_decode_micro_step(model: Model, mta: MultiTaskAdapters, prefix_reserve
     compute (fixed shapes) but their counters and seeds stay frozen; their
     cache write lands outside their window and is overwritten before the
     row is exposed again."""
+    check_servable(mta)
 
     def decode_micro(backbone, adapters, pool, row_slots, scales):
         ctxf = mta.ctx_factory_from_slots(row_slots, scales)
@@ -178,8 +195,10 @@ def build_decode_batched_bind_step(model: Model, mta: MultiTaskAdapters, max_len
     """Bind ``R`` requests to pool rows at once: batched chunked prefill of
     ``tokens [R, Lp]`` (padded; true ``lengths [R]``) into a fresh R-row
     cache, first tokens sampled at each row's last true position, then every
-    bound row copied into the pool.  No method of the port folds soft-prompt
-    rows, so the prefix region (``prefix_reserve``) stays empty."""
+    bound row copied into the pool.  The pool serves no soft-prompt kind
+    (``check_servable``), so the prefix region (``prefix_reserve``) stays
+    empty."""
+    check_servable(mta)
 
     def bind_n(backbone, adapters, pool, rows, tokens, lengths, row_slots, scales,
                max_new, sampling):

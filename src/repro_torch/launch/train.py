@@ -2,10 +2,15 @@
 ``repro.launch.train``).
 
 Synthetic tenant tasks -> ExecutionPlanner (fusion / grouping / template /
-alignment) -> ModelGenerator.register_tasks -> PEFTEngine.run_iteration.
-Runs on the CUDA card unless ``--device cpu`` is given; reduced widths via
-``--scale``.  Checkpointing (the JAX entry point's ``TrainSupervisor``,
-``--ckpt-dir``, ``--ckpt-every``) is not ported yet.
+alignment) -> ModelGenerator.register_tasks -> PEFTEngine.run_iteration,
+under TrainSupervisor: ``(adapter_params, opt_state)`` is checkpointed to
+``--ckpt-dir`` (default ``$TMPDIR/muxtune_ckpt``) every ``--ckpt-every``
+steps (and at the last), in the JAX package's format, and a failure
+restarts from the latest checkpoint found there.  As in
+the JAX entry point, a restart rewinds neither the loaders (replayed steps
+take later batches) nor ``PEFTEngine._slot_steps`` (AdamW's per-slot bias
+correction). Runs on the CUDA card unless ``--device cpu`` is given;
+reduced widths via ``--scale``.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \\
       --scale 0.25 --steps 50 --tasks sst2:lora:4,qa:lora:8,rte:adapter:4
@@ -19,10 +24,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 
 from repro_torch.configs import get_config
 from repro_torch.core import ExecutionPlanner, ModelGenerator, ParallelismSpec, PEFTEngine
 from repro_torch.data import HTaskLoader, make_task
+from repro_torch.distributed.fault_tolerance import SupervisorConfig, TrainSupervisor
 from repro_torch.peft.methods import AdapterConfig, resolve_kind
 
 
@@ -70,6 +78,10 @@ def main(argv=None) -> None:
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--tasks", default="sst2:lora:8,qa:lora:8,rte:adapter:4,sst2:ia3")
     ap.add_argument("--stages", type=int, default=4)
+    # under TMPDIR (the JAX entry point's /tmp/muxtune_ckpt when it is unset);
+    # a run resumes from whatever this directory holds
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "muxtune_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--alignment", default="chunked", choices=["chunked", "zero_pad", "pack_only"])
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -88,14 +100,21 @@ def main(argv=None) -> None:
     engine = PEFTEngine(gen, plan, lr=args.lr, device=args.device)
     loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size)
                for i in range(len(plan.htasks))}
-    for i in range(args.steps):
+    sup = TrainSupervisor(SupervisorConfig(ckpt_dir=args.ckpt_dir,
+                                           ckpt_every=args.ckpt_every))
+
+    def step_fn(state, i):
+        engine.reg.adapter_params, engine.reg.opt_state = state
         m = engine.run_iteration(loaders)
         if i % 5 == 0 or i == args.steps - 1:
             tp = engine.throughput(m)
             print(f"step {i:4d}  loss={m.loss:.4f}  "
                   f"tok/s={tp['tokens_per_s']:.0f}  "
                   f"eff-tok/s={tp['effective_tokens_per_s']:.0f}", flush=True)
-    print("done")
+        return engine.reg.adapter_params, engine.reg.opt_state
+
+    sup.run((engine.reg.adapter_params, engine.reg.opt_state), step_fn, args.steps)
+    print("done; checkpoints in", args.ckpt_dir)
 
 
 if __name__ == "__main__":

@@ -15,7 +15,7 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import ParamSpec, apply_rope
-from repro_torch.peft.hooks import apply_base_op
+from repro_torch.peft.hooks import active_context, apply_base_op
 
 
 def attention_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
@@ -42,13 +42,23 @@ def attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig
                     segment_ids: Optional[torch.Tensor] = None,
                     return_kv: bool = False):
     """Causal self-attention over x [B, S, d] (the JAX ``pairs`` mode).
-    ``return_kv=True`` also returns the post-RoPE (k, v) rows, which the
-    prefill captures into the decode KV cache."""
+    The active adapter context's soft-prompt rows (``attn_prefix``), if
+    any, enter as learned prefix k/v rows.  ``return_kv=True`` also returns
+    the post-RoPE (k, v) rows, which the prefill captures into the decode
+    KV cache."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, cfg, positions)
+    ctx = active_context()
+    prefix = ctx.attn_prefix() if ctx is not None else None
+    prefix_kv = prefix_keep = None
+    if prefix is not None:
+        pk, pv, prefix_keep = prefix  # [B, P, kv_dim] pair + [B, P] row gate
+        shape = (B, pk.shape[1], cfg.num_kv_heads, cfg.resolved_head_dim())
+        prefix_kv = (pk.reshape(shape).to(k.dtype), pv.reshape(shape).to(v.dtype))
     out = kops.packed_attention(q, k, v, segment_ids=segment_ids, positions=positions,
+                                prefix_kv=prefix_kv, prefix_keep=prefix_keep,
                                 block_q=cfg.attn_q_block)
     y = apply_base_op("attn_o", out, p["w_o"], "bshk,hkd->bsd")
     if return_kv:

@@ -21,7 +21,7 @@ class ParamSpec:
     which a conversion keeps whatever type it is asked for."""
 
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | const (filled with ``scale``)
     scale: float = 0.02
     dtype: Optional[torch.dtype] = None
 
@@ -31,11 +31,13 @@ def materialize(spec_tree: Any, generator: torch.Generator, device: torch.device
     an explicit generator.  Leaves are drawn in sorted key order, so a seed
     gives one tree."""
     if isinstance(spec_tree, ParamSpec):
-        dt = torch.bfloat16
+        dt = spec_tree.dtype or torch.bfloat16
         if spec_tree.init == "zeros":
             return torch.zeros(spec_tree.shape, dtype=dt, device=device)
         if spec_tree.init == "ones":
             return torch.ones(spec_tree.shape, dtype=dt, device=device)
+        if spec_tree.init == "const":
+            return torch.full(spec_tree.shape, spec_tree.scale, dtype=dt, device=device)
         w = torch.randn(spec_tree.shape, generator=generator, device=device,
                         dtype=torch.float32)
         return (w * spec_tree.scale).to(dt)

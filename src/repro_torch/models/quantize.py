@@ -94,8 +94,9 @@ def _quantize_per_layer(w: torch.Tensor, axes: Tuple[int, ...]) -> Dict[str, tor
 
 
 def dequantize(w: Dict[str, torch.Tensor], dtype=torch.float32) -> torch.Tensor:
-    """The dense effective weight.  Nothing on the serving or training path
-    builds it; references and checks do."""
+    """The dense effective weight.  On the serving and training paths only a
+    site where a resident PEFT kind reads the weight (DoRA) builds it
+    (``peft.hooks.apply_base_op``); references and checks do too."""
     return (w["q"].float() * w["scale"]).to(dtype)
 
 

@@ -1,19 +1,26 @@
 """PEFT method registry (port of ``repro.peft.methods``): the single place
-method names resolve to code.  The port registers LoRA, Adapter-Tuning and
-IA3; the other five methods of the JAX package come with later slices."""
+method names resolve to code.  The port registers the JAX package's eight
+methods (LoRA, Adapter-Tuning, Diff-Pruning, IA3, Prefix-Tuning, DoRA, VeRA,
+BitFit) and its aliases (``adapter_tuning``, ``houlsby``, ``diff_pruning``,
+``prefix_tuning``, ``prefix-tuning``), which resolve without its
+deprecation warning."""
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 from repro_torch.peft.methods.base import ApplyContext, PEFTMethod, SiteDims
 
 _REGISTRY: Dict[str, PEFTMethod] = {}
+_ALIASES: Dict[str, str] = {}
 
 
-def register_method(method: PEFTMethod) -> PEFTMethod:
+def register_method(method: PEFTMethod, aliases: Iterable[str] = ()) -> PEFTMethod:
+    """Register a method instance under ``method.name`` and ``aliases``."""
     if not method.name:
         raise ValueError("PEFTMethod.name must be a non-empty string")
     _REGISTRY[method.name] = method
+    for a in aliases:
+        _ALIASES[a] = method.name
     return method
 
 
@@ -24,8 +31,9 @@ def method_names() -> Tuple[str, ...]:
 def resolve_kind(kind: str) -> str:
     if kind in _REGISTRY:
         return kind
-    raise KeyError(f"unknown or not yet ported PEFT method {kind!r}; "
-                   f"registered: {', '.join(method_names())}")
+    if kind in _ALIASES:
+        return _ALIASES[kind]
+    raise KeyError(f"unknown PEFT method {kind!r}; registered: {', '.join(method_names())}")
 
 
 def get_method(kind: str) -> PEFTMethod:
@@ -58,12 +66,22 @@ def adapter_shared_params(adapter, dims: SiteDims, attention: bool = True
 
 
 from repro_torch.peft.methods.adapter_tuning import AdapterTuning  # noqa: E402
+from repro_torch.peft.methods.bitfit import BitFit  # noqa: E402
+from repro_torch.peft.methods.diff_pruning import DiffPruning  # noqa: E402
+from repro_torch.peft.methods.dora import DoRA  # noqa: E402
 from repro_torch.peft.methods.ia3 import IA3  # noqa: E402
 from repro_torch.peft.methods.lora import LoRA  # noqa: E402
+from repro_torch.peft.methods.prefix_tuning import PrefixTuning  # noqa: E402
+from repro_torch.peft.methods.vera import VeRA  # noqa: E402
 
 register_method(LoRA())
-register_method(AdapterTuning())
+register_method(AdapterTuning(), aliases=("adapter_tuning", "houlsby"))
+register_method(DiffPruning(), aliases=("diff_pruning",))
 register_method(IA3())
+register_method(PrefixTuning(), aliases=("prefix_tuning", "prefix-tuning"))
+register_method(DoRA())
+register_method(VeRA())
+register_method(BitFit())
 
 from repro_torch.peft.methods.config import (  # noqa: E402
     DEFAULT_TARGETS,

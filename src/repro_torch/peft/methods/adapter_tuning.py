@@ -12,6 +12,7 @@ from repro_torch.peft.methods.base import ApplyContext, PEFTMethod
 
 class AdapterTuning(PEFTMethod):
     name = "adapter"
+    category = "additive"
 
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
         t = (capacity,)

@@ -11,6 +11,7 @@ from repro_torch.peft.methods.base import ApplyContext, PEFTMethod
 
 class IA3(PEFTMethod):
     name = "ia3"
+    category = "additive"
 
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
         return {"s": ParamSpec((capacity, d_out), init="zeros")}

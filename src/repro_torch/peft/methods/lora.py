@@ -17,6 +17,7 @@ from repro_torch.peft.methods.base import ApplyContext, PEFTMethod
 
 class LoRA(PEFTMethod):
     name = "lora"
+    category = "reparameterized"
 
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
         t = (capacity,)

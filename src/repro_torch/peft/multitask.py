@@ -12,6 +12,8 @@ explicit slot (``task_slot``): unused slots hold fresh-init values that no
 row routes to.  ``MultiTaskContext`` routes each batch row to its task's
 adapter slot and merges every kind's contribution into the BaseOp output:
 one grouped computation per kind covers all tasks of the fused batch.
+Soft-prompt kinds surface per-row k/v prefix rows to attention through
+``MultiTaskContext.attn_prefix``.
 """
 from __future__ import annotations
 
@@ -146,7 +148,7 @@ class MultiTaskAdapters:
     @staticmethod
     def _stack(spec: Any, *dims: int) -> Any:
         if isinstance(spec, ParamSpec):
-            return ParamSpec(tuple(dims) + spec.shape, spec.init, spec.scale)
+            return ParamSpec(tuple(dims) + spec.shape, spec.init, spec.scale, spec.dtype)
         return {k: MultiTaskAdapters._stack(v, *dims) for k, v in spec.items()}
 
     def spec(self) -> Dict[str, Any]:
@@ -167,8 +169,32 @@ class MultiTaskAdapters:
 
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """Seeded adapter params on this object's device (LoRA's B, the
-        adapter's ``up`` and IA3's ``s`` are 0)."""
-        return materialize(self.spec(), generator, self.device)
+        adapter's ``up`` and IA3's ``s`` are 0), then each method's
+        ``post_init``."""
+        return self._post_init(materialize(self.spec(), generator, self.device))
+
+    def _post_init(self, params: Any) -> Any:
+        """Each method's deterministic fixups at each of its sites
+        (Diff-Pruning's rows, VeRA's shared A / B).  Pure in (site, dims),
+        so every build gives the same values, and the JAX package's (VeRA's
+        in the stack's bf16)."""
+        site_dims = {k: self.kind_sites(k) for k in self.kind_tasks}
+
+        def walk(node: Any) -> Any:
+            if not isinstance(node, dict):
+                return node
+            out = {}
+            for k, v in node.items():
+                if k in self.kind_tasks and isinstance(v, dict):
+                    method = get_method(k)
+                    out[k] = {site: method.post_init(dict(leaves), site,
+                                                     *site_dims[k].get(site, (0, 0)))
+                              for site, leaves in v.items()}
+                else:
+                    out[k] = walk(v)
+            return out
+
+        return walk(params)
 
     # ------------------------------------------------------------------
 
@@ -239,21 +265,33 @@ class MultiTaskContext(AdapterContext):
     def has(self, name: str) -> bool:
         return any(name in kspec for kspec in self.ad.values())
 
-    def apply(self, name: str, x: torch.Tensor, base_out: torch.Tensor) -> torch.Tensor:
+    def reads_base_weight(self, name: str) -> bool:
+        return any(name in kspec and get_method(kind).reads_base_weight
+                   for kind, kspec in self.ad.items())
+
+    def _site_ctx(self, kind: str, d_in: int = 0, d_out: int = 0,
+                  base_weight: Optional[torch.Tensor] = None) -> ApplyContext:
+        slots = self.kind_slots[kind]
+        return ApplyContext(slots=slots, gate=(slots >= 0).float(),
+                            scale=self.kind_scales[kind], d_in=d_in, d_out=d_out,
+                            base_weight=base_weight)
+
+    def apply(self, name: str, x: torch.Tensor, base_out: torch.Tensor,
+              w: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Site output ``(base_out + sum_k add_k) * prod_k mul_k``, summed in
-        f32 and cast to base_out's type."""
+        f32 and cast to base_out's type.  ``w`` is the op's weight (None
+        where no resident kind reads it on an int8 backbone)."""
         B, S = x.shape[0], x.shape[1]
         d_in = int(np.prod(x.shape[2:]))
         d_out = int(np.prod(base_out.shape[2:]))
         x3 = x.reshape(B, S, d_in)
         out3 = base_out.reshape(B, S, d_out)
+        w2 = w.reshape(d_in, d_out) if w is not None else None
         add = mul = None
         for kind, kspec in self.ad.items():
             if name not in kspec:
                 continue
-            slots = self.kind_slots[kind]
-            ctx = ApplyContext(slots=slots, gate=(slots >= 0).float(),
-                               scale=self.kind_scales[kind])
+            ctx = self._site_ctx(kind, d_in, d_out, w2)
             a, m1 = get_method(kind).apply(kspec[name], x3, out3, ctx)
             if a is not None:
                 add = a if add is None else add + a
@@ -265,3 +303,25 @@ class MultiTaskContext(AdapterContext):
         if mul is not None:
             y = y * mul
         return y.to(base_out.dtype).reshape(base_out.shape)
+
+    def attn_prefix(self):
+        """Every soft-prompt kind's per-row k/v prefix rows for this layer,
+        concatenated along the prefix axis: ``(pk, pv, keep)`` with pk / pv
+        [B, P, kv_dim] and keep [B, P] (1.0 where the row's task owns the
+        row), or None."""
+        pks, pvs, keeps = [], [], []
+        for kind, kspec in self.ad.items():
+            p = kspec.get("attn_prefix")
+            if p is None:
+                continue
+            ctx = self._site_ctx(kind)
+            pref = get_method(kind).attn_prefix(p, ctx)
+            if pref is None:
+                continue
+            pk, pv = pref
+            pks.append(pk)
+            pvs.append(pv)
+            keeps.append(ctx.gate[:, None].expand(pk.shape[:2]))
+        if not pks:
+            return None
+        return torch.cat(pks, dim=1), torch.cat(pvs, dim=1), torch.cat(keeps, dim=1)

@@ -1,6 +1,8 @@
 """AdamW for adapter trees (port of ``repro.train.optimizer``).
 
-Trees are nested dicts of tensors.  ``lr_scales`` supports per-task
+Trees are nested dicts of tensors.  Integer leaves (Diff-Pruning's row
+masks) are structural: they have ``None`` moments, take no gradient and
+get no update.  ``lr_scales`` supports per-task
 learning rates: a tree (same structure) of broadcastable multipliers, e.g.
 per-task lr vectors expanded along each leaf's task axis.  ``step_counts``
 gives each slot its own bias correction.  Rounding follows the JAX package:
@@ -44,7 +46,7 @@ def tree_unflatten(tree: Any, leaves: List[torch.Tensor]) -> Any:
 
 def adamw_init(params: Any) -> AdamWState:
     def zeros(p):
-        return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros_like(p, dtype=torch.float32) if p.is_floating_point() else None
 
     dev = tree_leaves(params)[0].device
     return AdamWState(torch.zeros((), dtype=torch.int32, device=dev),
@@ -73,6 +75,8 @@ def adamw_update(
     c2 = 1.0 - b2 ** step.float()
 
     def upd(p, g, m, v, s, n):
+        if m is None:  # an integer leaf
+            return None, None, None
         gf = g.float()
         m2 = b1 * m + (1 - b1) * gf
         v2 = b2 * v + (1 - b2) * gf * gf

@@ -564,14 +564,15 @@ def test_scaled_config_quirk_gives_no_super_block_below_0_112():
         assert spec["blocks"]["mamba"]["mamba"]["w_in"].shape[0] == n_super
 
 
-def test_cli_trains_zamba2_on_cpu():
+def test_cli_trains_zamba2_on_cpu(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
-                          "--arch", ARCH, "--scale", "0.25", "--steps", "2", "--stages", "1"],
+                          "--arch", ARCH, "--scale", "0.25", "--steps", "2", "--stages", "1",
+                          "--ckpt-dir", str(tmp_path)],
                          env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     lines = res.stdout.strip().splitlines()
-    assert lines[-1] == "done"
+    assert lines[-1] == f"done; checkpoints in {tmp_path}"
     assert "arch=zamba2-2.7b d=640 L=13" in lines[0]
 
 

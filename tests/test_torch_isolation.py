@@ -16,7 +16,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
-            "repro_torch.launch.train, repro_torch.kernels.ops; "
+            "repro_torch.distributed, repro_torch.launch.train, repro_torch.kernels.ops; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -200,14 +200,15 @@ def test_member_masks_and_nan_guard():
         assert torch.equal(a, b)
 
 
-def test_train_entry_point_runs_on_cpu():
+def test_train_entry_point_runs_on_cpu(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu", "--arch",
-         "llama3.2-3b", "--scale", "0.05", "--steps", "2", "--stages", "1"],
+         "llama3.2-3b", "--scale", "0.05", "--steps", "2", "--stages", "1",
+         "--ckpt-dir", str(tmp_path)],
         env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     lines = res.stdout.splitlines()
-    assert lines[-1] == "done"
+    assert lines[-1] == f"done; checkpoints in {tmp_path}"
     losses = [float(l.split("loss=")[1].split()[0]) for l in lines if l.startswith("step")]
     assert len(losses) == 2 and all(np.isfinite(losses))

@@ -3,9 +3,12 @@
 ``chip_smoke.py`` checks one training step's adapter gradients (kernels
 against the plain versions, both against an f32 run) from the state its
 training path reached, and that state depends on the tokens it trained on.
-This script repeats that on the llama3.2-3b bf16 path for ``N`` token
+This script repeats that on a llama3.2-3b bf16 path for ``N`` token
 seeds: a fresh engine, the warm-up iteration and ``chip_smoke.TRAIN_ITERS``
-iterations on loaders seeded ``0 .. N - 1``, then ``train_check``.  One
+iterations on loaders seeded ``0 .. N - 1``, then ``train_check``.  The path
+is ``train`` (the four LoRA / Adapter / IA3 tenants, the default) or
+``methods`` (one tenant of each of the eight PEFT kinds,
+``chip_smoke.methods_plan``, checked by ``train_check_methods``).  One
 JSON line per seed with its distances (each the worst leaf's, as a share of
 that leaf's largest f32 |g|):
 
@@ -25,7 +28,7 @@ that leaf's largest f32 |g|):
 then a summary line: per distance the sorted values over the seeds, ``S``
 and ``S_reordered`` (the worst of the two plain-path distances).
 
-    PYTHONHASHSEED=0 python3 train_check_spread.py [ROOT] [N]
+    PYTHONHASHSEED=0 python3 train_check_spread.py [ROOT] [N] [train|methods]
 
 ``ROOT`` is the checkout whose ``chip_smoke.py`` and ``src/`` are used
 (default ``.``), so two trees can be held to the same seeds.  The token
@@ -126,6 +129,10 @@ def audit_summary(records):
 def main() -> int:
     root = sys.argv[1] if len(sys.argv) > 1 else "."
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 10
+    path = sys.argv[3] if len(sys.argv) > 3 else "train"
+    if path not in ("train", "methods"):
+        raise SystemExit(f"train_check_spread: unknown path {path!r} (train or methods)")
+    methods = path == "methods"
     os.chdir(root)
     sys.path[:0] = [".", "src"]
     import torch
@@ -142,7 +149,7 @@ def main() -> int:
     _build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, tasks, plan = c.train_plan()
+    cfg, tasks, plan = c.methods_plan() if methods else c.train_plan()
     rows = []
     for seed in range(n):
         gen = ModelGenerator(cfg, seed=0)
@@ -159,11 +166,12 @@ def main() -> int:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             try:
-                c.train_check(torch, engine, extra=extra)
+                c.train_check(torch, engine, extra=extra, methods=methods)
                 ok = True
             except AssertionError:
                 ok = False
-        line = [ln for ln in buf.getvalue().splitlines() if '"train_check"' in ln][-1]
+        phase = '"train_check_methods"' if methods else '"train_check"'
+        line = [ln for ln in buf.getvalue().splitlines() if phase in ln][-1]
         worst = json.loads(line)["grad_err_rel_to_leaf_max"]
         rows.append({"seed": seed, "ok": ok, **{k: v["max"] for k, v in worst.items()},
                      "leaf": {k: v["leaf"] for k, v in worst.items()},
@@ -173,8 +181,9 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     dists = [k for k in rows[0] if k.endswith("_vs_plain") or k.endswith("_vs_f32")]
-    print(json.dumps({"root": root, "seeds": n, "failed": sum(not r["ok"] for r in rows),
-                      "tol": c.GRAD_PATH_TOL,
+    print(json.dumps({"root": root, "path": path, "seeds": n,
+                      "failed": sum(not r["ok"] for r in rows),
+                      "tol": c.METHODS_GRAD_PATH_TOL if methods else c.GRAD_PATH_TOL,
                       **{k: sorted(r[k] for r in rows) for k in dists},
                       "S": max(r["plain_stored_o_vs_plain"] for r in rows),
                       "S_reordered": max(r["plain_reordered_vs_plain"] for r in rows),
