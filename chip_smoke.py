@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's main paths on one NVIDIA GPU and check them:
 multi-tenant LoRA co-serving decode and multi-task LoRA/Adapter/IA3
-fine-tuning on llama3.2-3b (each on a bf16 and on an int8 backbone), and
-multi-task fine-tuning on the hybrid zamba2-2.7b (Mamba2 + shared attention).
+fine-tuning on llama3.2-3b (each on a bf16 and on an int8 backbone),
+multi-task fine-tuning on the hybrid zamba2-2.7b (Mamba2 + shared
+attention), fine-tuning and decode of all eight PEFT kinds, and the online
+co-serving service (MuxTuneService) under tenant churn.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -25,7 +27,12 @@ Phases, one JSON line each (several for the kernel phases):
                     product timed at the training shapes; then M = 1, 8,
                     64, 65 and 300 across its route and cluster switches,
                     and x and scale at misaligned offsets, each run twice
-                    for the same bits;
+                    for the same bits; packed attention at the bind's
+                    prefill behind a prefix tenant's 16 rows padded to 64
+                    (R = 4, buckets 128 and 512) and decode attention over
+                    the pool's cache with the windows the soft-prompt fold
+                    opens (Smax = 64 + 1024, starts 0-64), each twice for
+                    the same bits and timed beside masked SDPA;
 4. train_kernels -- at the training paths' shapes (one fused micro-batch of
                     11 rows x 256 from the planner): for llama3.2-3b the
                     forwards that save h / the logsumexp, the grouped LoRA
@@ -99,10 +106,28 @@ Phases, one JSON line each (several for the kernel phases):
                     layer in the backward).  The train_kernels phase holds
                     packed attention's three kernels at this path's prefix
                     shape too (case ``prefix_train``).
+11. serve_methods -- llama3.2-3b (bf16, full width and depth) with one
+                    tenant of each PEFT kind on an 8-row pool (max_len
+                    1024, one row per kind, prompts of 64-512 tokens, 32
+                    greedy tokens): the prefix row's window opened over its
+                    folded k/v rows, launches per micro step, and a
+                    teacher-forced check (with the fold) whose gate comes
+                    from this path's own two plain paths (``_gate_from``);
+12. coserve      -- MuxTuneService on llama3.2-3b (bf16, full width and
+                    depth) through the churn of the JAX service test (LoRA,
+                    Prefix-Tuning, DoRA and VeRA tenants: queueing,
+                    cancellation, completion with checkpoint-out and
+                    compaction, a warm start) with eight decode requests
+                    interleaved into the training iterations; per iteration
+                    device ms, decode tokens, host syncs, lifecycle seconds
+                    and the memory peak; gates on A's losses against a solo
+                    run, B's artifact bit for bit, every request's tokens
+                    against the plain path's replay of the same decode.
 
-Then a {"kernels": [...]} line and last {"ok": true, "device": {...}}.  Any
-failure raises: the script exits non-zero and prints no ok line.  Without a
-CUDA device it exits 1 at once.
+Every line of phases 11-12 and of their kernel cases carries the card's
+name and power limit (``"card"``).  Then a {"kernels": [...]} line and
+last {"ok": true, "device": {...}}.  Any failure raises: the script exits
+non-zero and prints no ok line.  Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
@@ -2354,6 +2379,821 @@ def _leaf(tree, path):
     return tree
 
 
+# ---------------------------------------------------------------------------
+# the co-serving paths: serve_methods (the decode pool with one tenant of each
+# PEFT kind) and coserve (MuxTuneService under tenant churn)
+
+SERVE_METHODS_ROWS, SERVE_METHODS_MAX_LEN, SERVE_METHODS_NEW = 8, 1024, 32
+# the leaves that start at zero: filled from the generator before serving, so
+# that every kind's rows leave the bare backbone's
+ZERO_INIT_LEAVES = ("b", "up", "s", "delta", "dm")
+COSERVE_NEW, COSERVE_MAX_ITERS = 32, 16
+# the coserve tenants: (id, dataset, kind, rank, micro-batch); D's larger
+# micro-batch makes it wait in the queue while B is resident
+COSERVE_TENANTS = (("a", "sst2", "lora", 8, 8), ("b", "qa", "prefix", 16, 8),
+                   ("c", "rte", "dora", 8, 8), ("d", "sst2", "vera", 64, 32))
+COSERVE_TARGETS = {"a": 8, "b": 4, "c": 50, "d": 4}
+COSERVE_WARM_STEPS = 2
+CARD = {}  # nvidia-smi's name and power limit (``card()``)
+
+
+def card():
+    """The card's name and power limit as nvidia-smi reports them, read
+    once: the device line and every line of the co-serving phases carry
+    them."""
+    if not CARD:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60, check=True).stdout.strip().splitlines()[0]
+        CARD.update(zip(("name", "power_limit"), (x.strip() for x in smi.split(","))))
+    return CARD
+
+
+def _gate_from(spread: float) -> float:
+    """``LOGIT_TOL`` unless twice the path's own plain-path spread exceeds
+    it; then max(5%, 2 S) rounded up to 0.005."""
+    import math
+
+    if 2 * spread <= LOGIT_TOL:
+        return LOGIT_TOL
+    return math.ceil(max(0.05, 2 * spread) / 0.005 - 1e-9) * 0.005
+
+
+def bind_kernel_cases(torch, timer, g):
+    """The serving paths' new shapes, each against its plain version and run
+    twice for the same bits: packed attention at the bind's prefill behind
+    a prefix tenant's 16 learned rows, padded to 64 (R = 4 requests of a
+    128- and a 512-token bucket, the model's q tile of 512, the prefix on
+    two rows of four), timed beside SDPA under the visibility mask; decode
+    attention over the pool's cache (Smax = prefix region + 1024) with the
+    windows the fold opens: starts 0, 16, 48 and 64 across the rows."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import packed_attention as pa
+
+    dev, bf16, i32 = "cuda", torch.bfloat16, torch.int32
+    H, Hkv, dh, P, bq = 24, 8, 128, 16, 512
+    results, worst = {}, 0.0
+    for Lp in (128, 512):
+        R = 4
+        q = torch.randn((R, Lp, H, dh), generator=g, device=dev).to(bf16)
+        k = torch.randn((R, Lp, Hkv, dh), generator=g, device=dev).to(bf16)
+        v = torch.randn((R, Lp, Hkv, dh), generator=g, device=dev).to(bf16)
+        pk = torch.randn((R, P, Hkv, dh), generator=g, device=dev).to(bf16)
+        pv = torch.randn((R, P, Hkv, dh), generator=g, device=dev).to(bf16)
+        keep = torch.tensor([1.0, 0.0, 0.0, 1.0], device=dev)[:, None].expand(R, P).contiguous()
+        kw = {"prefix_kv": (pk, pv), "prefix_keep": keep, "block_q": bq}
+        before = ops.launch_counts()["packed_attention"]
+        out = ops.packed_attention(q, k, v, **kw)
+        out2 = ops.packed_attention(q, k, v, **kw)
+        launched = ops.launch_counts()["packed_attention"] - before
+        with ops.force_plain():
+            ref = ops.packed_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        if launched != 2:
+            raise AssertionError(f"packed_attention bind{Lp}: {launched} launches, want 2")
+        _same_bits(torch, out, out2, f"packed_attention bind{Lp}")
+        err, rel, tol = compare(out, ref, f"packed_attention bind{Lp}")
+        worst = max(worst, err)
+        Pp = ops.padded_prefix_rows(Lp, P)
+        Sk = Lp + Pp
+        # the visibility mask of the call: causal prompt keys, the owned
+        # prefix rows (pad rows and unowned rows unseen)
+        qpos = torch.arange(Lp, device=dev)
+        causal = qpos[:, None] >= qpos[None, :]
+        pre = torch.zeros((R, Lp, Pp), dtype=torch.bool, device=dev)
+        pre[:, :, :P] = (keep > 0)[:, None, :]
+        mask = torch.cat([pre, causal.expand(R, Lp, Lp)], dim=2)
+        ks, vs = torch.cat([F.pad(pk, (0, 0, 0, 0, 0, Pp - P)), k], 1), \
+            torch.cat([F.pad(pv, (0, 0, 0, 0, 0, Pp - P)), v], 1)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, ks, vs))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None],
+                                                  enable_gqa=True)
+        pairs = int(mask.sum().item()) * H
+        # the bytes the function must move: q and out, the prompt keys and
+        # values, the prefix rows of the requests that own them (not the
+        # pad rows, not the unowned rows), and prefix_keep
+        kv_rows = R * Lp + int((keep[:, 0] > 0).sum().item()) * P
+        nbytes = 2 * (2 * R * Lp * H * dh + 2 * kv_rows * Hkv * dh) + 4 * R * P
+        bms, by = bound_ms(nbytes, 4.0 * dh * pairs)
+        call = lambda: ops.packed_attention(q, k, v, **kw)  # noqa: E731
+        with ops.force_plain():
+            plain_ms = timer(call)
+        entry = {"ms": timer(call),
+                 "device_ms": kernel_device_ms(torch, timer, call, "packed_attention_fwd"),
+                 "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                 "library_ms": timer(sdpa), "library_device_ms": library_device_ms(torch, timer,
+                                                                                   sdpa)}
+        emit({"phase": "kernels", "kernel": "packed_attention", "case": f"bind_prefix_{Lp}",
+              "card": card(), "R": R, "S": Lp, "Sk": Sk, "prefix_rows": P,
+              "padded_prefix_rows": Pp, "kv_rows_in_bound": kv_rows, "H": H, "Hkv": Hkv, "dh": dh,
+              "tiles": list(pa.tile_sizes(Lp, Sk, bq)), "max_abs_err": err,
+              "max_rel_err": rel, "tol": tol, "same_bits_twice": True, **entry})
+        results[f"packed_attention_bind_prefix_{Lp}"] = {
+            "shape": f"R={R}, S={Lp}, Sk={Sk} ({P} prefix rows padded to {Pp}), H={H}, "
+                     f"Hkv={Hkv}, dh={dh}, causal, the prefix on 2 rows of 4",
+            **entry, "max_abs_err": err}
+
+    # decode attention over the pool's cache: prefix region 64, 1024 rows
+    pres, Bd = 64, 8
+    Smax = pres + 1024
+    qd = torch.randn((Bd, 1, H, dh), generator=g, device=dev).to(bf16)
+    kc = torch.randn((Bd, Smax, Hkv, dh), generator=g, device=dev).to(bf16)
+    vc = torch.randn((Bd, Smax, Hkv, dh), generator=g, device=dev).to(bf16)
+    start = torch.tensor([0, 48, 64, 64, 16, 48, 64, 0], dtype=i32, device=dev)
+    end = torch.tensor([pres + 512 + 32, pres + 97, pres + 300, Smax, pres + 65, pres + 1,
+                        pres + 700, pres + 1000], dtype=i32, device=dev)
+    before = ops.launch_counts()["decode_attention"]
+    out = ops.decode_attention(qd, kc, vc, end, start)
+    out2 = ops.decode_attention(qd, kc, vc, end, start)
+    launched = ops.launch_counts()["decode_attention"] - before
+    with ops.force_plain():
+        ref = ops.decode_attention(qd, kc, vc, end, start)
+    torch.cuda.synchronize()
+    if launched != 2:
+        raise AssertionError(f"decode_attention pool: {launched} launches, want 2")
+    _same_bits(torch, out, out2, "decode_attention pool")
+    err, rel, tol = compare(out, ref, "decode_attention pool")
+    worst = max(worst, err)
+    pos = torch.arange(Smax, device=dev)
+    mask = (pos[None] >= start[:, None]) & (pos[None] < end[:, None])
+    qt = qd.transpose(1, 2).contiguous()
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask[:, None, None, :],
+                                              enable_gqa=True)
+    call = lambda: ops.decode_attention(qd, kc, vc, end, start)  # noqa: E731
+    with ops.force_plain():
+        plain_ms = timer(call)
+    window = int((end - start).clamp_min(0).sum().item())
+    nbytes = 2 * (2 * Bd * H * dh + 2 * window * Hkv * dh) + 4 * 2 * Bd
+    bms, by = bound_ms(nbytes, 4.0 * H * dh * window)
+    entry = {"ms": timer(call),
+             "device_ms": kernel_device_ms(torch, timer, call, "decode_attention_kernel"),
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": timer(sdpa),
+             "library_device_ms": library_device_ms(torch, timer, sdpa)}
+    emit({"phase": "kernels", "kernel": "decode_attention", "case": "pool_prefix_windows",
+          "card": card(), "B": Bd, "Smax": Smax, "prefix_reserve": pres,
+          "starts": start.tolist(), "ends": end.tolist(), "H": H, "Hkv": Hkv, "dh": dh,
+          "window_rows": window, "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+          "same_bits_twice": True, **entry})
+    results["decode_attention_pool"] = {
+        "shape": f"B={Bd}, Smax={Smax} (prefix region {pres}), starts 0-64, "
+                 f"{window} window rows", **entry, "max_abs_err": err}
+    return results, worst
+
+
+def _fill_zero_leaves(torch, adapters, generator):
+    """Fill every zero-init adapter leaf (``ZERO_INIT_LEAVES``) from the
+    generator, in place."""
+    def walk(node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v)
+            elif k in ZERO_INIT_LEAVES and v is not None and v.is_floating_point():
+                v.copy_(torch.randn(v.shape, generator=generator, device=v.device) * 0.02)
+    walk(adapters)
+
+
+def serve_methods_phase(torch):
+    """The serve_methods path: llama3.2-3b at full width and depth (bf16,
+    random weights from a seed), one tenant of each PEFT kind on the
+    attention sites (``METHODS_TASKS``), the zero-init leaves filled; an
+    8-row pool of max_len 1024 (its prefix region the prefix tenant's 16
+    rows), one row per kind, prompts of 64-512 tokens bound by one batched
+    prefill, 32 greedy tokens each through PEFTEngine.  Gates: the prefix
+    row's window starts at prefix_reserve - 16 and every other row's at
+    prefix_reserve; launches per micro step as the path implies; then a
+    teacher-forced rerun (serve_check's method, with the fold) on the plain
+    versions, on a second plain path (``plain_split``) whose distance S from
+    the first sets this path's gate before the kernel path runs
+    (``_gate_from``), on the kernels, and on f32 weights.  Returns the
+    launch counts and the gate."""
+    import numpy as np
+
+    from repro_torch.core import ModelGenerator, PEFTEngine
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as lsteps
+
+    t_phase = time.perf_counter()
+    cfg, tasks, plan = methods_plan()
+    L = cfg.num_layers
+    gen = ModelGenerator(cfg, seed=0)
+    backbone = gen.init_backbone()
+    reg = gen.register_tasks(tasks)
+    _fill_zero_leaves(torch, reg.adapter_params, gen.generator)
+    engine = PEFTEngine(gen, plan)
+    model, mta, adapters = engine.model, reg.mta, reg.adapter_params
+    rows, max_len, new = SERVE_METHODS_ROWS, SERVE_METHODS_MAX_LEN, SERVE_METHODS_NEW
+    engine.ensure_decode_pool(rows, max_len, new)
+    pres = engine.decode_prefix_reserve()
+    rs = np.random.RandomState(1)
+    Lp = 512
+    lengths = rs.randint(64, Lp + 1, rows).astype(np.int32)
+    lengths[0], lengths[1] = Lp, 64
+    tokens = np.zeros((rows, Lp), np.int32)
+    for i in range(rows):
+        tokens[i, :lengths[i]] = rs.randint(1, cfg.vocab_size, lengths[i])
+    max_new = np.full((rows,), new, np.int32)
+    row_task = list(range(rows))        # row i serves task i: one row per kind
+    prefix_row = [i for i, t in enumerate(tasks) if t.adapter.kind == "prefix"]
+    P = tasks[prefix_row[0]].adapter.rank
+    slots, scales = engine.decode_row_ctx(row_task)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        engine.dispatch_decode_bind_batched(np.arange(rows), tokens, lengths, slots, scales,
+                                            max_new)
+        acct = engine.decode_accounting()
+        bind_s = time.perf_counter() - t0
+        step_s = []
+        while acct["active"].any():
+            t1 = time.perf_counter()
+            engine.dispatch_decode_micro(slots, scales)
+            acct = engine.decode_accounting()
+            step_s.append(time.perf_counter() - t1)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    n_micro = len(step_s)
+    if list(acct["n_out"]) != list(max_new) or n_micro != new - 1:
+        raise AssertionError(f"serve_methods: requests did not complete: n_out "
+                             f"{acct['n_out']}, {n_micro} micro steps")
+    lo = engine._decode_pool["state"]["lo"].cpu().tolist()
+    want_lo = [pres - P if i in prefix_row else pres for i in range(rows)]
+    if lo != want_lo:
+        raise AssertionError(f"serve_methods: windows start at {lo}, want {want_lo}")
+    per_step = step_launches(cfg, adapters)["grouped_lora"]
+    want = dict.fromkeys(counts, 0)
+    want.update({"grouped_lora": per_step * (1 + n_micro), "packed_attention": L,
+                 "decode_attention": L * n_micro})
+    if counts != want:
+        raise AssertionError(f"serve_methods: kernel launches {counts}, the path implies {want}")
+    served = [engine.decode_outputs(i)[:new] for i in range(rows)]
+    emit({"phase": "serve_methods", "card": card(), "model": cfg.name, "layers": L,
+          "tenants": [f"{t.adapter.kind}:{t.adapter.rank}" for t in tasks],
+          "prefix_reserve": pres, "windows_start": lo, "requests": rows,
+          "prompt_lengths": lengths.tolist(), "bucket": Lp, "max_new": new,
+          "micro_steps": n_micro, "launches": counts,
+          "launches_per_micro_step": {"grouped_lora": per_step, "decode_attention": L},
+          "bind_s": bind_s, "micro_step_ms_median": statistics.median(step_s) * 1e3,
+          "decode_tokens_per_s": rows * n_micro / sum(step_s),
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    with torch.no_grad():
+        prof = profile_device(torch, lambda: engine.dispatch_decode_micro(slots, scales), 3,
+                              {"grouped_lora": ("grouped_lora",),
+                               "decode_attention": ("decode_attention_kernel",)})
+    emit({"phase": "profile", "path": "serve_methods micro step", "card": card(), **prof,
+          "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
+              statistics.median(step_s) * 1e3) if prof["device_ms_per_call"] else None})
+
+    # ---- teacher-forced rerun with the fold: each mode's logits per step ----
+    dev = torch.device("cuda")
+    tok_t = torch.as_tensor(tokens, device=dev)
+    len_t = torch.as_tensor(lengths, device=dev)
+    out_t = torch.as_tensor(np.stack(served), device=dev)
+    ctxf = mta.ctx_factory_from_slots(slots, scales)
+    ar = torch.arange(rows, device=dev)
+
+    def trajectory(bb, ad, dt):
+        st = model.init_decode_state(rows, max_len, cache_dtype=dt, prefix_reserve=pres)
+        lg, st = model.prefill(bb, {"tokens": tok_t}, st, adapters=ad, ctx_factory=ctxf,
+                               prefix_reserve=pres, lengths=len_t)
+        lsteps.fold_soft_prompts(model, mta, ad, slots, st, pres)
+        out = [lg[ar, (len_t - 1).long()].float()]
+        for i in range(n_micro):
+            lg, st = model.decode_step(bb, st, out_t[:, i:i + 1], adapters=ad, ctx_factory=ctxf,
+                                       prefix_reserve=pres)
+            out.append(lg[:, 0].float())
+        return out
+
+    def rel_by_step(a, b):
+        return [((x - y).abs().max() / y.abs().max()).item() for x, y in zip(a, b)]
+
+    with torch.no_grad():
+        with ops.force_plain():
+            plain = trajectory(backbone, adapters, torch.bfloat16)
+        with plain_split():
+            split = trajectory(backbone, adapters, torch.bfloat16)
+        spread = max(rel_by_step(split, plain))
+        tol = _gate_from(spread)
+        emit({"phase": "serve_methods_gate", "card": card(),
+              "plain_split_vs_plain_max_rel": spread, "two_s": 2 * spread,
+              "logit_tol": LOGIT_TOL, "gate": tol})
+        kernel = trajectory(backbone, adapters, torch.bfloat16)
+        tf = torch.stack([x.argmax(-1) for x in kernel], 1).to(torch.int32)
+        if not torch.equal(tf, out_t):
+            raise AssertionError("serve_methods: teacher-forced kernel tokens differ from the "
+                                 "served tokens")
+        with ops.force_plain():
+            f32 = trajectory(densify(torch, backbone), tree_map(
+                lambda t: t.float() if t.is_floating_point() else t, adapters), torch.float32)
+    rel = {"kernel_vs_plain": rel_by_step(kernel, plain),
+           "kernel_vs_f32": rel_by_step(kernel, f32), "plain_vs_f32": rel_by_step(plain, f32),
+           "plain_split_vs_plain": rel_by_step(split, plain)}
+    top = {k: max(v) for k, v in rel.items()}
+    agree = min((a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                for a, b in zip(kernel, plain))
+    emit({"phase": "serve_methods_check", "card": card(), "steps": n_micro + 1,
+          "logit_max_rel_err": top["kernel_vs_plain"], "tol_rel": tol,
+          "kernel_vs_f32_max_rel": top["kernel_vs_f32"],
+          "plain_vs_f32_max_rel": top["plain_vs_f32"],
+          "plain_split_vs_plain_max_rel": top["plain_split_vs_plain"],
+          "argmax_agreement_min": agree, "phase_seconds": time.perf_counter() - t_phase,
+          "rel_err_by_step": {k: [round(x, 5) for x in v] for k, v in rel.items()}})
+    if not top["kernel_vs_plain"] <= tol:
+        raise AssertionError(f"serve_methods_check: logits kernel vs plain off by "
+                             f"{top['kernel_vs_plain']} of the largest logit > {tol}")
+    if not top["kernel_vs_f32"] <= 2 * top["plain_vs_f32"]:
+        raise AssertionError(f"serve_methods_check: the kernel path is further from the f32 "
+                             f"run ({top['kernel_vs_f32']}) than twice the plain path "
+                             f"({top['plain_vs_f32']})")
+    return counts, tol
+
+
+class _DecodeLog:
+    """Records every decode-pool operation of a service run: the pool's
+    allocation, each batched bind with the request ids it binds, each micro
+    step with the tokens it was fed, the adapter tree each read and the
+    logits each sampled from (a device copy, no host read).  The plain path
+    then replays the same decode from the same states, teacher-forced, and
+    is held to the kernel run's logits at every step.  Adapter updates make
+    new tensors, so a kept reference is the state the kernel run read."""
+
+    def __init__(self):
+        self.ops, self.pending_ids = [], None
+
+    def install(self, engine_cls, sched_cls):
+        import numpy as np
+
+        from repro_torch.launch import steps as lsteps
+
+        log = self
+        names = ("ensure_decode_pool", "dispatch_decode_bind_batched", "dispatch_decode_micro")
+        self.saved = {(engine_cls, n): getattr(engine_cls, n) for n in names}
+        self.saved[(sched_cls, "_dispatch_bind_group")] = sched_cls._dispatch_bind_group
+        self.saved[(lsteps, "sample_tokens")] = lsteps.sample_tokens
+        ensure, bind, micro = (self.saved[(engine_cls, n)] for n in names)
+        group = self.saved[(sched_cls, "_dispatch_bind_group")]
+        sample = self.saved[(lsteps, "sample_tokens")]
+
+        def ensure_decode_pool(eng, rows, max_len, cap):
+            key = (id(eng), eng.decode_pool_gen)
+            pool = ensure(eng, rows, max_len, cap)
+            if (id(eng), eng.decode_pool_gen) != key:
+                log.ops.append({"op": "alloc", "geom": eng._decode_geom})
+            return pool
+
+        def dispatch_bind(eng, rows, tokens, lengths, row_slots, scales, max_new, sampling=None):
+            log.ops.append({"op": "bind", "ids": log.pending_ids, "rows": np.asarray(rows),
+                            "tokens": np.asarray(tokens), "lengths": np.asarray(lengths),
+                            "slots": row_slots, "scales": scales, "max_new": np.asarray(max_new),
+                            "adapters": eng.reg.adapter_params, "mta": eng.reg.mta,
+                            "geom": eng._decode_geom})
+            return bind(eng, rows, tokens, lengths, row_slots, scales, max_new, sampling)
+
+        def dispatch_micro(eng, row_slots, scales):
+            log.ops.append({"op": "micro", "slots": row_slots, "scales": scales,
+                            "adapters": eng.reg.adapter_params, "mta": eng.reg.mta,
+                            "geom": eng._decode_geom, "cur": eng._decode_pool["cur"].clone()})
+            return micro(eng, row_slots, scales)
+
+        def dispatch_group(sched, engine, bucket, items):
+            log.pending_ids = [req.request_id for _, req in items]
+            return group(sched, engine, bucket, items)
+
+        def sample_tokens(logits, *a, **k):
+            log.ops[-1]["logits"] = logits.detach().clone()
+            return sample(logits, *a, **k)
+
+        engine_cls.ensure_decode_pool = ensure_decode_pool
+        engine_cls.dispatch_decode_bind_batched = dispatch_bind
+        engine_cls.dispatch_decode_micro = dispatch_micro
+        sched_cls._dispatch_bind_group = dispatch_group
+        lsteps.sample_tokens = sample_tokens
+
+    def uninstall(self):
+        for (owner, name), fn in self.saved.items():
+            setattr(owner, name, fn)
+
+    def replay_plain(self, torch, model, backbone):
+        """The recorded decode on the plain versions, teacher-forced: each
+        micro step is fed the tokens that the kernel run fed it.  Returns
+        (per request, its steps as (kernel token, plain token, the plain
+        top-two margin relative to the row's largest |logit|); for each
+        bind and micro step, the kernel logits' largest distance from the
+        plain ones over its live rows, relative to their largest plain
+        |logit|, as serve_check measures it)."""
+        from repro_torch.kernels import ops
+        from repro_torch.launch import steps as lsteps
+
+        seen = []
+        real_sample = lsteps.sample_tokens
+
+        def sample(logits, *a, **k):
+            seen.append(logits.float())
+            return real_sample(logits, *a, **k)
+
+        per_req, rel, row_req, pool = {}, [], {}, None
+
+        def hold(op, live, ids):
+            if "logits" not in op:
+                raise AssertionError(f"coserve: no kernel logits recorded for a {op['op']}")
+            k, p = op["logits"].float()[live], seen[0][live]
+            rel.append(((k - p).abs().max() / p.abs().max()).item())
+            top = p.topk(2, dim=-1).values
+            margin = ((top[:, 0] - top[:, 1]) / p.abs().amax(-1)).tolist()
+            for rid, kt, pt, m in zip(ids, k.argmax(-1).tolist(), p.argmax(-1).tolist(), margin):
+                per_req[rid].append((kt, pt, m))
+
+        lsteps.sample_tokens = sample
+        try:
+            with torch.no_grad(), ops.force_plain():
+                for op in self.ops:
+                    _, max_len, cap, pres = op["geom"]
+                    if op["op"] == "alloc":
+                        pool = lsteps.init_decode_pool(model, op["geom"][0], max_len, cap,
+                                                       prefix_reserve=pres)
+                        row_req = {}
+                        continue
+                    dev = pool["cur"].device
+                    seen.clear()
+                    if op["op"] == "bind":
+                        fn = lsteps.build_decode_batched_bind_step(model, op["mta"], max_len,
+                                                                   pres)
+                        rows = op["rows"]
+                        pool = fn(backbone, op["adapters"], pool, torch.as_tensor(rows, device=dev),
+                                  torch.as_tensor(op["tokens"], device=dev),
+                                  torch.as_tensor(op["lengths"], device=dev), op["slots"],
+                                  op["scales"], torch.as_tensor(op["max_new"], device=dev),
+                                  lsteps.greedy_sampling(len(rows), dev), [])
+                        for r, rid in zip(rows.tolist(), op["ids"]):
+                            row_req[r] = rid
+                            per_req[rid] = []
+                        hold(op, torch.arange(len(rows), device=dev), op["ids"])
+                        continue
+                    active = pool["active"].tolist()
+                    live = [r for r, on in enumerate(active) if on and r in row_req]
+                    pool["cur"].copy_(op["cur"])          # the tokens the kernel run fed
+                    pool = lsteps.build_decode_micro_step(model, op["mta"], pres)(
+                        backbone, op["adapters"], pool, op["slots"], op["scales"], [])
+                    if live:
+                        hold(op, torch.as_tensor(live, device=dev), [row_req[r] for r in live])
+        finally:
+            lsteps.sample_tokens = real_sample
+        return per_req, rel
+
+
+class _SyncCounter:
+    """Counts host reads of CUDA tensors (``.item()``, ``.cpu()``,
+    ``.tolist()``) and ``torch.cuda.synchronize`` calls while installed."""
+
+    def __init__(self, torch):
+        self.torch, self.n = torch, 0
+        self.real = {name: getattr(torch.Tensor, name) for name in ("item", "cpu", "tolist")}
+        self.real_sync = torch.cuda.synchronize
+
+    def __enter__(self):
+        torch = self.torch
+
+        def wrap(name):
+            real = self.real[name]
+
+            def f(t, *a, **k):
+                if t.is_cuda:
+                    self.n += 1
+                return real(t, *a, **k)
+            return f
+
+        for name in self.real:
+            setattr(torch.Tensor, name, wrap(name))
+
+        def sync(*a, **k):
+            self.n += 1
+            return self.real_sync(*a, **k)
+        torch.cuda.synchronize = sync
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.torch.Tensor, name, fn)
+        self.torch.cuda.synchronize = self.real_sync
+        return False
+
+
+def coserve_phase(torch, tol):
+    """The coserve path: MuxTuneService on llama3.2-3b at full width and
+    depth (bf16, random weights from a seed), CoServeConfig(decode_slots=8,
+    decode_max_len=1024), reserve_slots=2, checkpoints and cadence
+    checkpoints (every 2 steps) into a temporary directory, and the churn of
+    the JAX service test: A (LoRA) and B (Prefix-Tuning) at clock 0; C
+    (DoRA) and D (VeRA, which waits in the queue under the Eq. 5 budget of
+    {A, B, C}) at clock 2; C cancelled at clock 3; B completes at clock 4
+    (checkpointed out, the stacks compacted) and D is admitted; B resubmitted
+    warm-started from its artifact, admitted when D and A complete.  Eight
+    greedy requests of 64-512 prompt tokens and 32 new tokens go to A, B, C,
+    D and the warm-started B before and during the churn.
+
+    The churn runs twice.  The first pass runs bare: its iteration walls,
+    decode p50 / p99 and memory peaks are the ones reported.  The second is
+    instrumented: the profiler (device ms an iteration), the host-sync
+    counter, timers around attach, detach, compact and checkpoint-out (each
+    ends in a sync), and the decode log; every gate reads it.  Gates: A's
+    per-iteration losses within LOSS_TOL of a solo service run of A; B's
+    artifact equals the slice it was cut from bit for bit, read back with
+    load_task_tree, and the warm-started B starts from it; every request
+    done with its 32 tokens in both passes; the plain path's teacher-forced
+    replay of the instrumented pass's decode within ``tol`` (serve_methods'
+    gate) of the kernel logits at every bind and micro step, and its greedy
+    token apart from the served one only where its top two logits are
+    within ``tol``; p50 <= p99, both > 0; replans >= 4; step-cache hits > 0.
+    Prints per iteration: wall s and the memory peak (bare pass); device
+    ms, decode tokens and micro steps, host syncs, seconds in attach,
+    detach, compact and checkpoint-out (instrumented pass)."""
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PEFTEngine
+    from repro_torch.core.registry import load_task_tree, slice_task_tree
+    from repro_torch.core.task import ParallelismSpec
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.distributed.checkpoint import CheckpointStore
+    from repro_torch.kernels import ops
+    from repro_torch.peft.methods import AdapterConfig
+    from repro_torch.peft.multitask import MultiTaskAdapters
+    from repro_torch.serve import (AdmissionConfig, AdmissionController, CoServeConfig,
+                                   DecodeScheduler, MuxTuneService, RequestSpec, TenantSpec)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3.2-3b")
+    T = {tid: make_task(tid, ds, mb, AdapterConfig(kind, rank=rank), seed=i)
+         for i, (tid, ds, kind, rank, mb) in enumerate(COSERVE_TENANTS)}
+    probe = AdmissionController(cfg, ParallelismSpec())
+    budget = probe.resident_memory([T["a"], T["b"], T["c"]])
+    if not (probe.resident_memory([T["a"], T["b"], T["d"]]) > budget
+            >= probe.resident_memory([T["a"], T["d"]])):
+        raise AssertionError("coserve: the Eq. 5 budget does not queue D behind B")
+    real_sync = torch.cuda.synchronize
+
+    def service(tmp, **kw):
+        return MuxTuneService(
+            cfg, ParallelismSpec(), lr=TRAIN_LR, n_micro=1, enable_fusion=False,
+            reserve_slots=2, seed=0, ckpt_dir=os.path.join(tmp, "ckpt"),
+            fault_dir=os.path.join(tmp, "fault"), ckpt_cadence=2,
+            admission=AdmissionConfig(memory_budget=budget, max_queue=4), **kw)
+
+    def churn(tmp, step, prepare=None):
+        """The churn scenario on a fresh service (``prepare(svc)`` first);
+        ``step(svc)`` runs one iteration and returns (metrics, the iteration
+        line's fields)."""
+        svc = service(tmp, coserve=CoServeConfig(decode_slots=8, decode_max_len=1024,
+                                                 max_new_cap=COSERVE_NEW, slo_seconds=2.0,
+                                                 max_tokens_per_iter=COSERVE_NEW))
+        if prepare is not None:
+            prepare(svc)
+        rs = np.random.RandomState(4)
+        reqs, losses, states = [], [], {}
+
+        def submit(tenants, requests, warm=False):
+            for t in tenants:
+                svc.submit(TenantSpec(T[t], target_steps=COSERVE_WARM_STEPS if warm
+                                      else COSERVE_TARGETS[t],
+                                      warm_start_dir=os.path.join(tmp, "ckpt", t) if warm
+                                      else None))
+            for t in requests:
+                prompt = rs.randint(1, cfg.vocab_size, int(rs.randint(64, 513)))
+                reqs.append(svc.submit_request(t, RequestSpec(prompt,
+                                                              max_new_tokens=COSERVE_NEW)))
+
+        events = {0: lambda: submit("ab", "aab"), 2: lambda: submit("cd", "cd"),
+                  3: lambda: svc.cancel("c"), 4: lambda: submit("b", "bad", warm=True)}
+        for it in range(COSERVE_MAX_ITERS):
+            if it in events:
+                events[it]()
+                states[it] = {t: r.state for t, r in svc.tenants.items()}
+            if not svc.resident and not len(svc.queue):
+                break
+            ids = [t.task_id for t in svc.plan.tasks] if svc.plan else []
+            torch.cuda.reset_peak_memory_stats()
+            m, fields = step(svc)
+            if m is not None:
+                losses.append({t: float(m.per_task_loss[i]) for i, t in enumerate(ids)})
+            emit({"phase": "coserve_iteration", "card": card(), "iteration": it,
+                  "clock": svc.clock, "resident": ids,
+                  "queued": [r.task_id for r in svc.queue.items()],
+                  "per_task_loss": losses[-1] if m is not None else None,
+                  "decode_tokens": m.decode_tokens if m else 0,
+                  "decode_micro_steps": m.decode_micro_steps if m else 0,
+                  "decode_mid_iteration_micro_steps": svc.coserve.last_mid_micros,
+                  "decode_seconds": m.decode_seconds if m else 0.0, **fields,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        for r in reqs:
+            if r.state != "done" or len(r.tokens_out) != COSERVE_NEW:
+                got = 0 if r.tokens_out is None else len(r.tokens_out)
+                raise AssertionError(f"coserve: request {r.request_id} ended {r.state} "
+                                     f"({r.reason}) with {got} tokens")
+        co = svc.accounting()["coserve"]
+        if not 0 < co["decode_p50_s"] <= co["decode_p99_s"]:
+            raise AssertionError(f"coserve: decode p50 {co['decode_p50_s']} "
+                                 f"p99 {co['decode_p99_s']}")
+        return svc, reqs, losses, states
+
+    # ---- the bare pass: the latency and memory that are reported ----
+    bare_lines = []
+
+    def bare_step(svc):
+        t0 = time.perf_counter()
+        m = svc.step()
+        wall = time.perf_counter() - t0
+        real_sync()
+        bare_lines.append({"wall_s": wall, "max_memory_allocated":
+                           torch.cuda.max_memory_allocated()})
+        return m, {"pass": "bare", "wall_s": wall}
+
+    t_bare = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        svc, _, _, _ = churn(tmp, bare_step)
+        bare = svc.accounting()
+        del svc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the instrumented pass: device time, syncs, lifecycle, the gates ----
+    t_inst = time.perf_counter()
+    spent = {"attach_s": 0.0, "detach_s": 0.0, "compact_s": 0.0, "checkpoint_out_s": 0.0}
+    captured, inst_lines = {}, []
+
+    def timed(key, fn):
+        def f(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            real_sync()
+            spent[key] += time.perf_counter() - t0
+            return out
+        return f
+
+    def instrument(svc):
+        svc._attach = timed("attach_s", svc._attach)
+        svc._detach = timed("detach_s", svc._detach)
+        svc.gen.compact = timed("compact_s", svc.gen.compact)
+        ckpt_out, warm = svc.checkpoint_out_tenant, svc._warm_start
+
+        def checkpoint_out(task_id, ckpt_dir, include_optimizer=True):
+            reg = svc.gen.registered
+            captured.setdefault(task_id, tree_map(
+                lambda t: t.detach().clone(),
+                slice_task_tree(cfg, reg.mta, reg.adapter_params, reg.task_index(task_id))))
+            return ckpt_out(task_id, ckpt_dir, include_optimizer)
+
+        def warm_start(rec):
+            warm(rec)
+            reg = svc.gen.registered
+            captured["warm_" + rec.task_id] = slice_task_tree(
+                cfg, reg.mta, reg.adapter_params, reg.task_index(rec.task_id))
+        svc.checkpoint_out_tenant = timed("checkpoint_out_s", checkpoint_out)
+        svc._warm_start = warm_start
+
+    def inst_step(svc):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, _SyncCounter(torch) as syncs:
+            t0 = time.perf_counter()
+            m = svc.step()
+            wall = time.perf_counter() - t0
+            real_sync()
+        # the device events' own durations, read from the raw trace:
+        # building the per-op event tree of a decode iteration (a few
+        # hundred thousand kernels) costs tens of seconds
+        dev_us = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e3
+        fields = {"pass": "instrumented", "wall_s_profiled": wall, "device_ms": dev_us / 1e3,
+                  "host_syncs": syncs.n, **spent}
+        inst_lines.append(fields)
+        spent.update(dict.fromkeys(spent, 0.0))
+        return m, fields
+
+    log = _DecodeLog()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        log.install(PEFTEngine, DecodeScheduler)
+        try:
+            svc, reqs, losses, states = churn(tmp, inst_step, instrument)
+        finally:
+            log.uninstall()
+        counts = ops.launch_counts()
+        acct = svc.accounting()
+        torch.cuda.synchronize()
+
+        # ---- B's artifact, read back; the warm-started B starts from it ----
+        if "b" not in captured or "warm_b" not in captured:
+            raise AssertionError(f"coserve: B was not checkpointed out and warm-started "
+                                 f"({sorted(captured)})")
+        store = CheckpointStore(os.path.join(tmp, "ckpt", "b"))
+        _, art, _ = store.restore(captured["b"])
+        kind_cfg = [AdapterConfig("prefix", rank=COSERVE_TENANTS[1][3])]
+        fresh_mta = MultiTaskAdapters(cfg, kind_cfg)
+        fresh = fresh_mta.init(torch.Generator(device="cuda").manual_seed(1))
+        loaded = slice_task_tree(cfg, fresh_mta,
+                                 load_task_tree(cfg, fresh_mta, fresh, 0, art, strict=True), 0)
+        want = captured["b"]
+        for what, tree in (("artifact", art), ("load_task_tree", loaded),
+                           ("warm start", captured["warm_b"])):
+            if sorted(_leaf_paths(tree)) != sorted(_leaf_paths(want)):
+                raise AssertionError(f"coserve: B's {what} has leaves {_leaf_paths(tree)}, "
+                                     f"the slice {_leaf_paths(want)}")
+            for path in _leaf_paths(want):
+                a, b = _leaf(tree, path), _leaf(want, path)
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"coserve: B's {what} leaf {path} is not the slice "
+                                         f"it was cut from")
+
+    # ---- every request's logits and tokens against the plain replay ----
+    t_replay = time.perf_counter()
+    per_req, rel = log.replay_plain(torch, svc.gen.model, svc.gen.backbone_params)
+    del log
+    req_lines = []
+    for r in reqs:
+        steps_ = per_req[r.request_id]
+        if [kt for kt, _, _ in steps_] != [int(t) for t in r.tokens_out]:
+            raise AssertionError(f"coserve: request {r.request_id}: the recorded kernel logits "
+                                 f"do not give its served tokens")
+        apart = [i for i, (kt, pt, _) in enumerate(steps_) if kt != pt]
+        wide = [(i, steps_[i][2]) for i in apart if steps_[i][2] > tol]
+        if wide:
+            raise AssertionError(f"coserve: request {r.request_id}: the plain path picks another "
+                                 f"token at steps {wide} (step, plain top-two margin) > {tol}")
+        req_lines.append({"request": r.request_id, "task": r.task_id,
+                          "prompt_tokens": len(r.prompt), "queue_wait": r.queue_wait,
+                          "makespan_iters": r.finish_clock - r.submit_clock,
+                          "steps_apart_from_plain": apart,
+                          "plain_margin_max_there": max((steps_[i][2] for i in apart),
+                                                        default=None)})
+    emit({"phase": "coserve_check", "card": card(), "decode_steps_held": len(rel),
+          "logit_max_rel_err": max(rel), "tol_rel": tol,
+          "rel_err_by_step": [round(x, 5) for x in rel]})
+    if not max(rel) <= tol:
+        raise AssertionError(f"coserve_check: logits kernel vs plain off by {max(rel)} of the "
+                             f"largest logit > {tol}")
+
+    # ---- the solo A run: A's losses across the churn ----
+    t_solo = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        solo = service(tmp)
+        solo.submit(TenantSpec(T["a"], target_steps=COSERVE_TARGETS["a"]))
+        solo_losses = [solo.step().per_task_loss[0] for _ in range(COSERVE_TARGETS["a"])]
+        del solo
+    churn_a = [x["a"] for x in losses if "a" in x]
+    rel_a = [abs(c - s) / abs(s) for c, s in zip(churn_a, solo_losses)]
+    if len(churn_a) != COSERVE_TARGETS["a"] or max(rel_a) > LOSS_TOL:
+        raise AssertionError(f"coserve: A's losses {churn_a} vs solo {solo_losses} "
+                             f"(rel {rel_a}) > {LOSS_TOL}")
+    seconds = {"bare_pass": t_inst - t_bare, "instrumented_pass": t_replay - t_inst,
+               "plain_replay": t_solo - t_replay, "solo_a": time.perf_counter() - t_solo}
+
+    path_kernels = ("grouped_lora", "grouped_lora_bwd", "packed_attention",
+                    "packed_attention_dq", "packed_attention_dkv", "decode_attention")
+    if not all(counts[k] > 0 for k in path_kernels):
+        raise AssertionError(f"coserve: a kernel of the path never launched: {counts}")
+    if acct["replans"] < 4 or acct["cache_hits"] <= 0:
+        raise AssertionError(f"coserve: replans {acct['replans']}, cache hits {acct['cache_hits']}")
+    want_states = {2: {"d": "queued"}, 3: {"d": "queued", "c": "cancelled"},
+                   4: {"b": "queued", "d": "running"}}
+    for it, want in want_states.items():
+        if any(states[it][t] != s for t, s in want.items()):
+            raise AssertionError(f"coserve: after the events of iteration {it} the tenants are "
+                                 f"{states[it]}, want {want}")
+    for t in "abd":
+        if svc.record(t).state != "completed":
+            raise AssertionError(f"coserve: tenant {t} ended {svc.record(t).state}")
+    co, co_inst = bare["coserve"], acct["coserve"]
+    emit({"phase": "coserve", "card": card(), "model": cfg.name, "layers": cfg.num_layers,
+          "tenants": [f"{t}:{k}:{r} (micro-batch {mb})" for t, _, k, r, mb in COSERVE_TENANTS],
+          "memory_budget": budget, "iterations": len(inst_lines), "launches": counts,
+          "replans": acct["replans"], "cache_hits": acct["cache_hits"],
+          "cache_misses": acct["cache_misses"], "decode_tokens": co["decode_tokens"],
+          "decode_p50_s": co["decode_p50_s"], "decode_p99_s": co["decode_p99_s"],
+          "decode_p50_s_instrumented": co_inst["decode_p50_s"],
+          "decode_p99_s_instrumented": co_inst["decode_p99_s"],
+          "mid_iteration_binds": co_inst["mid_iteration_binds"],
+          "a_loss_rel_to_solo_max": max(rel_a), "logit_max_rel_err": max(rel),
+          "requests": req_lines,
+          "wall_s_per_iteration": [x["wall_s"] for x in bare_lines],
+          "host_syncs_per_iteration": [x["host_syncs"] for x in inst_lines],
+          "device_ms_per_iteration": [x["device_ms"] for x in inst_lines],
+          "max_memory_allocated": max(x["max_memory_allocated"] for x in bare_lines),
+          "b_artifact_bits_equal": True,
+          "seconds": dict(seconds, phase=time.perf_counter() - t_phase),
+          "tenants_end": {t: r.accounting() for t, r in svc.tenants.items()}})
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2362,10 +3202,9 @@ def main() -> int:
         return 1
     from repro_torch.kernels import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    emit({"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
+    smi = card()
+    emit({"phase": "device", "nvidia_smi": f"{smi['name']}, {smi['power_limit']}",
+          "name": torch.cuda.get_device_name(0),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "count": torch.cuda.device_count()})
 
@@ -2383,6 +3222,8 @@ def main() -> int:
     with torch.no_grad():
         kern = kernel_phase(torch, timer)
         kern.update(quant_kernel_phase(torch, timer))
+        serving, _ = bind_kernel_cases(torch, timer, torch.Generator(device="cuda").manual_seed(7))
+        kern.update(serving)
     cfg, tasks, plan = train_plan()
     kern.update(train_kernel_phase(torch, timer, cfg, tasks, plan))
     methods = methods_plan()
@@ -2420,6 +3261,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts["train_zamba"], engine = train_phase(torch, *zamba)
     train_check(torch, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the co-serving paths: the pool with one tenant of each PEFT kind, then
+    # the service under tenant churn
+    counts["serve_methods"], gate = serve_methods_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["coserve"] = coserve_phase(torch, gate)
 
     # (name, source, Pallas kernel body, the entry's own measurement, variants)
     csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -2435,7 +3285,9 @@ def main() -> int:
         ("packed_attention", "packed_attention.cu", "packed_attention.py:60", "packed_attention",
          {"train_variant": "packed_attention_train",
           "zamba2_variant": "packed_attention_train_zamba2",
-          "prefix_variant": "packed_attention_train_prefix"}),
+          "prefix_variant": "packed_attention_train_prefix",
+          "bind_prefix_128_variant": "packed_attention_bind_prefix_128",
+          "bind_prefix_512_variant": "packed_attention_bind_prefix_512"}),
         ("packed_attention_dq", "packed_attention.cu", "packed_attention.py:128",
          "packed_attention_dq", {"zamba2_variant": "packed_attention_dq_zamba2",
                                  "prefix_variant": "packed_attention_dq_prefix"}),
@@ -2443,7 +3295,7 @@ def main() -> int:
          "packed_attention_dkv", {"zamba2_variant": "packed_attention_dkv_zamba2",
                                   "prefix_variant": "packed_attention_dkv_prefix"}),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:40",
-         "decode_attention", {}),
+         "decode_attention", {"pool_variant": "decode_attention_pool"}),
         ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", "quant_matmul", {}),
         ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:76", "mamba_scan_zamba2", {}),
         ("mamba_scan_bwd_state", "mamba_scan.cu", "mamba_scan.py:136",

@@ -18,7 +18,13 @@ package lays them out, and return the same layout as torch tensors:
   ``mamba`` (``[n_super, per, capacity, ...]``) and ``shared_attn``
   (``[capacity, ...]``).  A kind's shared leaves (VeRA's ``A`` / ``B``)
   have no capacity axis, and Diff-Pruning's ``rows`` stay int32 (a leaf
-  whose spec names its type keeps it, whatever ``dtype`` asks).
+  whose spec names its type keeps it, whatever ``dtype`` asks);
+* ``registration_from_numpy``: a JAX registration (adapter tree, AdamW
+  moments and slot map, after any ``register_tasks``, ``deregister_tasks``
+  or ``compact``) written into the port's ``RegisteredTasks`` of the same
+  task list, whole or only the slots of the tasks named, so that both
+  packages go on from the same state (JAX's fresh tenants are then what the
+  port's tenants start from).
 
 The converters walk the port's spec, so any family the port's ``Model`` and
 ``MultiTaskAdapters`` lay out as the JAX package does converts.
@@ -41,8 +47,12 @@ from repro_torch.models.transformer import Model
 from repro_torch.peft.multitask import MultiTaskAdapters
 
 
-def _convert(spec: Any, tree: Any, path: str, device, dtype) -> Any:
+def _convert(spec: Any, tree: Any, path: str, device, dtype, moments: bool = False) -> Any:
     if isinstance(spec, ParamSpec):
+        if moments and spec.dtype is not None and not spec.dtype.is_floating_point:
+            if tree is not None:  # an integer leaf has no moments
+                raise ValueError(f"leaf {path}: an integer leaf's moment is not None")
+            return None
         arr = np.asarray(tree)
         if tuple(arr.shape) != tuple(spec.shape):
             raise ValueError(f"leaf {path}: shape {arr.shape}, expected {spec.shape}")
@@ -60,7 +70,7 @@ def _convert(spec: Any, tree: Any, path: str, device, dtype) -> Any:
         raise KeyError(f"missing leaves under {path or 'root'}: {missing}")
     if unused:
         raise KeyError(f"unused leaves under {path or 'root'}: {unused}")
-    return {k: _convert(spec[k], tree[k], f"{path}.{k}" if path else k, device, dtype)
+    return {k: _convert(spec[k], tree[k], f"{path}.{k}" if path else k, device, dtype, moments)
             for k in spec}
 
 
@@ -80,3 +90,51 @@ def adapters_from_numpy(tree: Dict[str, Any], mta: MultiTaskAdapters,
     """The JAX ``MultiTaskAdapters`` tree as the port's adapter dict (each
     leaf keeps its numpy dtype)."""
     return _convert(mta.spec(), tree, "", device, None)
+
+
+def registration_from_numpy(reg, params: Dict[str, Any], m: Dict[str, Any],
+                            v: Dict[str, Any], task_slot, task_ids=None) -> None:
+    """Write a JAX registration into the port's ``reg`` (a
+    ``RegisteredTasks``), in place: ``params`` the adapter tree (as
+    :func:`adapters_from_numpy` takes it), ``m`` / ``v`` the AdamW moments
+    (f32, None at integer leaves), ``task_slot`` the JAX slot map, which
+    must equal the port's.  ``task_ids`` None replaces the three trees
+    whole; otherwise only the named tasks' slots are written (their leaves
+    at the task axis; shared leaves, which have none, stay)."""
+    from repro_torch.core.registry import _group_depths
+    from repro_torch.peft.methods import shared_leaf
+    from repro_torch.train.optimizer import AdamWState
+
+    mta = reg.mta
+    if not np.array_equal(np.asarray(mta.task_slot), np.asarray(task_slot)):
+        raise ValueError(f"slot maps differ: port {list(mta.task_slot)}, "
+                         f"JAX {list(np.asarray(task_slot))}")
+    dev = mta.device
+    spec = mta.spec()
+    new_p = _convert(spec, params, "", dev, None)
+    new_m = _convert(spec, m, "", dev, torch.float32, moments=True)
+    new_v = _convert(spec, v, "", dev, torch.float32, moments=True)
+    if task_ids is None:
+        reg.adapter_params = new_p
+        reg.opt_state = AdamWState(reg.opt_state.step, new_m, new_v)
+        return
+    index = {t.task_id: i for i, t in enumerate(reg.tasks)}
+    depths = _group_depths(mta.cfg)
+
+    def write(dst, src, kind, slot, depth, name=None):
+        if isinstance(dst, dict):
+            for k in dst:
+                write(dst[k], src[k], kind, slot, depth, k)
+        elif dst is not None and not shared_leaf(kind, name):
+            dst.select(depth, slot).copy_(src.select(depth, slot))
+
+    for tid in task_ids:
+        i = index[tid]
+        kind, slot = mta.task_cfgs[i].kind, int(mta.task_slot[i])
+        for dst, src in ((reg.adapter_params, new_p), (reg.opt_state.m, new_m),
+                         (reg.opt_state.v, new_v)):
+            groups = ([(dst, src, depths[""])] if "" in depths else
+                      [(dst[g], src[g], d) for g, d in depths.items() if g in dst])
+            for dg, sg, depth in groups:
+                if kind in dg:
+                    write(dg[kind], sg[kind], kind, slot, depth)

@@ -8,14 +8,18 @@ small-operator underutilization (the curve is what makes spatial batching
 pay off below saturation and plateau above it — Fig. 9b).  The defaults are
 the NVIDIA H100 SXM's spec-sheet values; a caller passes another
 ``HardwareProfile`` (and the planner another memory budget) to plan for
-other hardware.  Fitting the profile to measured step times (the JAX
-package's ``calibrate_profile``) and the decode-token term of the serving
-scheduler are not ported yet.
+other hardware.  ``calibrate_profile`` fits the profile's saturation knee
+and its analytic -> wall scales to measured iteration and decode times, and
+``CostModel.decode_token_latency`` prices one fused decode micro step for
+the co-serving scheduler.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.configs import ArchConfig
 from repro_torch.core.task import HTask, ParallelismSpec, PEFTTask
@@ -56,8 +60,20 @@ class HardwareProfile:
         u = max(self.utilization(flops), 1e-3)
         return max(flops / (self.peak_flops * u), bytes_moved / self.hbm_bw)
 
+    def calibrate(self, name: str, factor: float) -> None:
+        """Install a measured correction factor: per-op name, or the
+        reserved ``"__wall__"`` key (a global analytic -> wall-clock scale
+        fitted from StepMetrics, :func:`calibrate_profile`)."""
+        self.calibration[name] = factor
+
     def wall_scale(self) -> float:
         return self.calibration.get("__wall__", 1.0)
+
+    def decode_scale(self) -> float:
+        """Decode-side analytic -> wall scale (``"__decode__"``), fitted from
+        measured per-micro-step decode seconds; the training wall scale until
+        a decode trace has been fitted."""
+        return self.calibration.get("__decode__", self.wall_scale())
 
 
 def backbone_ops(cfg: ArchConfig, dtype_bytes: int = 2,
@@ -213,9 +229,114 @@ class CostModel:
     def fits_memory(self, htasks: Sequence[HTask], budget: float = HBM_BYTES) -> bool:
         return self.stage_memory(htasks) <= budget
 
+    # -------------------------------------------------- decode-token term
+    def decode_token_latency(self, rows: int, ctx_len: int) -> float:
+        """Predicted wall seconds of ONE fused decode micro step of the
+        co-serving pool: ``rows`` requests, one token each, over a mean
+        context of ``ctx_len`` cached positions.
+
+        Decode is the memory-bound regime of §2.2: each BaseOp reads its
+        whole weight for a handful of tokens, so ``bytes_fixed`` dominates.
+        The attention term reads every cached k/v row; every resident
+        method's adapters apply at decode as in training."""
+        p = self.parallelism
+        lat = 0.0
+        for op in self._ops:
+            flops = op.flops_per_token * rows
+            bytes_moved = op.bytes_fixed + op.bytes_per_token * rows
+            cal = self.hw.calibration.get(op.name, 1.0)
+            lat += cal * self.hw.op_latency(flops / p.tp, bytes_moved / p.tp)
+        kv_dim = 2 * self.cfg.kv_dim if self.cfg.attention != "none" else 0
+        att_flops = attention_flops_per_token(self.cfg, max(ctx_len, 1)) * 2.0 * rows
+        kv_bytes = rows * ctx_len * kv_dim * self.dtype_bytes
+        lat += self.hw.op_latency(att_flops / p.tp, kv_bytes / p.tp)
+        if self.tasks:
+            a = sum(sum(fl for _s, _i, _o, fl, _p in self.task_sites(t))
+                    for t in self.tasks) / len(self.tasks)
+            lat += self.hw.op_latency(a * rows, rows * self.cfg.d_model * self.dtype_bytes)
+        # decode runs the full depth (every stage) per token
+        lat *= self._layers_per_stage * self.parallelism.num_stages
+        # unembedding projection (the sampling feedback stays on the device)
+        lat += self.hw.op_latency(2.0 * rows * self.cfg.d_model * self.cfg.vocab_size,
+                                  self.cfg.d_model * self.cfg.vocab_size * self.dtype_bytes)
+        return lat * self.hw.decode_scale()
+
     def schedule_latency(self, htask_counts: Sequence[Tuple[HTask, int]]) -> float:
         """Predicted wall time of one engine iteration: the scheduled
         hTask micro-steps run back-to-back over all stages (the engine's
         sequential dispatch on one host)."""
         return sum(n * sum(self.stage_latencies(h)) for h, n in htask_counts)
+
+
+# ---------------------------------------------------------------------------
+# Measured-trace calibration (the admission gate on the hardware it runs on)
+# ---------------------------------------------------------------------------
+
+#: one calibration observation: the tasks resident that iteration, the
+#: (hTask, micro-steps) schedule executed, and StepMetrics.wall_seconds
+CalibrationSample = Tuple[Sequence[PEFTTask], Sequence[Tuple[HTask, int]], float]
+
+#: one decode-side observation: (pool rows decoding, mean context length,
+#: measured seconds per fused decode micro step)
+DecodeSample = Tuple[int, float, float]
+
+
+def calibrate_profile(
+    cfg: ArchConfig,
+    parallelism: ParallelismSpec,
+    samples: Sequence[CalibrationSample],
+    base_hw: Optional[HardwareProfile] = None,
+    x_half_grid: Optional[Sequence[float]] = None,
+    decode_samples: Optional[Sequence[DecodeSample]] = None,
+) -> HardwareProfile:
+    """Fit the analytic profile to measured ``StepMetrics`` wall times.
+
+    Jointly fitted: ``util_x_half`` (the §2.2 saturation knee, which the
+    admission gate's latency-inflation ratio depends on) over a log grid,
+    and per knee a global analytic -> wall scale (``"__wall__"``) by least
+    squares through the origin.  The fitted profile keeps only that entry.
+    ``decode_samples`` also fits an independent decode-side scale
+    (``"__decode__"``) against the raw analytic ``decode_token_latency``."""
+    def fit_decode(out: HardwareProfile) -> HardwareProfile:
+        if not decode_samples:
+            return out
+        # raw analytic predictions: the fitted knee, no calibration entries
+        bare = HardwareProfile(out.peak_flops, out.hbm_bw, out.ici_bw, out.util_x_half, {})
+        cm = CostModel(cfg, [], parallelism, bare)
+        p = np.asarray([cm.decode_token_latency(int(r), int(max(ctx, 1)))
+                        for r, ctx, _s in decode_samples], np.float64)
+        meas = np.asarray([s for _r, _ctx, s in decode_samples], np.float64)
+        denom = float(p @ p)
+        if denom > 0.0:
+            out.calibrate("__decode__", float(p @ meas) / denom)
+        return out
+
+    base = base_hw or HardwareProfile()
+    if not samples:
+        if not decode_samples:
+            return base  # nothing to fit: identity, not a copy
+        return fit_decode(dataclasses.replace(base, calibration=dict(base.calibration)))
+    if x_half_grid is None:
+        x_half_grid = [base.util_x_half * f for f in np.logspace(-3.0, 3.0, 13)]
+    best: Optional[Tuple[float, float, float]] = None  # (loss, x_half, scale)
+    meas = np.asarray([wall for _, _, wall in samples], np.float64)
+    for xh in x_half_grid:
+        hw = HardwareProfile(base.peak_flops, base.hbm_bw, base.ici_bw, float(xh), {})
+        p = np.asarray([CostModel(cfg, list(tasks), parallelism, hw).schedule_latency(hc)
+                        for tasks, hc, _wall in samples], np.float64)
+        denom = float(p @ p)
+        if denom <= 0.0:
+            continue
+        scale = float(p @ meas) / denom
+        loss = float(((meas - scale * p) ** 2).sum())
+        if best is None or loss < best[0]:
+            best = (loss, float(xh), scale)
+    if best is None:
+        if not decode_samples:
+            return base
+        return fit_decode(dataclasses.replace(base, calibration=dict(base.calibration)))
+    _, xh, scale = best
+    out = HardwareProfile(base.peak_flops, base.hbm_bw, base.ici_bw, xh, {})
+    out.calibrate("__wall__", scale)
+    return fit_decode(out)
 

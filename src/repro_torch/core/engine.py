@@ -24,8 +24,14 @@ routing tensors, masks and loss reduction), built once.
 
 On a CUDA device every adapter projection and every attention runs the
 hand-written kernels (``repro_torch.kernels``), forward and backward.
-Tenant churn (``attach_tasks`` / ``detach_tasks``) and the co-serving
-``interleave`` hook of ``run_iteration`` come with later slices.
+
+Online serving (task churn): ``attach_tasks`` / ``detach_tasks`` swap in a
+new plan; step closures whose hTask signature survives the change are
+reused (``cache_hits`` / ``cache_misses`` count the lookups), and
+surviving tenants keep their adapter values, moments and per-slot step
+counts.  ``run_iteration(interleave=...)`` calls a hook after each training
+micro step's dispatch, where the co-serving scheduler enqueues decode work
+on the same stream; it adds no host sync.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch import resolve_device
 from repro_torch.core.planner import ExecutionPlan
 from repro_torch.core.registry import ModelGenerator, RegisteredTasks, _group_depths
 from repro_torch.launch import steps
+from repro_torch.obs.tracing import span
 from repro_torch.peft.methods import shared_leaf
 from repro_torch.train.optimizer import (
     adamw_update,
@@ -57,6 +64,20 @@ class StepMetrics:
     tokens: int
     effective_tokens: int
     wall_seconds: float
+    # co-serving (token-level decode interleave): zero when no inference
+    # traffic rode along with this training iteration
+    decode_tokens: int = 0
+    decode_seconds: float = 0.0
+    decode_p50_s: float = 0.0   # windowed per-token latency percentiles
+    decode_p99_s: float = 0.0
+    decode_micro_steps: int = 0  # fused micro steps in the timed segment
+
+    @property
+    def decode_token_seconds(self) -> float:
+        """Mean wall seconds per decode token of this iteration's batch: the
+        decode-side channel ``cost_model.calibrate_profile(decode_samples=)``
+        fits."""
+        return self.decode_seconds / max(self.decode_tokens, 1)
 
 
 class PEFTEngine:
@@ -76,12 +97,20 @@ class PEFTEngine:
         self.reg: RegisteredTasks = gen.registered
         self._check_alignment()
         self._steps: Dict[Tuple, Callable] = {}   # hTask signature -> step
+        self.cache_hits = 0
+        self.cache_misses = 0
         self._adapter_sig = self._adapter_shape_sig()
         self._lr_scales = self._build_lr_scales()
         self._slot_steps = self._fresh_slot_steps()
         self._member_ids = self._build_member_ids()
         self._decode_pool: Optional[Dict[str, Any]] = None
         self._decode_geom: Optional[tuple] = None  # (rows, max_len, cap, prefix)
+        # the pool rows bound with temp > 0, kept on the host so that a
+        # greedy micro step reads nothing back from the device
+        self._decode_sampled: List[int] = []
+        # the pool's step closures, rebuilt with the training step cache
+        # (adapter-stack shape changes), not on churn
+        self._decode_fns: Dict[Any, Callable] = {}
         self.decode_pool_gen = 0  # bumps when the pool is (re)allocated
 
     # ------------------------------------------------------------------
@@ -151,6 +180,57 @@ class PEFTEngine:
                                       fill=self.lr) / self.lr
                 for kind, ids in mta.kind_tasks.items()}
         return self._broadcast_slots(vecs)
+
+    # ------------------------------------------------------------------
+    # Task churn: incremental re-plan (§3.2 online path)
+
+    def attach_tasks(self, new_tasks: Sequence, plan: ExecutionPlan) -> None:
+        """Hot-attach tenants (fresh adapters and zero moments at free
+        slots) and swap to ``plan``.  Steps whose signature is unchanged are
+        reused."""
+        old_reg = self.reg
+        self.reg = self.gen.register_tasks(new_tasks)
+        self._after_rebuild(old_reg, plan)
+
+    def detach_tasks(self, task_ids: Sequence[str], plan: ExecutionPlan,
+                     compact: bool = False) -> None:
+        """Detach tenants; their slots are freed for reuse.  ``compact=True``
+        re-packs the stacks densely, freeing the departed tenants' adapter
+        and moment memory, at the cost of rebuilding every step."""
+        old_reg = self.reg
+        self.reg = self.gen.deregister_tasks(task_ids)
+        if compact:
+            self.reg = self.gen.compact()
+        self._after_rebuild(old_reg, plan)
+
+    def _after_rebuild(self, old_reg: RegisteredTasks, plan: ExecutionPlan) -> None:
+        self.plan = plan
+        self._check_alignment()
+        new_sig = self._adapter_shape_sig()
+        if new_sig != self._adapter_sig:
+            self._steps.clear()        # stack shapes changed: every step is stale
+            self._decode_fns.clear()   # the decode steps close over the stacks too
+            self._adapter_sig = new_sig
+        self._lr_scales = self._build_lr_scales()
+        self._slot_steps = self._carry_slot_steps(old_reg)
+        self._member_ids = self._build_member_ids()
+
+    def _carry_slot_steps(self, old_reg: RegisteredTasks) -> Dict[str, torch.Tensor]:
+        """Carry surviving tasks' per-slot update counts across a rebuild."""
+        old_vecs = {k: v.cpu().numpy() for k, v in self._slot_steps.items()}
+        old_ids = {t.task_id: i for i, t in enumerate(old_reg.tasks)}
+        mta = self.reg.mta
+        out = {}
+        for kind, ids in mta.kind_tasks.items():
+            vec = np.zeros((mta.kind_capacity[kind],), np.float32)
+            old_vec = old_vecs.get(kind)
+            for i in ids:
+                oi = old_ids.get(self.reg.tasks[i].task_id)
+                if oi is None or old_reg.tasks[oi].adapter.kind != kind or old_vec is None:
+                    continue
+                vec[int(mta.task_slot[i])] = old_vec[int(old_reg.mta.task_slot[oi])]
+            out[kind] = torch.as_tensor(vec, device=self.device)
+        return out
 
     # ------------------------------------------------------------------
 
@@ -252,6 +332,9 @@ class PEFTEngine:
         key = self.step_signature(htask_idx)
         if key not in self._steps:
             self._steps[key] = self._make_step(htask_idx)
+            self.cache_misses += 1
+        else:
+            self.cache_hits += 1
         return self._steps[key]
 
     def _schedule(self, n_micro: Optional[int]) -> List[int]:
@@ -275,30 +358,50 @@ class PEFTEngine:
             order = kept
         return [hid for b in order for hid in buckets[b].htask_ids]
 
-    def run_iteration(self, loaders: Dict[int, Iterator],
-                      n_micro: Optional[int] = None) -> StepMetrics:
-        """One training iteration: all buckets, template order.  Micro-steps
+    def run_iteration(self, loaders: Dict[int, Iterator], n_micro: Optional[int] = None,
+                      interleave: Optional[Callable[[], None]] = None) -> StepMetrics:
+        """One training iteration: all buckets, template order.  Micro steps
         enqueue back to back; the one device -> host transfer is the read of
-        the accumulated loss and per-task sums at the end."""
-        t0 = time.perf_counter()
-        schedule = self._schedule(n_micro)
-        # per-task accumulator sized to the total slot capacity; sliced to
-        # the live tasks on the host
-        n_acc = max(len(self.plan.tasks), sum(self.reg.mta.kind_capacity.values()))
-        acc = (torch.zeros((), dtype=torch.float32, device=self.device),
-               torch.zeros((n_acc,), dtype=torch.float32, device=self.device))
-        tokens = eff = 0
-        batches = steps.prefetch_to_device((next(loaders[h]) for h in schedule), self.device)
-        for hid, batch in zip(schedule, batches):
-            step = self._step_for(hid)
-            (self.reg.adapter_params, self.reg.opt_state, self._slot_steps, acc) = step(
-                self.backbone, self.reg.adapter_params, self.reg.opt_state,
-                self._slot_steps, batch, self._member_ids[hid], acc)
-            h = self.plan.htasks[hid]
-            tokens += h.tokens
-            eff += h.effective_tokens
-        got = torch.cat([acc[0].reshape(1), acc[1]]).cpu().numpy().astype(np.float64)
-        dt = time.perf_counter() - t0
+        the accumulated loss and per-task sums at the end.
+
+        ``interleave`` (token-level co-serving): called after every training
+        micro step's dispatch.  It may enqueue decode work
+        (``dispatch_decode_micro``, a bind) on the same stream, between the
+        training micro steps, without a host sync.
+
+        The loop is span-instrumented (``engine.iteration``,
+        ``engine.prefetch``, ``engine.micro_step``, ``engine.sync`` on the
+        ``engine`` track); with tracing off every site is one shared no-op."""
+        with span("engine.iteration", track="engine"):
+            t0 = time.perf_counter()
+            schedule = self._schedule(n_micro)
+            # per-task accumulator sized to the total slot capacity; sliced to
+            # the live tasks on the host
+            n_acc = max(len(self.plan.tasks), sum(self.reg.mta.kind_capacity.values()))
+            acc = (torch.zeros((), dtype=torch.float32, device=self.device),
+                   torch.zeros((n_acc,), dtype=torch.float32, device=self.device))
+            tokens = eff = 0
+            batches = steps.prefetch_to_device((next(loaders[h]) for h in schedule),
+                                               self.device)
+            for hid in schedule:
+                with span("engine.prefetch", track="engine"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                step = self._step_for(hid)
+                with span("engine.micro_step", track="engine"):
+                    (self.reg.adapter_params, self.reg.opt_state, self._slot_steps,
+                     acc) = step(self.backbone, self.reg.adapter_params, self.reg.opt_state,
+                                 self._slot_steps, batch, self._member_ids[hid], acc)
+                h = self.plan.htasks[hid]
+                tokens += h.tokens
+                eff += h.effective_tokens
+                if interleave is not None:
+                    interleave()
+            # the iteration's single host sync
+            with span("engine.sync", track="engine"):
+                got = torch.cat([acc[0].reshape(1), acc[1]]).cpu().numpy().astype(np.float64)
+            dt = time.perf_counter() - t0
         return StepMetrics(float(got[0]), got[1:1 + len(self.plan.tasks)], tokens, eff, dt)
 
     def throughput(self, metrics: StepMetrics) -> Dict[str, float]:
@@ -314,18 +417,18 @@ class PEFTEngine:
         return steps.decode_prefix_reserve(self.reg.mta)
 
     def ensure_decode_pool(self, rows: int, max_len: int, max_new_cap: int) -> Dict[str, Any]:
-        """Allocate (or re-allocate on a geometry change) the fused decode
+        """Allocate (or re-allocate on a geometry change, such as an
+        attaching prefix tenant widening the prefix region) the fused decode
         pool.  A re-allocation bumps ``decode_pool_gen``: in-flight rows are
-        lost and their requests must be bound again.  Raises
-        ``NotImplementedError`` for a tenant of a kind the pool does not
-        serve yet (``steps.check_servable``)."""
-        steps.check_servable(self.reg.mta)
+        lost and their requests must be bound again."""
         pres = self.decode_prefix_reserve()
         geom = (rows, max_len, max_new_cap, pres)
         if self._decode_pool is None or self._decode_geom != geom:
             self._decode_pool = steps.init_decode_pool(self.model, rows, max_len,
                                                        max_new_cap, prefix_reserve=pres)
             self._decode_geom = geom
+            self._decode_sampled = []
+            self._decode_fns.clear()
             self.decode_pool_gen += 1
         return self._decode_pool
 
@@ -338,12 +441,26 @@ class PEFTEngine:
         scales = {k: torch.as_tensor(mta.scales(k), device=self.device) for k in mta.kind_tasks}
         return slots, scales
 
+    def decode_micro_ready(self) -> bool:
+        """True once the fused decode micro step has run: latency samples
+        taken before then include its first launch (on the card, the
+        kernels' build) and stay out of the SLO p50/p99 window."""
+        return "micro" in self._decode_fns
+
+    def _decode_fn(self, key, make) -> Callable:
+        fn = self._decode_fns.get(key)
+        if fn is None:
+            fn = self._decode_fns[key] = make()
+        return fn
+
     def dispatch_decode_micro(self, row_slots, scales) -> None:
         """One fused decode token for the pool (no host sync of its own
-        unless a row samples)."""
-        fn = steps.build_decode_micro_step(self.model, self.reg.mta, self._decode_geom[3])
-        self._decode_pool = fn(self.backbone, self.reg.adapter_params, self._decode_pool,
-                               row_slots, scales)
+        unless a row samples): interleavable between training micro steps."""
+        fn = self._decode_fn("micro", lambda: steps.build_decode_micro_step(
+            self.model, self.reg.mta, self._decode_geom[3]))
+        with span("decode.micro_step", track="engine"):
+            self._decode_pool = fn(self.backbone, self.reg.adapter_params, self._decode_pool,
+                                   row_slots, scales, self._decode_sampled)
 
     def dispatch_decode_bind(self, row: int, tokens: np.ndarray, length: int, row_slots,
                              scales, max_new: int, sampling=None) -> None:
@@ -360,9 +477,15 @@ class PEFTEngine:
         ``sampling`` holds the per-request ``temp``, ``top_k``, ``top_p``
         and ``rng`` seeds [R] (greedy when None)."""
         dev = self.device
-        R = int(np.shape(tokens)[0])
-        fn = steps.build_decode_batched_bind_step(self.model, self.reg.mta,
-                                                  self._decode_geom[1], self._decode_geom[3])
+        R, Lp = int(np.shape(tokens)[0]), int(np.shape(tokens)[1])
+        fn = self._decode_fn("bind", lambda: steps.build_decode_batched_bind_step(
+            self.model, self.reg.mta, self._decode_geom[1], self._decode_geom[3]))
+        temps = np.zeros((R,), np.float32) if sampling is None else sampling["temp"]
+        temps = temps.cpu().numpy() if torch.is_tensor(temps) else np.asarray(temps)
+        sampled = [i for i in range(R) if temps[i] > 0]
+        bound = [int(r) for r in np.asarray(rows).reshape(-1)]
+        self._decode_sampled = sorted([r for r in self._decode_sampled if r not in bound]
+                                      + [bound[i] for i in sampled])
         if sampling is None:
             sampling = steps.greedy_sampling(R, dev)
         else:
@@ -376,16 +499,20 @@ class PEFTEngine:
         def t32(a):
             return torch.as_tensor(np.asarray(a, np.int32), device=dev)
 
-        self._decode_pool = fn(self.backbone, self.reg.adapter_params, self._decode_pool,
-                               t32(rows), t32(tokens), t32(lengths), row_slots,
-                               scales, t32(max_new), sampling)
+        with span("decode.bind", track="engine", args={"rows": R, "bucket": Lp}):
+            self._decode_pool = fn(self.backbone, self.reg.adapter_params, self._decode_pool,
+                                   t32(rows), t32(tokens), t32(lengths), row_slots,
+                                   scales, t32(max_new), sampling, sampled)
 
     def decode_accounting(self) -> Dict[str, np.ndarray]:
-        """The host sync of the decode pool: small counters only."""
+        """The host sync of the decode pool: small counters only, in one
+        device -> host copy."""
         p = self._decode_pool
-        return {"n_out": p["n_out"].cpu().numpy(), "active": p["active"].cpu().numpy(),
-                "pos": p["state"]["pos"].cpu().numpy()}
+        with span("decode.accounting_sync", track="engine"):
+            got = torch.stack([p["n_out"], p["active"], p["state"]["pos"]]).cpu().numpy()
+        return {"n_out": got[0], "active": got[1], "pos": got[2]}
 
     def decode_outputs(self, row: int) -> np.ndarray:
-        """Generated token buffer of one pool row."""
-        return self._decode_pool["out"][row].cpu().numpy()
+        """Generated token buffer of one pool row: a host copy, which a later
+        bind to the row leaves alone (on the CPU ``.cpu()`` is no copy)."""
+        return self._decode_pool["out"][row].cpu().numpy().copy()

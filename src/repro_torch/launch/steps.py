@@ -12,7 +12,12 @@ buffer on the device; the host reads only the small counters
 Where the JAX steps are jitted functions that return a new pool, these
 update the pool's tensors in place and return the same dict.  Sampling
 draws with a ``torch.Generator`` seeded per row from the pool's ``rng``
-seeds; ``temp <= 0`` rows are an exact argmax with no draw.
+seeds; ``temp <= 0`` rows are an exact argmax with no draw.  The caller
+names the rows that sample (``temp > 0``) in a host list, ``sampled_rows``,
+so a greedy micro step reads nothing back from the device and can be
+queued between training micro steps.  A Prefix-Tuning
+row's learned k/v rows are folded into the cache's prefix region at bind
+(:func:`fold_soft_prompts`).
 """
 from __future__ import annotations
 
@@ -27,22 +32,6 @@ from repro_torch.peft.methods import get_method
 from repro_torch.peft.multitask import MultiTaskAdapters
 
 _SEED_MAX = 2 ** 62
-# the PEFT kinds whose decode the port holds to the JAX package
-_SERVED_KINDS = frozenset({"lora", "adapter", "ia3"})
-
-
-def check_servable(mta: MultiTaskAdapters) -> None:
-    """Refuse a pool whose tenants include a kind the port does not serve
-    yet: prefix tenants need their soft-prompt rows folded into the cache's
-    prefix region at bind (the JAX ``launch/steps.py`` bind step), which is
-    not ported, and decode of DoRA, VeRA, Diff-Pruning and BitFit tenants is
-    not held to the JAX package yet."""
-    unserved = sorted(set(mta.kind_tasks) - _SERVED_KINDS)
-    if unserved:
-        raise NotImplementedError(
-            f"the decode pool serves {sorted(_SERVED_KINDS)} tenants; {unserved} need the "
-            f"soft-prompt fold into the KV cache's prefix region at bind and decode "
-            f"parity, which are not ported")
 
 
 def device_put_batch(batch: Dict[str, np.ndarray], device: torch.device
@@ -118,7 +107,7 @@ def greedy_sampling(rows: int, device) -> Dict[str, torch.Tensor]:
 
 
 def sample_tokens(logits: torch.Tensor, temp: torch.Tensor, top_k: torch.Tensor,
-                  top_p: torch.Tensor, rng: torch.Tensor):
+                  top_p: torch.Tensor, rng: torch.Tensor, sampled_rows):
     """Per-row sampling over ``[B, V]`` logits -> (tokens [B] int32, next
     seeds [B] int64).
 
@@ -126,12 +115,13 @@ def sample_tokens(logits: torch.Tensor, temp: torch.Tensor, top_k: torch.Tensor,
     ``top_k <= 0`` and ``top_p >= 1`` turn those filters off; ties at the
     top-p cutoff are all kept (the JAX package's filters).  A sampled row
     draws from a ``torch.Generator`` seeded with its ``rng`` entry and takes
-    its next seed from the same generator, so a fixed seed replays.  The
-    check for sampled rows reads ``temp`` on the host once per call."""
+    its next seed from the same generator, so a fixed seed replays.
+    ``sampled_rows`` lists on the host the rows with ``temp > 0`` (empty
+    when every row is greedy), so that ``temp`` is never read back."""
     B, V = logits.shape
     lg = logits.float()
     greedy = lg.argmax(dim=-1).to(torch.int32)
-    sampled_rows = torch.nonzero(temp > 0).flatten().tolist()
+    sampled_rows = list(sampled_rows)
     if not sampled_rows:
         return greedy, rng
     scaled = lg / temp.clamp_min(1e-6)[:, None]
@@ -163,10 +153,10 @@ def build_decode_micro_step(model: Model, mta: MultiTaskAdapters, prefix_reserve
     sampling params and advances only active rows.  Inactive rows still
     compute (fixed shapes) but their counters and seeds stay frozen; their
     cache write lands outside their window and is overwritten before the
-    row is exposed again."""
-    check_servable(mta)
+    row is exposed again.  ``sampled_rows``: the pool rows bound with
+    ``temp > 0`` (:func:`sample_tokens`)."""
 
-    def decode_micro(backbone, adapters, pool, row_slots, scales):
+    def decode_micro(backbone, adapters, pool, row_slots, scales, sampled_rows):
         ctxf = mta.ctx_factory_from_slots(row_slots, scales)
         st = pool["state"]
         active = pool["active"] > 0
@@ -174,7 +164,7 @@ def build_decode_micro_step(model: Model, mta: MultiTaskAdapters, prefix_reserve
                                            adapters=adapters, ctx_factory=ctxf,
                                            prefix_reserve=prefix_reserve)
         nxt, rng2 = sample_tokens(logits[:, 0, :], pool["temp"], pool["top_k"],
-                                  pool["top_p"], pool["rng"])
+                                  pool["top_p"], pool["rng"], sampled_rows)
         rows = torch.arange(nxt.shape[0], device=nxt.device)
         widx = pool["n_out"].clamp_max(pool["out"].shape[1] - 1).long()
         pool["out"][rows, widx] = torch.where(active, nxt, pool["out"][rows, widx])
@@ -190,18 +180,50 @@ def build_decode_micro_step(model: Model, mta: MultiTaskAdapters, prefix_reserve
     return decode_micro
 
 
+def fold_soft_prompts(model: Model, mta: MultiTaskAdapters, adapters, row_slots,
+                      state: Dict, prefix_reserve: int) -> Dict:
+    """Fold each row's soft-prompt k/v rows into the reserved prefix region
+    of a per-row decode ``state`` (in place): a row whose prefix-kind slot
+    is >= 0 gets its ``pk`` / ``pv`` [L, P, kv_dim] written right-aligned at
+    ``[prefix_reserve - P, prefix_reserve)`` and its window ``lo`` lowered
+    by P; other rows keep ``lo``.  Returns ``state``."""
+    if not prefix_reserve:
+        return state
+    cfg = model.cfg
+    hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim()
+    k1, v1 = state["kv"]["k"], state["kv"]["v"]
+    R = k1.shape[1]
+    for kind in mta.kind_tasks:
+        kspec = adapters.get(kind, {}).get("attn_prefix")
+        if not get_method(kind).uses_attention_prefix or kspec is None:
+            continue
+        slot = row_slots[kind].long()                      # [R]
+        has = slot >= 0
+        pk = kspec["pk"][:, slot.clamp_min(0)]             # [L, R, P, kv_dim]
+        pv = kspec["pv"][:, slot.clamp_min(0)]
+        P = pk.shape[2]
+        pk = pk.reshape(pk.shape[0], R, P, hkv, dh).to(k1.dtype)
+        pv = pv.reshape(pv.shape[0], R, P, hkv, dh).to(v1.dtype)
+        gate = has[None, :, None, None, None]
+        sl = slice(prefix_reserve - P, prefix_reserve)
+        k1[:, :, sl] = torch.where(gate, pk, k1[:, :, sl])
+        v1[:, :, sl] = torch.where(gate, pv, v1[:, :, sl])
+        state["lo"] = torch.where(has, state["lo"] - P, state["lo"])
+    return state
+
+
 def build_decode_batched_bind_step(model: Model, mta: MultiTaskAdapters, max_len: int,
                                    prefix_reserve: int = 0):
     """Bind ``R`` requests to pool rows at once: batched chunked prefill of
     ``tokens [R, Lp]`` (padded; true ``lengths [R]``) into a fresh R-row
-    cache, first tokens sampled at each row's last true position, then every
-    bound row copied into the pool.  The pool serves no soft-prompt kind
-    (``check_servable``), so the prefix region (``prefix_reserve``) stays
-    empty."""
-    check_servable(mta)
+    cache, each soft-prompt row's learned k/v rows folded into its reserved
+    prefix region (right-aligned, the row's window ``lo`` lowered over
+    them), first tokens sampled at each row's last true position, then every
+    bound row copied into the pool.  ``sampled_rows``: the indices into the R
+    requests whose ``sampling`` has ``temp > 0`` (:func:`sample_tokens`)."""
 
     def bind_n(backbone, adapters, pool, rows, tokens, lengths, row_slots, scales,
-               max_new, sampling):
+               max_new, sampling, sampled_rows):
         R = tokens.shape[0]
         ctxf = mta.ctx_factory_from_slots(row_slots, scales)
         ps = pool["state"]
@@ -210,10 +232,11 @@ def build_decode_batched_bind_step(model: Model, mta: MultiTaskAdapters, max_len
         logits, st1 = model.prefill(backbone, {"tokens": tokens}, st1, adapters=adapters,
                                     ctx_factory=ctxf, prefix_reserve=prefix_reserve,
                                     lengths=lengths)
+        fold_soft_prompts(model, mta, adapters, row_slots, st1, prefix_reserve)
         last = logits.float().gather(
             1, (lengths.long() - 1).clamp_min(0).reshape(R, 1, 1).expand(R, 1, logits.shape[-1]))
         first, rng1 = sample_tokens(last[:, 0], sampling["temp"], sampling["top_k"],
-                                    sampling["top_p"], sampling["rng"])
+                                    sampling["top_p"], sampling["rng"], sampled_rows)
         rows = rows.long()
         ps["kv"]["k"][:, rows] = st1["kv"]["k"]
         ps["kv"]["v"][:, rows] = st1["kv"]["v"]
@@ -237,11 +260,12 @@ def build_decode_bind_step(model: Model, mta: MultiTaskAdapters, max_len: int,
                            prefix_reserve: int = 0):
     """Single-request bind: the ``R == 1`` case of the batched bind with a
     scalar row, ``tokens [1, Lp]`` and a scalar length.  Sampling defaults
-    to greedy."""
+    to greedy; ``sampled_rows`` is ``[0]`` where ``sampling`` has
+    ``temp > 0``."""
     bind_n = build_decode_batched_bind_step(model, mta, max_len, prefix_reserve)
 
     def bind(backbone, adapters, pool, row, tokens, length, row_slots, scales,
-             max_new, sampling=None):
+             max_new, sampling=None, sampled_rows=()):
         dev = tokens.device
         if sampling is None:
             sampling = greedy_sampling(1, dev)
@@ -250,6 +274,6 @@ def build_decode_bind_step(model: Model, mta: MultiTaskAdapters, max_len: int,
             return torch.as_tensor(v, dtype=torch.int32, device=dev).reshape(1)
 
         return bind_n(backbone, adapters, pool, one(row), tokens, one(length), row_slots,
-                      scales, one(max_new), sampling)
+                      scales, one(max_new), sampling, sampled_rows)
 
     return bind

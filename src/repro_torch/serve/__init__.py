@@ -1,0 +1,34 @@
+"""Online multi-tenant serving layer (port of ``repro.serve``): live tenant
+arrival and departure against a running PEFTEngine — admission (Eq. 5
+memory + saturation gate), a bounded priority wait queue, incremental
+re-planning with step reuse, the adapter lifecycle (hot-attach,
+checkpoint-out, warm-start), and SLO-aware token-level co-serving of
+inference decode traffic next to fine-tuning.  The trace replay
+(``repro.serve.replay``) is not ported."""
+from repro_torch.serve.admission import (  # noqa: F401
+    AdmissionConfig,
+    AdmissionController,
+    AdmissionDecision,
+    WaitQueue,
+)
+from repro_torch.serve.service import (  # noqa: F401
+    CANCELLED,
+    COMPLETED,
+    LOST,
+    MIGRATED,
+    MigrationTicket,
+    MuxTuneService,
+    QUEUED,
+    REJECTED,
+    RUNNING,
+    TenantRecord,
+)
+from repro_torch.serve.spec import (  # noqa: F401
+    RequestSpec,
+    TenantSpec,
+)
+from repro_torch.serve.inference import (  # noqa: F401
+    CoServeConfig,
+    DecodeScheduler,
+    InferenceRequest,
+)

@@ -16,7 +16,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
-            "repro_torch.distributed, repro_torch.launch.train, repro_torch.kernels.ops; "
+            "repro_torch.distributed, repro_torch.launch.train, repro_torch.kernels.ops, "
+            "repro_torch.serve, repro_torch.obs, repro_torch.obs.validate; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -64,6 +65,10 @@ def test_entry_points_need_cuda_unless_cpu_is_named(monkeypatch):
         PEFTEngine(gen, plan)
     eng = PEFTEngine(gen, plan, device="cpu")
     assert eng.ensure_decode_pool(2, 8, 2)["cur"].device.type == "cpu"
+    from repro_torch.serve import MuxTuneService
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MuxTuneService(cfg, ParallelismSpec())
+    assert MuxTuneService(cfg, ParallelismSpec(), device="cpu").device.type == "cpu"
 
 
 def test_registry_lists_only_ported_configs():

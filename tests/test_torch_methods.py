@@ -336,12 +336,36 @@ def test_aliases_resolve_as_in_jax():
         assert AdapterConfig(alias).kind == canon
 
 
-def test_decode_pool_refuses_the_unserved_kinds():
+def test_decode_pool_folds_a_prefix_tenants_rows_at_bind():
+    """The pool serves every kind: bound through the engine, a prefix
+    tenant's row opens its window at prefix_reserve - P over its own pk / pv
+    rows (P the stack's rank, 16, which pads the rank-8 tenant's), and the
+    LoRA tenant's row keeps lo = prefix_reserve over an empty prefix
+    region."""
     cfg = smoke_config("llama3.2-3b")
-    tasks = parse_tasks("sst2:lora:8,qa:prefix:16", 2)
+    tasks = parse_tasks("sst2:lora:8,qa:prefix:16,rte:prefix:8", 2)
     plan = ExecutionPlanner(cfg, ParallelismSpec(num_stages=1)).plan(tasks, n_micro=1)
     gen = ModelGenerator(cfg, device="cpu")
-    gen.register_tasks(tasks)
+    reg = gen.register_tasks(tasks)
     engine = PEFTEngine(gen, plan, device="cpu")
-    with pytest.raises(NotImplementedError, match="prefix"):
-        engine.ensure_decode_pool(2, 16, 4)
+    pool = engine.ensure_decode_pool(3, 16, 4)
+    pres = engine.decode_prefix_reserve()
+    assert pres == 16 and pool["state"]["kv"]["k"].shape[2] == pres + 16
+    slots, scales = engine.decode_row_ctx([0, 1, 2])
+    with torch.no_grad():
+        engine.dispatch_decode_bind_batched(np.asarray([2, 0, 1]), np.ones((3, 8), np.int32),
+                                            np.asarray([8, 4, 6]), slots, scales,
+                                            np.asarray([4, 4, 4]))
+    st = engine._decode_pool["state"]
+    # request i (task i) went to row [2, 0, 1][i]: row 2 LoRA, rows 0 and 1 prefix
+    np.testing.assert_array_equal(st["lo"].numpy(), [pres - 16, pres - 16, pres])
+    np.testing.assert_array_equal(st["pos"].numpy(), [4, 6, 8])
+    kc, vc = st["kv"]["k"], st["kv"]["v"]
+    L, hkv, dh = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim()
+    for row, task, P in ((0, 1, 16), (1, 2, 16)):
+        slot = int(reg.mta.task_slot[task])
+        for cache, leaf in ((kc, "pk"), (vc, "pv")):
+            want = reg.adapter_params["prefix"]["attn_prefix"][leaf][:, slot, :P]
+            got = cache[:, row, pres - P:pres]
+            assert torch.equal(got, want.reshape(L, P, hkv, dh).to(got.dtype))
+    assert not kc[:, 2, :pres].any() and not vc[:, 2, :pres].any()

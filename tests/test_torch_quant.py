@@ -494,10 +494,10 @@ def test_int8_pool_generation_matches_jax(serve_setup):
     tbind = steps.build_decode_batched_bind_step(model_t, mta_t, MAX_LEN)
     tpool = tbind(s["bb_t"], s["ad_t"], tpool, torch.from_numpy(BIND_ROWS),
                   torch.from_numpy(s["tokens"]), torch.from_numpy(LENGTHS), tslots(BIND_TASKS),
-                  scales_t, torch.from_numpy(MAX_NEW), steps.greedy_sampling(3, "cpu"))
+                  scales_t, torch.from_numpy(MAX_NEW), steps.greedy_sampling(3, "cpu"), [])
     tmicro = steps.build_decode_micro_step(model_t, mta_t)
     for _ in range(CAP - 1):
-        tpool = tmicro(s["bb_t"], s["ad_t"], tpool, tslots(POOL_TASKS), scales_t)
+        tpool = tmicro(s["bb_t"], s["ad_t"], tpool, tslots(POOL_TASKS), scales_t, [])
     np.testing.assert_array_equal(tpool["out"].numpy(), np.asarray(pool["out"]))
     np.testing.assert_array_equal(tpool["n_out"].numpy(), np.asarray(pool["n_out"]))
     np.testing.assert_array_equal(tpool["state"]["pos"].numpy(),

@@ -111,7 +111,7 @@ def _port_generate(s, batched: bool):
         bind = steps.build_decode_batched_bind_step(model, mta, MAX_LEN)
         pool = bind(s["bb_t"], s["ad_t"], pool, torch.from_numpy(BIND_ROWS), tokens,
                     torch.from_numpy(LENGTHS), slots(BIND_TASKS), scales,
-                    torch.from_numpy(MAX_NEW), steps.greedy_sampling(len(BIND_ROWS), "cpu"))
+                    torch.from_numpy(MAX_NEW), steps.greedy_sampling(len(BIND_ROWS), "cpu"), [])
     else:
         bind = steps.build_decode_bind_step(model, mta, MAX_LEN)
         for i, row in enumerate(BIND_ROWS):
@@ -119,7 +119,7 @@ def _port_generate(s, batched: bool):
                         int(LENGTHS[i]), slots(BIND_TASKS[i:i + 1]), scales, int(MAX_NEW[i]))
     micro = steps.build_decode_micro_step(model, mta)
     for _ in range(CAP - 1):
-        pool = micro(s["bb_t"], s["ad_t"], pool, slots(POOL_TASKS), scales)
+        pool = micro(s["bb_t"], s["ad_t"], pool, slots(POOL_TASKS), scales, [])
     return {"out": pool["out"].numpy(), "n_out": pool["n_out"].numpy(),
             "active": pool["active"].numpy(), "pos": pool["state"]["pos"].numpy(),
             "lo": pool["state"]["lo"].numpy(), "k": pool["state"]["kv"]["k"].numpy()}
@@ -218,9 +218,9 @@ def test_engine_entry_points_serve_the_pool(setup):
     micro = steps.build_decode_micro_step(s["model_t"], s["mta_t"])
     ref = bind(s["bb_t"], s["ad_t"], ref, torch.from_numpy(BIND_ROWS),
                torch.from_numpy(s["tokens"]), torch.from_numpy(LENGTHS), slots, scales,
-               torch.from_numpy(MAX_NEW), steps.greedy_sampling(3, "cpu"))
+               torch.from_numpy(MAX_NEW), steps.greedy_sampling(3, "cpu"), [])
     for _ in range(CAP - 1):
-        ref = micro(s["bb_t"], s["ad_t"], ref, pool_slots, scales)
+        ref = micro(s["bb_t"], s["ad_t"], ref, pool_slots, scales, [])
     for row in range(ROWS):
         np.testing.assert_array_equal(eng.decode_outputs(row), ref["out"][row].numpy())
 
@@ -232,19 +232,19 @@ def test_sample_tokens_greedy_and_seeded_replay():
     top_k = torch.tensor([5, 0, 10, 1], dtype=torch.int32)
     top_p = torch.tensor([0.5, 0.9, 1.0, 1.0])
     rng = torch.tensor([11, 22, 33, 44], dtype=torch.int64)
-    tok, rng2 = steps.sample_tokens(logits, temp, top_k, top_p, rng)
+    tok, rng2 = steps.sample_tokens(logits, temp, top_k, top_p, rng, [1, 2, 3])
     argmax = logits.argmax(-1).to(torch.int32)
     assert tok[0] == argmax[0] and rng2[0] == rng[0]   # temp 0: exact argmax, no draw
     assert tok[3] == argmax[3]                         # top_k 1 keeps only the argmax
     assert torch.all(rng2[1:] != rng[1:])              # sampled rows advance their seed
-    tok_b, rng_b = steps.sample_tokens(logits, temp, top_k, top_p, rng)
+    tok_b, rng_b = steps.sample_tokens(logits, temp, top_k, top_p, rng, [1, 2, 3])
     assert torch.equal(tok, tok_b) and torch.equal(rng2, rng_b)  # a fixed seed replays
     # greedy everywhere: exact argmax, seeds untouched
-    tok_g, rng_g = steps.sample_tokens(logits, torch.zeros(4), top_k, top_p, rng)
+    tok_g, rng_g = steps.sample_tokens(logits, torch.zeros(4), top_k, top_p, rng, [])
     assert torch.equal(tok_g, argmax) and torch.equal(rng_g, rng)
     # a tiny top-p keeps only the most likely token, whatever the seed
     draws = {int(steps.sample_tokens(logits[1:2], temp[1:2], torch.tensor([0], dtype=torch.int32),
-                                     torch.tensor([1e-6]), torch.tensor([s]))[0][0])
+                                     torch.tensor([1e-6]), torch.tensor([s]), [0])[0][0])
              for s in range(8)}
     assert draws == {int(argmax[1])}
 
