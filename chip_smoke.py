@@ -3,8 +3,10 @@
 multi-tenant LoRA co-serving decode and multi-task LoRA/Adapter/IA3
 fine-tuning on llama3.2-3b (each on a bf16 and on an int8 backbone),
 multi-task fine-tuning on the hybrid zamba2-2.7b (Mamba2 + shared
-attention), fine-tuning and decode of all eight PEFT kinds, and the online
-co-serving service (MuxTuneService) under tenant churn.
+attention), fine-tuning and decode of all eight PEFT kinds, the online
+co-serving service (MuxTuneService) under tenant churn, and the fleet tier
+(FleetRouter over several services: routing, live migration, crash
+recovery, autoscaling).
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -123,8 +125,28 @@ Phases, one JSON line each (several for the kernel phases):
                     and the memory peak; gates on A's losses against a solo
                     run, B's artifact bit for bit, every request's tokens
                     against the plain path's replay of the same decode.
+13. fleet        -- FleetRouter over MuxTuneService instances of llama3.2-3b
+                    (bf16, full width and depth, one backbone each) in one
+                    process: three LoRA / Adapter tenants routed against
+                    the lockstep ClusterSim oracle, one live-migrated with
+                    requests in flight, the instance of another killed (it
+                    waits for capacity, the autoscaler spawns an instance
+                    under that queue pressure, and it resumes there from
+                    its step-4 cadence artifact with its in-flight request
+                    re-created), a scale-down once the fleet is idle; eight
+                    greedy requests; per fleet step wall s, device ms,
+                    instances, residents, decode tokens, utilization and
+                    the memory peak, per event its seconds; gates on the
+                    oracle, every tenant's and request's end, the migrated
+                    and the recovered tenant's losses against solo runs,
+                    the launches of every training iteration and decode
+                    operation, each instance's decode against the plain
+                    replay, and the fleet.* span trace;
+14. fleet_int8   -- a bf16 and an int8 instance under backbone_affine:
+                    tenants route by backbone label, train to completion,
+                    quant_matmul on the int8 instance's path.
 
-Every line of phases 11-12 and of their kernel cases carries the card's
+Every line of phases 11-14 and of their kernel cases carries the card's
 name and power limit (``"card"``).  Then a {"kernels": [...]} line and
 last {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no ok line.  Without a CUDA device it exits 1 at once.
@@ -156,6 +178,9 @@ METHODS_TASKS = ("sst2:lora:8,qa:adapter:8,rte:ia3,sst2:prefix:16,qa:diff:16,rte
 METHODS_STEPS, METHODS_CKPT_EVERY, METHODS_FAIL_AT = 5, 2, 3
 # the kinds whose adapter delta runs through the grouped-LoRA kernel
 GROUPED_LORA_KINDS = ("lora", "dora")
+# the kernels of a training micro step (forward and backward)
+TRAIN_KERNELS = ("grouped_lora", "grouped_lora_bwd", "packed_attention", "packed_attention_dq",
+                 "packed_attention_dkv")
 TRAIN_MICRO_BATCH = 8
 TRAIN_LR = 2e-3
 TRAIN_ITERS = 6
@@ -2723,7 +2748,10 @@ class _DecodeLog:
     logits each sampled from (a device copy, no host read).  The plain path
     then replays the same decode from the same states, teacher-forced, and
     is held to the kernel run's logits at every step.  Adapter updates make
-    new tensors, so a kept reference is the state the kernel run read."""
+    new tensors, so a kept reference is the state the kernel run read.
+    Each operation also records the generator of the engine that ran it
+    (``"gen"``: one per service, so several services' decodes replay apart)
+    and the kernel launches it made (``"launches"``)."""
 
     def __init__(self):
         self.ops, self.pending_ids = [], None
@@ -2731,6 +2759,7 @@ class _DecodeLog:
     def install(self, engine_cls, sched_cls):
         import numpy as np
 
+        from repro_torch.kernels import ops
         from repro_torch.launch import steps as lsteps
 
         log = self
@@ -2746,22 +2775,31 @@ class _DecodeLog:
             key = (id(eng), eng.decode_pool_gen)
             pool = ensure(eng, rows, max_len, cap)
             if (id(eng), eng.decode_pool_gen) != key:
-                log.ops.append({"op": "alloc", "geom": eng._decode_geom})
+                log.ops.append({"op": "alloc", "geom": eng._decode_geom, "gen": id(eng.gen)})
             return pool
 
+        def counted(op, fn, *a):
+            before = ops.launch_counts()
+            log.ops.append(op)
+            out = fn(*a)
+            op["launches"] = {k: n - before[k] for k, n in ops.launch_counts().items()}
+            return out
+
         def dispatch_bind(eng, rows, tokens, lengths, row_slots, scales, max_new, sampling=None):
-            log.ops.append({"op": "bind", "ids": log.pending_ids, "rows": np.asarray(rows),
-                            "tokens": np.asarray(tokens), "lengths": np.asarray(lengths),
-                            "slots": row_slots, "scales": scales, "max_new": np.asarray(max_new),
-                            "adapters": eng.reg.adapter_params, "mta": eng.reg.mta,
-                            "geom": eng._decode_geom})
-            return bind(eng, rows, tokens, lengths, row_slots, scales, max_new, sampling)
+            op = {"op": "bind", "ids": log.pending_ids, "rows": np.asarray(rows),
+                  "tokens": np.asarray(tokens), "lengths": np.asarray(lengths),
+                  "slots": row_slots, "scales": scales, "max_new": np.asarray(max_new),
+                  "adapters": eng.reg.adapter_params, "mta": eng.reg.mta,
+                  "geom": eng._decode_geom, "gen": id(eng.gen)}
+            return counted(op, bind, eng, rows, tokens, lengths, row_slots, scales, max_new,
+                           sampling)
 
         def dispatch_micro(eng, row_slots, scales):
-            log.ops.append({"op": "micro", "slots": row_slots, "scales": scales,
-                            "adapters": eng.reg.adapter_params, "mta": eng.reg.mta,
-                            "geom": eng._decode_geom, "cur": eng._decode_pool["cur"].clone()})
-            return micro(eng, row_slots, scales)
+            op = {"op": "micro", "slots": row_slots, "scales": scales,
+                  "adapters": eng.reg.adapter_params, "mta": eng.reg.mta,
+                  "geom": eng._decode_geom, "cur": eng._decode_pool["cur"].clone(),
+                  "gen": id(eng.gen)}
+            return counted(op, micro, eng, row_slots, scales)
 
         def dispatch_group(sched, engine, bucket, items):
             log.pending_ids = [req.request_id for _, req in items]
@@ -2781,9 +2819,10 @@ class _DecodeLog:
         for (owner, name), fn in self.saved.items():
             setattr(owner, name, fn)
 
-    def replay_plain(self, torch, model, backbone):
+    def replay_plain(self, torch, model, backbone, gen=None):
         """The recorded decode on the plain versions, teacher-forced: each
-        micro step is fed the tokens that the kernel run fed it.  Returns
+        micro step is fed the tokens that the kernel run fed it (only the
+        operations of generator ``gen``, the service's, if given).  Returns
         (per request, its steps as (kernel token, plain token, the plain
         top-two margin relative to the row's largest |logit|); for each
         bind and micro step, the kernel logits' largest distance from the
@@ -2815,6 +2854,8 @@ class _DecodeLog:
         try:
             with torch.no_grad(), ops.force_plain():
                 for op in self.ops:
+                    if gen is not None and op["gen"] != id(gen):
+                        continue
                     _, max_len, cap, pres = op["geom"]
                     if op["op"] == "alloc":
                         pool = lsteps.init_decode_pool(model, op["geom"][0], max_len, cap,
@@ -2884,6 +2925,14 @@ class _SyncCounter:
             setattr(self.torch.Tensor, name, fn)
         self.torch.cuda.synchronize = self.real_sync
         return False
+
+
+def _raw_device_ms(torch, prof) -> float:
+    """Device ms of a profiled window, summed from the raw trace's device
+    events (building the per-op event tree of a decode iteration, a few
+    hundred thousand kernels, costs tens of seconds)."""
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e6
 
 
 def coserve_phase(torch, tol):
@@ -3067,12 +3116,8 @@ def coserve_phase(torch, tol):
             m = svc.step()
             wall = time.perf_counter() - t0
             real_sync()
-        # the device events' own durations, read from the raw trace:
-        # building the per-op event tree of a decode iteration (a few
-        # hundred thousand kernels) costs tens of seconds
-        dev_us = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-                     if e.device_type() == torch.autograd.DeviceType.CUDA) / 1e3
-        fields = {"pass": "instrumented", "wall_s_profiled": wall, "device_ms": dev_us / 1e3,
+        fields = {"pass": "instrumented", "wall_s_profiled": wall,
+                  "device_ms": _raw_device_ms(torch, prof),
                   "host_syncs": syncs.n, **spent}
         inst_lines.append(fields)
         spent.update(dict.fromkeys(spent, 0.0))
@@ -3157,9 +3202,7 @@ def coserve_phase(torch, tol):
     seconds = {"bare_pass": t_inst - t_bare, "instrumented_pass": t_replay - t_inst,
                "plain_replay": t_solo - t_replay, "solo_a": time.perf_counter() - t_solo}
 
-    path_kernels = ("grouped_lora", "grouped_lora_bwd", "packed_attention",
-                    "packed_attention_dq", "packed_attention_dkv", "decode_attention")
-    if not all(counts[k] > 0 for k in path_kernels):
+    if not all(counts[k] > 0 for k in TRAIN_KERNELS + ("decode_attention",)):
         raise AssertionError(f"coserve: a kernel of the path never launched: {counts}")
     if acct["replans"] < 4 or acct["cache_hits"] <= 0:
         raise AssertionError(f"coserve: replans {acct['replans']}, cache hits {acct['cache_hits']}")
@@ -3191,6 +3234,532 @@ def coserve_phase(torch, tol):
           "b_artifact_bits_equal": True,
           "seconds": dict(seconds, phase=time.perf_counter() - t_phase),
           "tenants_end": {t: r.accounting() for t, r in svc.tenants.items()}})
+    return counts
+
+
+# the fleet path: tenants (id, dataset, kind, rank, micro-batch), targets,
+# and the fleet clock of each event
+FLEET_TENANTS = (("f0", "sst2", "lora", 8, 4), ("f1", "qa", "adapter", 8, 4),
+                 ("f2", "rte", "lora", 8, 4))
+FLEET_TARGETS = {"f0": 11, "f1": 10, "f2": 10}
+FLEET_NEW, FLEET_TOKENS_PER_ITER, FLEET_MAX_ITERS = 32, 8, 24
+# clock -> tenants that get a greedy request (r0-r7, 64-512 prompt tokens)
+FLEET_REQUESTS = {0: ("f0", "f1"), 1: ("f2",), 2: ("f0",), 4: ("f1", "f2"), 6: ("f1", "f0")}
+FLEET_MIGRATE_AT, FLEET_KILL_AT = 3, 5
+FLEET_CKPT_CADENCE = 2
+
+
+def _fleet_factory(torch, cfg_of, fault_dir, coserve, admission, built):
+    """The one factory of every fleet service: llama3.2-3b at full width and
+    depth, seed 0 (the same backbone on every instance, which migration
+    parity needs), fusion off (a migrated tenant's trajectory is its solo
+    one), cadence checkpoints every 2 steps; the backbone is built inside
+    the factory, so a spawn's seconds include it.  ``cfg_of(iid)`` is the
+    instance's config; ``built`` collects (iid, seconds, service)."""
+    from repro_torch.core.task import ParallelismSpec
+    from repro_torch.serve import MuxTuneService
+
+    def factory(iid):
+        t0 = time.perf_counter()
+        svc = MuxTuneService(cfg_of(iid), ParallelismSpec(), lr=TRAIN_LR, n_micro=1,
+                             enable_fusion=False, reserve_slots=4, seed=0, fault_dir=fault_dir,
+                             ckpt_cadence=FLEET_CKPT_CADENCE if fault_dir else 0,
+                             coserve=coserve, admission=admission)
+        svc.gen.init_backbone()
+        torch.cuda.synchronize()
+        built.append((iid, time.perf_counter() - t0, svc))
+        return svc
+    return factory
+
+
+class _StepLaunches:
+    """Wraps each service's ``step``: the kernel launches of the step, less
+    those the decode log recorded for its binds and micro steps, are the
+    training iteration's, held to ``step_launches`` of the instance's
+    adapter tree times its micro steps; each decode operation is held to
+    what it implies (a bind: the grouped-LoRA sites and one packed attention
+    a layer; a micro step: the sites and one decode attention a layer); on
+    an int8 backbone every BaseOp of every layer runs quant_matmul once a
+    micro step (training forward, bind prefill, decode micro step).  Keeps
+    each step's line fields, metrics and end time (a service step ends in
+    the decode segment's host read)."""
+
+    def __init__(self, log):
+        self.log, self.lines, self.checked = log, [], {"train_iterations": 0, "decode_ops": 0}
+
+    def wrap(self, torch, iid, svc):
+        from repro_torch.kernels import ops
+        from repro_torch.peft.methods.config import base_op_dims
+
+        real, cfg = svc.step, svc.cfg
+        L = cfg.num_layers
+        qmm = len(base_op_dims(cfg)) * L if cfg.backbone_dtype == "int8" else 0
+        log = self.log
+
+        def want_for(adapters, micro, kind):
+            per = step_launches(cfg, adapters)
+            if kind == "train":
+                want = {k: micro * per[k] for k in TRAIN_KERNELS}
+            else:
+                want = {"grouped_lora": per["grouped_lora"],
+                        "packed_attention" if kind == "bind" else "decode_attention": L}
+            if qmm:
+                want["quant_matmul"] = qmm * micro
+            return want
+
+        def step():
+            eng = svc.engine
+            micro = len(eng._schedule(svc.n_micro)) if eng is not None and svc.resident else 0
+            adapters = svc.gen.registered.adapter_params if micro else None
+            n_ops = len(log.ops) if log is not None else 0
+            before = ops.launch_counts()
+            m = real()
+            got = {k: n - before[k] for k, n in ops.launch_counts().items()}
+            for op in (log.ops[n_ops:] if log is not None else ()):
+                if op["op"] == "alloc":
+                    continue
+                want = dict.fromkeys(got, 0)
+                want.update(want_for(op["adapters"], 1, op["op"]))
+                if op["launches"] != want:
+                    raise AssertionError(f"fleet: instance {iid} {op['op']} launched "
+                                         f"{op['launches']}, it implies {want}")
+                got = {k: n - op["launches"][k] for k, n in got.items()}
+                self.checked["decode_ops"] += 1
+            want = dict.fromkeys(got, 0)
+            if micro:
+                want.update(want_for(adapters, micro, "train"))
+                self.checked["train_iterations"] += 1
+            if got != want:
+                raise AssertionError(f"fleet: instance {iid} training iteration launched {got}, "
+                                     f"its plan implies {want}")
+            self.lines.append({"instance": iid, "clock": svc.clock, "metrics": m,
+                               "train_launches": got, "micro_steps": micro,
+                               "t_end": time.perf_counter()})
+            return m
+        svc.step = step
+
+
+def fleet_phase(torch, tol):
+    """The fleet path: a FleetRouter (best_fit, ``AdmissionConfig(max_tenants=
+    2)``) over MuxTuneService instances of llama3.2-3b at full width and
+    depth (bf16, random weights from seed 0) in one process on the card,
+    with the autoscaler (1 to 3 instances, cooldown 1) attached.  F0 (LoRA
+    8) and F1 (Adapter 8) at clock 0 pack onto instance 0, F2 (LoRA 8) at
+    clock 1 lands on instance 1; F0 is live-migrated to instance 1 after 3
+    iterations with a request in flight; after 5 iterations the instance
+    holding F1 is killed (its checkpoint writers waited on first): F1 finds
+    no feasible survivor and waits in the recovery queue, the autoscaler
+    spawns instance 2 under that queue pressure, and F1 resumes there from
+    its step-4 cadence artifact with its in-flight request re-created from
+    its spec; once every tenant completes, the idle fleet scales down.
+    Eight greedy requests (r0-r7, 64-512 prompt tokens, 32 new tokens)
+    go to the tenants before and during the churn.
+
+    The utilization band is set so that utilization alone never scales (the
+    host-bound decode moves the calibrated iteration walls between runs):
+    up on queue pressure, down once every instance is idle.
+
+    Gates: every routing decision equals the lockstep ClusterSim's pick
+    (agreement 1.0); the migration moves an in-flight request; F0's
+    per-iteration losses within LOSS_TOL of a solo service run of F0;
+    F1 resumes at step 4, its dead record LOST / instance_failure, no cold
+    restart, and its post-recovery losses within LOSS_TOL of a solo service
+    warm-started from the same step-4 artifact; every tenant COMPLETED with
+    its target steps; every request done with its 32 tokens; one scale-up
+    and one scale-down; the kernel launches of every training iteration and
+    decode operation as its plan implies (``_StepLaunches``), none outside
+    them; the plain path's teacher-forced replay of each instance's decode
+    (the dead one's too) within ``tol`` of the kernel logits at every bind
+    and micro step, another greedy token only where the plain top two are
+    within ``tol``; the fleet.* span trace valid with every phase.  Prints a
+    line per fleet step (wall s, device ms from the profiler over the step,
+    live instances, residents, decode tokens, utilization, memory peak) and
+    per event (spawn, migration phases, kill, recovery, the re-created
+    request's first token, scale-up, scale-down).  Returns the launch
+    counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import PEFTEngine
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.fleet import Autoscaler, AutoscalerConfig, FleetRouter
+    from repro_torch.kernels import ops
+    from repro_torch.obs.tracing import SpanTracer, set_tracer, validate_chrome_trace
+    from repro_torch.peft.methods import AdapterConfig
+    from repro_torch.serve import (COMPLETED, LOST, AdmissionConfig, CoServeConfig,
+                                   DecodeScheduler, RequestSpec, TenantSpec)
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3.2-3b")
+    T = {tid: make_task(tid, ds, mb, AdapterConfig(kind, rank=rank), seed=i)
+         for i, (tid, ds, kind, rank, mb) in enumerate(FLEET_TENANTS)}
+    # slo 30 s: every iteration decodes FLEET_TOKENS_PER_ITER micro steps at
+    # its end, so a request bound in an iteration is still in flight after
+    # it (at most 1 + 2 x 8 of 32 tokens) and done within four more
+    coserve = CoServeConfig(decode_slots=8, decode_max_len=1024, max_new_cap=FLEET_NEW,
+                            slo_seconds=30.0, max_tokens_per_iter=FLEET_TOKENS_PER_ITER)
+    admission = AdmissionConfig(max_tenants=2)
+    rs = np.random.RandomState(6)
+    events, step_lines, built = [], [], []
+
+    def event(name, **fields):
+        line = {"phase": "fleet_event", "card": card(), "event": name, **fields}
+        events.append(line)
+        emit(line)
+
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    log = _DecodeLog()
+    counter = _StepLaunches(log)
+    fleet = None
+    try:
+        factory = _fleet_factory(torch, lambda iid: cfg, os.path.join(tmp, "fault"), coserve,
+                                 admission, built)
+
+        def counted_factory(iid):
+            svc = factory(iid)
+            counter.wrap(torch, iid, svc)
+            event("spawn", instance=iid, seconds=built[-1][1],
+                  backbone_bytes=svc.planner.cost_model([]).stage_memory([]))
+            return svc
+
+        tracer = SpanTracer()
+        prev_tracer = set_tracer(tracer)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        log.install(PEFTEngine, DecodeScheduler)
+        reqs, kill_report, mig_report = {}, None, None
+        times = {}
+        try:
+            fleet = FleetRouter(counted_factory, n_instances=2, policy="best_fit")
+            fleet.autoscaler = Autoscaler(AutoscalerConfig(
+                min_instances=1, max_instances=3, cooldown_ticks=1, scale_up_util=1.0,
+                scale_down_util=1e-9))
+            real_try = fleet._try_recover
+
+            def try_recover(tid, ticket):
+                t0 = time.perf_counter()
+                iid = real_try(tid, ticket)
+                if iid is not None:
+                    torch.cuda.synchronize()
+                    times["recovered"] = time.perf_counter()
+                    event("recover", task=tid, instance=iid, from_step=ticket.steps_trained,
+                          seconds=times["recovered"] - t0,
+                          kill_to_recovered_s=times["recovered"] - times["kill"],
+                          requeued=fleet.recoveries[-1].requeued_requests)
+                return iid
+            fleet._try_recover = try_recover
+
+            def submit(tid):
+                t0 = time.perf_counter()
+                d = fleet.submit(TenantSpec(T[tid], target_steps=FLEET_TARGETS[tid]))
+                torch.cuda.synchronize()
+                event("route", seconds=time.perf_counter() - t0, **d.summary())
+                if d.outcome != "admit" or d.instance != d.oracle:
+                    raise AssertionError(f"fleet: {tid} routed {d.summary()}")
+
+            def request(tid):
+                rid = f"r{len(reqs)}"
+                prompt = rs.randint(1, cfg.vocab_size, int(rs.randint(64, 513)))
+                reqs[rid] = fleet.submit_request(tid, RequestSpec(
+                    prompt, max_new_tokens=FLEET_NEW, request_id=rid))
+
+            first_token = {}
+            for it in range(FLEET_MAX_ITERS):
+                clock = fleet.clock
+                if clock == 0:
+                    submit("f0")
+                    submit("f1")
+                if clock == 1:
+                    submit("f2")
+                if clock == FLEET_MIGRATE_AT:
+                    inflight = [r for r, q in reqs.items() if q.task_id == "f0"
+                                and q.state == "decoding"]
+                    mig_report = fleet.migrate("f0")
+                    event("migrate", **mig_report.summary(), request_ids=mig_report.request_ids,
+                          in_flight_before=inflight)
+                    if not inflight or not set(inflight) <= set(mig_report.request_ids):
+                        raise AssertionError(f"fleet: the migration moved "
+                                             f"{mig_report.request_ids}, in flight {inflight}")
+                if clock == FLEET_KILL_AT:
+                    victim = fleet.instances[fleet.placements["f1"]]
+                    for st in victim.service._fault_stores.values():
+                        st.wait()
+                    # the artifact recovery reads, kept apart: the recovered
+                    # F1 goes on committing cadence steps into the same place
+                    src = os.path.join(tmp, "fault", "f1", "step_00000004")
+                    shutil.copytree(src, os.path.join(tmp, "f1_step4", "step_00000004"))
+                    inflight = [r for r, q in reqs.items() if q.task_id == "f1"
+                                and q.state == "decoding"]
+                    times["kill"] = time.perf_counter()
+                    kill_report = fleet.kill(victim.iid)
+                    event("kill", seconds=time.perf_counter() - times["kill"],
+                          steps_trained=victim.service.tenants["f1"].steps_trained,
+                          in_flight=inflight, **kill_report.summary())
+                    if kill_report.queued != ["f1"] or kill_report.cold or not inflight:
+                        raise AssertionError(f"fleet: the kill gave {kill_report.summary()}, "
+                                             f"in flight {inflight}")
+                for tid in FLEET_REQUESTS.get(clock, ()):
+                    request(tid)
+                if not fleet.has_work():
+                    break
+                ups = fleet.autoscaler.accounting()["scale_ups"]
+                downs = fleet.autoscaler.accounting()["scale_downs"]
+                n_lines = len(counter.lines)
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    fleet.step()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                acct = fleet.autoscaler.accounting()
+                for ev in acct["events"][ups + downs:]:
+                    event("scale_" + ev["direction"], instance=ev["instance"],
+                          utilization=ev["utilization"], clock=ev["clock"])
+                mine = counter.lines[n_lines:]
+                for rid in (kill_report.requeued_requests if kill_report else ()):
+                    live = fleet._find_request(rid)
+                    if rid not in first_token and live is not None and live.state in (
+                            "decoding", "done"):
+                        # the end of the owner's step that bound it (the
+                        # bind's prefill gives the first token)
+                        owner = next(i for i, x in fleet.instances.items()
+                                     if rid in x.service.coserve.requests)
+                        first_token[rid] = next(x["t_end"] for x in reversed(mine)
+                                                if x["instance"] == owner)
+                        event("first_token_after_recovery", request=rid,
+                              seconds=first_token[rid] - times["recovered"])
+                line = {"phase": "fleet_step", "card": card(), "clock": fleet.clock,
+                        "wall_s_profiled": wall, "device_ms": _raw_device_ms(torch, prof),
+                        "instances": sorted(fleet.instances),
+                        "residents": {str(i): x.service.resident_ids
+                                      for i, x in fleet.instances.items()},
+                        "queued": [p.task.task_id for p in fleet.queue],
+                        "recovery_queued": list(fleet.recovery_queue),
+                        "decode_tokens": sum(x["metrics"].decode_tokens for x in mine
+                                             if x["metrics"] is not None),
+                        "train_micro_steps": sum(x["micro_steps"] for x in mine),
+                        "utilization": fleet.autoscaler.fleet_utilization(fleet),
+                        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+                step_lines.append(line)
+                emit(line)
+            # idle ticks: the autoscaler retires instances of the idle fleet
+            for _ in range(3):
+                if fleet.autoscaler.accounting()["scale_downs"]:
+                    break
+                n_ev = len(fleet.autoscaler.events)
+                fleet.step()
+                for ev in fleet.autoscaler.events[n_ev:]:
+                    event("scale_" + ev["direction"], instance=ev["instance"],
+                          utilization=ev["utilization"], clock=ev["clock"])
+        finally:
+            log.uninstall()
+            set_tracer(prev_tracer)
+        counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+
+        # ---- the run's gates ----
+        in_steps = {k: 0 for k in counts}
+        for x in counter.lines:
+            for k, n in x["train_launches"].items():
+                in_steps[k] += n
+        for op in log.ops:
+            for k, n in op.get("launches", {}).items():
+                in_steps[k] += n
+        if in_steps != counts:
+            raise AssertionError(f"fleet: launches outside the services' steps: {counts} "
+                                 f"against {in_steps} in them")
+        if not all(counts[k] > 0 for k in TRAIN_KERNELS + ("decode_attention",)):
+            raise AssertionError(f"fleet: a kernel of the path never launched: {counts}")
+        agreement = fleet.oracle_agreement()
+        if agreement != 1.0:
+            raise AssertionError(f"fleet: oracle agreement {agreement}: "
+                                 f"{[d.summary() for d in fleet.decisions]}")
+        scale = fleet.autoscaler.accounting()
+        if scale["scale_ups"] < 1 or scale["scale_downs"] < 1:
+            raise AssertionError(f"fleet: autoscaler events {scale['events']}")
+        for tid, target in FLEET_TARGETS.items():
+            rec = fleet.record(tid)
+            if rec.state != COMPLETED or rec.steps_trained != target:
+                raise AssertionError(f"fleet: {tid} ended {rec.state} after "
+                                     f"{rec.steps_trained} steps, want {target}")
+        dead = fleet.failed_instances[0].service.tenants["f1"]
+        if (dead.state, dead.reason) != (LOST, "instance_failure"):
+            raise AssertionError(f"fleet: the dead F1 record is {dead.state} / {dead.reason}")
+        recovered = [d for d in fleet.decisions if d.outcome == "recover"]
+        if [d.task_id for d in recovered] != ["f1"]:
+            raise AssertionError(f"fleet: recoveries {[d.summary() for d in recovered]}")
+        f1_losses = fleet.record("f1").losses
+        if len(f1_losses) != 4 + FLEET_TARGETS["f1"] - 4:
+            raise AssertionError(f"fleet: F1 did not resume at step 4: {len(f1_losses)} losses")
+        survivors = list(fleet.instances.values()) + fleet.retired_instances
+        # each request's last object: a request the dead instance finished
+        # stays there, one it lost was re-created on a survivor
+        final = {}
+        for inst in fleet.failed_instances + survivors:
+            for rid, q in inst.service.coserve.requests.items():
+                final[rid] = (inst, q)
+        for rid in reqs:
+            q = final[rid][1] if rid in final else None
+            if q is None or q.state != "done" or len(q.tokens_out) != FLEET_NEW \
+                    or q.reason:
+                raise AssertionError(f"fleet: request {rid} ended "
+                                     f"{None if q is None else (q.state, q.reason)}")
+
+        # ---- each instance's decode against the plain replay ----
+        t_replay = time.perf_counter()
+        held, rel_all, apart = 0, [], {}
+        everyone = survivors + fleet.failed_instances
+        for inst in everyone:
+            gen = inst.service.gen
+            per_req, rel = log.replay_plain(torch, gen.model, gen.backbone_params, gen=gen)
+            held += len(rel)
+            rel_all += rel
+            for rid, steps_ in per_req.items():
+                wide = [(i, m) for i, (kt, pt, m) in enumerate(steps_) if kt != pt and m > tol]
+                if wide:
+                    raise AssertionError(f"fleet: instance {inst.iid} request {rid}: the plain "
+                                         f"path picks another token at {wide} > {tol}")
+                apart.setdefault(rid, []).append(
+                    (inst.iid, [i for i, (kt, pt, _) in enumerate(steps_) if kt != pt]))
+                if final.get(rid, (None,))[0] is inst:
+                    q = final[rid][1]
+                    if [kt for kt, _, _ in steps_] != [int(t) for t in q.tokens_out]:
+                        raise AssertionError(f"fleet: request {rid}: the recorded kernel "
+                                             f"logits do not give its served tokens")
+        if held == 0 or not max(rel_all) <= tol:
+            raise AssertionError(f"fleet_check: logits kernel vs plain off by "
+                                 f"{max(rel_all, default=None)} > {tol} ({held} steps)")
+        emit({"phase": "fleet_check", "card": card(), "decode_steps_held": held,
+              "logit_max_rel_err": max(rel_all), "tol_rel": tol,
+              "steps_apart_from_plain": apart,
+              "decode_ops_checked": counter.checked["decode_ops"],
+              "train_iterations_checked": counter.checked["train_iterations"]})
+        stats = validate_chrome_trace(tracer.chrome_trace(), require_phases=[
+            "fleet.route", "fleet.migrate", "fleet.recover", "fleet.recover.warm_start",
+            "fleet.scale_up", "fleet.scale_down", "fleet.step"])
+        fleet_spans = {k: v for k, v in stats["phases"].items() if k.startswith("fleet.")}
+        f0_losses = list(fleet.record("f0").losses)
+        acct = fleet.accounting()
+        tenants_end = {t: fleet.record(t).accounting() for t in FLEET_TARGETS}
+        del log, fleet, tracer, prof, reqs, final, survivors, everyone, inst, dead
+        built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the solo controls: F0 alone; F1 warm-started from step 4 ----
+        t_solo = time.perf_counter()
+        solo_built = []
+        solo_factory = _fleet_factory(torch, lambda iid: cfg, None, coserve, admission,
+                                      solo_built)
+        solo = solo_factory(0)
+        solo.submit(TenantSpec(T["f0"], target_steps=FLEET_TARGETS["f0"]))
+        solo_f0 = [float(solo.step().per_task_loss[0]) for _ in range(FLEET_TARGETS["f0"])]
+        del solo
+        solo_built.clear()
+        gc.collect()
+        solo = solo_factory(1)
+        solo.submit(TenantSpec(T["f1"], target_steps=FLEET_TARGETS["f1"] - 4,
+                               warm_start_dir=os.path.join(tmp, "f1_step4")))
+        solo_f1 = [float(solo.step().per_task_loss[0]) for _ in range(FLEET_TARGETS["f1"] - 4)]
+        if solo.record("f1").reason.startswith("warm_start"):
+            raise AssertionError(f"fleet: the solo warm start failed: {solo.record('f1').reason}")
+        del solo
+        solo_built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rel_f0 = [abs(c - s) / abs(s) for c, s in zip(f0_losses, solo_f0)]
+    rel_f1 = [abs(c - s) / abs(s) for c, s in zip(f1_losses[-len(solo_f1):], solo_f1)]
+    if len(f0_losses) != len(solo_f0) or max(rel_f0) > LOSS_TOL:
+        raise AssertionError(f"fleet: F0's losses {f0_losses} vs solo {solo_f0} (rel {rel_f0})")
+    if max(rel_f1) > LOSS_TOL:
+        raise AssertionError(f"fleet: F1's post-recovery losses {f1_losses} vs the solo warm "
+                             f"start {solo_f1} (rel {rel_f1})")
+    emit({"phase": "fleet", "card": card(), "model": cfg.name, "layers": cfg.num_layers,
+          "tenants": [f"{t}:{k}:{r} (micro-batch {mb})" for t, _, k, r, mb in FLEET_TENANTS],
+          "targets": FLEET_TARGETS, "launches": counts, "oracle_agreement": agreement,
+          "decisions": acct["decisions"], "migrations": acct["migrations"],
+          "recoveries": acct["recoveries"], "autoscaler": acct["autoscaler"],
+          "fleet_spans": fleet_spans, "f0_loss_rel_to_solo_max": max(rel_f0),
+          "f1_loss_rel_to_solo_warm_start_max": max(rel_f1), "logit_max_rel_err": max(rel_all),
+          "fleet_steps": len(step_lines),
+          "wall_s_profiled_per_step": [x["wall_s_profiled"] for x in step_lines],
+          "device_ms_per_step": [x["device_ms"] for x in step_lines],
+          "max_memory_allocated": peak, "tenants_end": tenants_end,
+          "seconds": {"fleet_run": t_replay - t_phase, "plain_replay": t_solo - t_replay,
+                      "solo_runs": time.perf_counter() - t_solo,
+                      "phase": time.perf_counter() - t_phase}})
+    return counts
+
+
+def fleet_int8_phase(torch):
+    """The heterogeneous fleet: one bf16 and one int8 instance of llama3.2-3b
+    (full width and depth) under backbone_affine; two LoRA tenants
+    submitted with each label land on their own label's instance (the
+    oracle agrees) and train 2 steps each to COMPLETED, every training
+    iteration's launches as its plan implies (quant_matmul at every BaseOp
+    of every layer on the int8 instance); the int8 instance's Eq. 5
+    backbone bytes below the bf16 one's.  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_task
+    from repro_torch.fleet import FleetRouter
+    from repro_torch.kernels import ops
+    from repro_torch.peft.methods import AdapterConfig
+    from repro_torch.serve import COMPLETED, TenantSpec
+
+    t_phase = time.perf_counter()
+    cfgs = {0: get_config("llama3.2-3b"),
+            1: get_config("llama3.2-3b").with_overrides(backbone_dtype="int8")}
+    built = []
+    counter = _StepLaunches(None)
+    factory = _fleet_factory(torch, cfgs.__getitem__, None, None, None, built)
+
+    def counted_factory(iid):
+        svc = factory(iid)
+        counter.wrap(torch, iid, svc)
+        return svc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    fleet = FleetRouter(counted_factory, n_instances=2, policy="backbone_affine")
+    labels = {iid: inst.backbone for iid, inst in fleet.instances.items()}
+    bb = {iid: inst.backbone_bytes for iid, inst in fleet.instances.items()}
+    if not (labels[0].endswith(":bfloat16") and labels[1].endswith(":int8") and bb[1] < bb[0]):
+        raise AssertionError(f"fleet_int8: labels {labels}, backbone bytes {bb}")
+    decisions = []
+    for i in range(4):
+        d = fleet.submit(TenantSpec(make_task(f"h{i}", ("sst2", "qa")[i % 2], 4,
+                                              AdapterConfig("lora", rank=8), seed=i),
+                                    target_steps=2, backbone=labels[i % 2]))
+        decisions.append(d.summary())
+        if d.outcome != "admit" or d.instance != i % 2 or d.oracle != d.instance:
+            raise AssertionError(f"fleet_int8: h{i} routed {d.summary()}")
+    steps = fleet.run(max_iters=8)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    for i in range(4):
+        rec = fleet.record(f"h{i}")
+        if rec.state != COMPLETED or rec.steps_trained != 2:
+            raise AssertionError(f"fleet_int8: h{i} ended {rec.state} after {rec.steps_trained}")
+    in_steps = {k: sum(x["train_launches"][k] for x in counter.lines) for k in counts}
+    if in_steps != counts or counts["quant_matmul"] == 0 or fleet.oracle_agreement() != 1.0:
+        raise AssertionError(f"fleet_int8: launches {counts}, in the steps {in_steps}, "
+                             f"agreement {fleet.oracle_agreement()}")
+    emit({"phase": "fleet_int8", "card": card(), "labels": labels,
+          "backbone_bytes_eq5": bb, "decisions": decisions, "fleet_steps": steps,
+          "launches": counts, "train_iterations_checked": counter.checked["train_iterations"],
+          "spawn_seconds": [s for _, s, _ in built],
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
+    del fleet
+    built.clear()
     return counts
 
 
@@ -3270,6 +3839,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts["coserve"] = coserve_phase(torch, gate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fleet tier: several services in one process, then the
+    # heterogeneous bf16 + int8 fleet
+    counts["fleet"] = fleet_phase(torch, gate)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["fleet_int8"] = fleet_int8_phase(torch)
 
     # (name, source, Pallas kernel body, the entry's own measurement, variants)
     csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"

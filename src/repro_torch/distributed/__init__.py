@@ -1,5 +1,6 @@
-"""Checkpointing and restart supervision (port of ``repro.distributed``,
-one device: the store and the training supervisor)."""
+"""Checkpointing and fault tolerance (port of ``repro.distributed``, one
+device: the store, the training supervisor, the straggler mitigator and the
+elastic planner)."""
 from repro_torch.distributed.checkpoint import (  # noqa: F401
     AsyncCheckpointer,
     CheckpointStore,
@@ -10,7 +11,12 @@ from repro_torch.distributed.checkpoint import (  # noqa: F401
     save_checkpoint,
 )
 from repro_torch.distributed.fault_tolerance import (  # noqa: F401
+    ElasticPlanner,
+    HostStat,
+    RecoveryAction,
+    StragglerMitigator,
     SupervisorConfig,
     TrainSupervisor,
+    elastic_respec,
     simulated_failure,
 )

@@ -17,7 +17,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
 def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
             "repro_torch.distributed, repro_torch.launch.train, repro_torch.kernels.ops, "
-            "repro_torch.serve, repro_torch.obs, repro_torch.obs.validate; "
+            "repro_torch.serve, repro_torch.obs, repro_torch.obs.validate, "
+            "repro_torch.cluster, repro_torch.fleet, repro_torch.serve.replay; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -69,6 +70,18 @@ def test_entry_points_need_cuda_unless_cpu_is_named(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         MuxTuneService(cfg, ParallelismSpec())
     assert MuxTuneService(cfg, ParallelismSpec(), device="cpu").device.type == "cpu"
+    from repro_torch.fleet import FleetRouter
+    from repro_torch.serve import replay
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetRouter(lambda iid: MuxTuneService(cfg, ParallelismSpec()))
+    fleet = FleetRouter(lambda iid: MuxTuneService(cfg, ParallelismSpec(), device="cpu"))
+    assert {i.service.device.type for i in fleet.instances.values()} == {"cpu"}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay.replay_fleet(replay.tiny_trace(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay.replay_trace(replay.tiny_trace(1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        replay.main(["--instances", "2"])
 
 
 def test_registry_lists_only_ported_configs():
