@@ -4,9 +4,10 @@ multi-tenant LoRA co-serving decode and multi-task LoRA/Adapter/IA3
 fine-tuning on llama3.2-3b (each on a bf16 and on an int8 backbone),
 multi-task fine-tuning on the hybrid zamba2-2.7b (Mamba2 + shared
 attention), fine-tuning and decode of all eight PEFT kinds, the online
-co-serving service (MuxTuneService) under tenant churn, and the fleet tier
+co-serving service (MuxTuneService) under tenant churn, the fleet tier
 (FleetRouter over several services: routing, live migration, crash
-recovery, autoscaling).
+recovery, autoscaling), and training and serving of the MoE family on
+full-size deepseek-moe-16b.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -108,15 +109,17 @@ Phases, one JSON line each (several for the kernel phases):
                     layer in the backward).  The train_kernels phase holds
                     packed attention's three kernels at this path's prefix
                     shape too (case ``prefix_train``).
-11. serve_methods -- llama3.2-3b (bf16, full width and depth) with one
+11. serve_methods -- llama3.2-3b (bf16, full width, ``COSERVE_LAYERS`` of 28
+                    layers) with one
                     tenant of each PEFT kind on an 8-row pool (max_len
                     1024, one row per kind, prompts of 64-512 tokens, 32
                     greedy tokens): the prefix row's window opened over its
                     folded k/v rows, launches per micro step, and a
                     teacher-forced check (with the fold) whose gate comes
                     from this path's own two plain paths (``_gate_from``);
-12. coserve      -- MuxTuneService on llama3.2-3b (bf16, full width and
-                    depth) through the churn of the JAX service test (LoRA,
+12. coserve      -- MuxTuneService on llama3.2-3b (bf16, full width,
+                    ``COSERVE_LAYERS`` of 28 layers) through the churn of
+                    the JAX service test (LoRA,
                     Prefix-Tuning, DoRA and VeRA tenants: queueing,
                     cancellation, completion with checkpoint-out and
                     compaction, a warm start) with eight decode requests
@@ -144,9 +147,36 @@ Phases, one JSON line each (several for the kernel phases):
                     replay, and the fleet.* span trace;
 14. fleet_int8   -- a bf16 and an int8 instance under backbone_affine:
                     tenants route by backbone label, train to completion,
-                    quant_matmul on the int8 instance's path.
+                    quant_matmul on the int8 instance's path;
+15. train_moe    -- phase 6 on deepseek-moe-16b at full width and depth (28
+                    layers, d = 2048, 64 routed experts top-6 and 2 shared,
+                    16.9 B parameters, random bf16 weights from a seed), the
+                    tenants on q, v and the shared experts' up / down; then
+                    one iteration run twice from one state (the same bits
+                    in the losses, the adapter and optimizer state and the
+                    routes), the tokens dropped per layer and the
+                    load-balance loss the engine added to the loss.  The
+                    moe_kernels lines (in the kernel phases) hold kernels
+                    1-7 at this model's shapes: grouped LoRA at the
+                    shared-expert sites, packed and decode attention with
+                    one query head per k/v head, quant_matmul at its BaseOp
+                    shapes;
+16. train_check_moe -- phase 7 on it, gated at MOE_GRAD_PATH_TOL (set from
+                    this path's own plain-path spread), the f32 run widening
+                    one layer's weights at a time, the routing flips of each
+                    run against the plain one;
+17. serve_moe    -- phase 5 on it: four LoRA tenants on the seven attention
+                    and shared-expert sites, 32 greedy tokens a row; the
+                    teacher-forced check's gate set from this path's own
+                    ``plain_split`` spread (``_gate_from``) before the kernel
+                    path runs; the routing flips, the tokens dropped per
+                    layer at the bind, the micro step's device ms beside the
+                    floor of reading every expert's weights;
+18. serve_moe_int8 -- phase 17 on an int8 backbone (attention and shared
+                    experts int8, routed experts bf16): quant_matmul
+                    launches, the backbone's bytes against Eq. 5.
 
-Every line of phases 11-14 and of their kernel cases carries the card's
+Every line of phases 11-18 and of their kernel cases carries the card's
 name and power limit (``"card"``).  Then a {"kernels": [...]} line and
 last {"ok": true, "device": {...}}.  Any failure raises: the script exits
 non-zero and prints no ok line.  Without a CUDA device it exits 1 at once.
@@ -171,6 +201,13 @@ SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_gate", "mlp_up", "mlp_down
 TRAIN_TASKS = "sst2:lora:8,qa:lora:16,rte:adapter:8,sst2:ia3"
 # the hybrid tenants' sites: the Mamba2 projections and the shared block's q, v
 ZAMBA_TARGETS = ("ssm_in", "ssm_out", "attn_q", "attn_v")
+# the MoE paths (deepseek-moe-16b): the training tenants on two attention and
+# two shared-expert sites; the serving tenants on the seven attention and
+# shared-expert sites
+MOE_ARCH = "deepseek-moe-16b"
+MOE_TARGETS = ("attn_q", "attn_v", "shared_mlp_up", "shared_mlp_down")
+MOE_SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "shared_mlp_gate", "shared_mlp_up",
+             "shared_mlp_down")
 # one tenant of each PEFT kind on the attention sites (the train_methods path)
 METHODS_TASKS = ("sst2:lora:8,qa:adapter:8,rte:ia3,sst2:prefix:16,qa:diff:16,rte:dora:8,"
                  "sst2:vera:64,qa:bitfit")
@@ -283,6 +320,23 @@ ZAMBA_GRAD_PATH_TOL = 0.20
 # plain version than its kernel tolerance.  max(10%, 2 S, 2 S') rounded up
 # to 0.005: 2 S' = 0.158 -> 0.16.
 METHODS_GRAD_PATH_TOL = 0.16
+# train_check_moe (deepseek-moe-16b, bf16, the training tenants on q, v and
+# the shared experts' up / down, 11 rows x 256): set, as GRAD_PATH_TOL was,
+# from its own two second plain paths before the kernel path was gated.
+# A routing flip (a token whose top-6 set differs between two paths) moves
+# that token's output by far more than a bf16 unit, and random weights
+# leave the router's 64 probabilities close together, so flips are common:
+# over token seeds 0-7 (``PYTHONHASHSEED=0 python3 train_check_spread.py .
+# 8 moe``, NVIDIA H100 80GB HBM3, 700.00 W) ``plain_reordered`` flipped
+# 7,404-9,878 of the 78,848 (layer, token) pairs against the plain path and
+# the kernel path 8,323-9,568; they came 0.0220-0.0323 (S,
+# ``plain_stored_o``, no flip) and 0.0981-0.1326 (S') of a leaf's largest
+# |g| from the plain path, and the kernel path 0.1019-0.1287.  No
+# grouped-LoRA call was further from its plain version than its kernel
+# tolerance; packed attention's dq was on 5 of 224 calls (worst 0.0193
+# against 0.0156).  max(10%, 2 S, 2 S') rounded up to 0.005: 2 S' =
+# 0.2652 -> 0.27.
+MOE_GRAD_PATH_TOL = 0.27
 # The int8 backbone's bytes against the cost model's Eq. 5 term, which
 # counts the BaseOp weights at one byte and the rest at two but not the f32
 # scales (0.1% of the backbone at full width).
@@ -675,20 +729,24 @@ def sass_phase() -> None:
     emit({"phase": "sass", "kernels": rows})
 
 
-def quant_kernel_phase(torch, timer):
+def quant_kernel_phase(torch, timer, shapes=QMM_SHAPES, layer=QMM_LAYER, model=None):
     """quant_matmul against its plain version at every (M, K, N) of the int8
     paths, and a ragged shape; the backward's dx product at the training
     shapes.  The yardstick is ``torch._weight_int8pack_mm`` where the card's
     PyTorch has it, else cuBLAS bf16 on the dequantized weight, which is
-    timed beside it in any case (the bf16 backbone's product)."""
+    timed beside it in any case (the bf16 backbone's product).  ``model``
+    names another model's (K, N) ``shapes`` and ``layer``: its lines carry
+    the name, the ragged and edge cases are left to the default run, and the
+    entry is ``quant_matmul_<model>``."""
     from repro_torch.kernels import quant_matmul as qm
 
     g = torch.Generator(device="cuda").manual_seed(4)
     dev, bf16 = "cuda", torch.bfloat16
     library = None
     per_shape = {}
+    ragged_err = 0.0
     for path, M in QMM_M.items():
-        for K, N in QMM_SHAPES + ((40, 72),) * (path == "decode"):
+        for K, N in tuple(shapes) + ((40, 72),) * (path == "decode" and model is None):
             Mx = 5 if K == 40 else M
             x = torch.randn((Mx, K), generator=g, device=dev).to(bf16)
             q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
@@ -700,7 +758,8 @@ def quant_kernel_phase(torch, timer):
             _same_bits(torch, out, qm.quant_matmul_cuda(x, q, scale), f"quant_matmul M={Mx}")
             line = {"phase": "kernels", "kernel": "quant_matmul", "path": path, "M": Mx,
                     "K": K, "N": N, "plan": list(qm.plan_of(x, q, scale)[0]),
-                    "max_abs_err": err, "max_rel_err": rel, "tol": tol}
+                    "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+                    **({"model": model, "card": card()} if model else {})}
             if K == 40:  # the ragged case: checked only
                 ragged_err = err
                 emit(line)
@@ -738,9 +797,9 @@ def quant_kernel_phase(torch, timer):
             emit(line)
     results = {}
     for path in QMM_M:
-        layer = [per_shape[(path, K, N)] for K, N in QMM_LAYER]
-        total = {key: None if any(v[key] is None for v in layer) else sum(v[key] for v in layer)
-                 for key in layer[0]}  # (a device time the profiler did not see is None)
+        sites = [per_shape[(path, K, N)] for K, N in layer]
+        total = {key: None if any(v[key] is None for v in sites) else sum(v[key] for v in sites)
+                 for key in sites[0]}  # (a device time the profiler did not see is None)
         bms, by = bound_ms(total.pop("bytes"), total.pop("flops"))
         total["max_abs_err"] = max(v["max_abs_err"] for (p, _, _), v in per_shape.items()
                                    if p == path)
@@ -748,9 +807,10 @@ def quant_kernel_phase(torch, timer):
             "shape": f"M={QMM_M[path]}: the seven BaseOp products of one layer (sum)",
             **total, "bound_ms": bms, "bound_by": by, "library": library}
     out = results["decode"]
-    out["max_abs_err"] = max(out["max_abs_err"], ragged_err, _quant_edge_cases(torch, g))
+    if model is None:
+        out["max_abs_err"] = max(out["max_abs_err"], ragged_err, _quant_edge_cases(torch, g))
     out["prefill_variant"], out["train_variant"] = results["prefill"], results["train"]
-    return {"quant_matmul": out}
+    return {"quant_matmul" + (f"_{model}" if model else ""): out}
 
 
 def _same_bits(torch, a, b, what: str) -> None:
@@ -1158,7 +1218,7 @@ def step_launches(cfg, adapters):
     def sites(tree):
         return sum(len(tree.get(kind, {})) for kind in GROUPED_LORA_KINDS)
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         attn, scans = cfg.num_layers, 0
         lora = sites(adapters) * cfg.num_layers
     else:  # hybrid: n_super x (per Mamba2 blocks + the shared block)
@@ -1992,8 +2052,9 @@ def zamba_kernel_phase(torch, timer, cfg, tasks, plan):
 
 
 def train_phase(torch, cfg, tasks, plan):
-    """The training path: PEFTEngine.run_iteration on ``cfg`` (llama3.2-3b
-    or zamba2-2.7b), its backbone stored as ``cfg.backbone_dtype``."""
+    """The training path: PEFTEngine.run_iteration on ``cfg`` (llama3.2-3b,
+    zamba2-2.7b or deepseek-moe-16b), its backbone stored as
+    ``cfg.backbone_dtype``."""
     import numpy as np
 
     from repro_torch.core import ModelGenerator, PEFTEngine
@@ -2002,7 +2063,7 @@ def train_phase(torch, cfg, tasks, plan):
     from repro_torch.models.quantize import tensor_bytes
 
     int8 = cfg.backbone_dtype == "int8"
-    suffix = "_int8" if int8 else ("_zamba" if cfg.family == "hybrid" else "")
+    suffix = "_int8" if int8 else {"hybrid": "_zamba", "moe": "_moe"}.get(cfg.family, "")
     L = cfg.num_layers
     gen = ModelGenerator(cfg, seed=0)
     gen.init_backbone()
@@ -2043,7 +2104,8 @@ def train_phase(torch, cfg, tasks, plan):
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the plan implies {want}")
     secs = [m.wall_seconds for m, _ in iters]
-    emit({"phase": "train" + suffix, "backbone_dtype": cfg.backbone_dtype, "model": cfg.name,
+    emit({"phase": "train" + suffix, "card": card(), "backbone_dtype": cfg.backbone_dtype,
+          "model": cfg.name,
           "layers": L, "d_model": cfg.d_model, "backbone_bytes": tensor_bytes(engine.backbone),
           "tasks": TRAIN_TASKS, "micro_batch": TRAIN_MICRO_BATCH, "lr": TRAIN_LR,
           "warmup_seconds": warm.wall_seconds, "iterations": TRAIN_ITERS,
@@ -2065,7 +2127,7 @@ def train_phase(torch, cfg, tasks, plan):
                            "f32_matmul": ("sgemm", "f32f32")})
     # the profiler slows the host: the device's busy share of an unprofiled
     # iteration is its device time over the timed iterations' median
-    emit({"phase": "profile", "path": "train iteration" + suffix, **prof,
+    emit({"phase": "profile", "path": "train iteration" + suffix, "card": card(), **prof,
           "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
               statistics.median(secs) * 1e3) if prof["device_ms_per_call"] else None})
     return counts, engine
@@ -2239,7 +2301,12 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
     on a bf16 one and plain_reordered() on llama's.  ``extra`` maps more
     runs' names to their contexts (train_check_spread.py's), each reported
     against the plain run.  ``methods`` marks the train_methods path (its
-    gate, and each layer recomputed in the plain runs' backward).
+    gate, and each layer recomputed in the plain runs' backward).  On an
+    MoE backbone the plain runs recompute each layer too, the f32 run
+    widens one layer's weights at a time (``recompute(widen=True)``: the
+    f32 backbone would not fit beside the bf16 one), and the routing flips
+    (layer, token pairs whose expert set differs from the plain run's) of
+    each run are reported.
     LoRA and DoRA B, Adapter up, IA3 s, Diff-Pruning delta, DoRA dm and
     VeRA / BitFit b start at zero, which would leave other gradients
     exactly zero: they are filled from ``seed`` first, and the batch's
@@ -2267,11 +2334,19 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
                                   for i in range(len(plan.tasks))})
     batch = device_put_batch(next(loader), dev)
     fn = engine._loss_and_grads_fn(0)
-    plain = plain_path(torch, engine.model, remat=methods)
+    moe = engine.model.cfg.family == "moe"
+    plain = plain_path(torch, engine.model, remat=methods or moe)
+    f32_params = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
+    if moe:
+        f32_backbone = {k: v if k == "layers" else densify(torch, v)
+                        for k, v in engine.backbone.items()}
+        f32_ctx = lambda: _stacked(ops.force_plain,  # noqa: E731
+                                   recompute(engine.model, True, widen=True))
+    else:
+        f32_backbone, f32_ctx = densify(torch, engine.backbone), plain
     runs = {"kernel": (params, engine.backbone, contextlib.nullcontext),
             "plain": (params, engine.backbone, plain),
-            "f32": (tree_map(lambda t: t.float() if t.is_floating_point() else t, params),
-                    densify(torch, engine.backbone), plain)}
+            "f32": (f32_params, f32_backbone, f32_ctx)}
     int8 = engine.model.cfg.backbone_dtype == "int8"
     if int8:
         runs["plain_scale_first"] = (params, engine.backbone, plain_scale_first)
@@ -2288,12 +2363,16 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
     # method name is its kind)
     paths = [p for p in _leaf_paths(params) if _leaf(params, p).is_floating_point()
              and get_method(next(k for k in p if k in engine.reg.mta.kind_tasks)).trainable(p[-1])]
-    pt, grads = {}, {}
+    pt, grads, routes = {}, {}, {}
     for mode, (ad, bb, ctx) in runs.items():
-        with ctx():
+        routes[mode] = []
+        with ctx(), moe_routes(routes[mode]):
             _, pt[mode], gr = fn(ad, bb, batch)
         grads[mode] = [_leaf(gr, p) for p in paths]
     torch.cuda.synchronize()
+    flips = {f"{m}_vs_plain": route_flips(routes[m], routes["plain"],
+                                          engine.model.cfg.num_layers)
+             for m in runs if moe and m != "plain"}
     loss_err = ((pt["kernel"] - pt["plain"]).abs() / pt["plain"].abs()).max().item()
     if not loss_err <= LOSS_TOL:
         raise AssertionError(f"train_check: per-task losses {pt['kernel'].tolist()} vs plain "
@@ -2312,9 +2391,11 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
             if err > worst[f"{a}_vs_{b}"][0]:
                 worst[f"{a}_vs_{b}"] = (err, name)
     tol = INT8_GRAD_PATH_TOL if int8 else (ZAMBA_GRAD_PATH_TOL if hybrid else (
-        METHODS_GRAD_PATH_TOL if methods else GRAD_PATH_TOL))
-    suffix = "_int8" if int8 else ("_zamba" if hybrid else ("_methods" if methods else ""))
-    emit({"phase": "train_check" + suffix, "seed": seed,
+        MOE_GRAD_PATH_TOL if moe else (METHODS_GRAD_PATH_TOL if methods else GRAD_PATH_TOL)))
+    suffix = "_int8" if int8 else ("_zamba" if hybrid else (
+        "_moe" if moe else ("_methods" if methods else "")))
+    emit({"phase": "train_check" + suffix, "seed": seed, "card": card(),
+          **({"routing_flips": flips} if moe else {}),
           "per_task_loss_kernel": pt["kernel"].tolist(),
           "per_task_loss_plain": pt["plain"].tolist(), "per_task_loss_f32": pt["f32"].tolist(),
           "loss_max_rel_err": loss_err, "loss_tol_rel": LOSS_TOL, "grad_leaves": len(names),
@@ -2338,7 +2419,7 @@ def _stacked(*ctxs):
         yield
 
 
-def recompute(model, dense=False):
+def recompute(model, dense=False, widen=False):
     """A context factory under which ``model`` recomputes each hybrid
     super-block in the backward (``torch.utils.checkpoint``,
     non-reentrant): the JAX config's ``remat=True`` (``jax.checkpoint`` of
@@ -2348,8 +2429,13 @@ def recompute(model, dense=False):
     backbone.  ``dense`` recomputes each dense layer likewise, under the
     adapter context it ran in: on the train_methods path (27 rows, eight
     kinds each adding f32 [rows, S, d_out] terms at its sites) one step
-    holds about 60 GB without it.  The kernel path runs without
+    holds about 60 GB without it.  ``widen`` (with ``dense``) runs each layer
+    on an f32 copy of its weights made inside the recomputed block, so that
+    no more than one layer's f32 weights live at a time: the f32 run of an
+    MoE backbone (16.9 B parameters, 67.5 GB in f32) holds its bf16 layers
+    and widens them one at a time.  The kernel path runs without
     recomputation, as training does."""
+    import torch
     from torch.utils.checkpoint import checkpoint
 
     from repro_torch.peft.hooks import active_context, adapter_scope
@@ -2360,7 +2446,7 @@ def recompute(model, dense=False):
 
             def layer(x):
                 with adapter_scope(scope):
-                    return block(lp, x, **kw)
+                    return block(densify(torch, lp) if widen else lp, x, **kw)
             return checkpoint(layer, x, use_reentrant=False)
         return run
 
@@ -2409,6 +2495,11 @@ def _leaf(tree, path):
 # PEFT kind) and coserve (MuxTuneService under tenant churn)
 
 SERVE_METHODS_ROWS, SERVE_METHODS_MAX_LEN, SERVE_METHODS_NEW = 8, 1024, 32
+# serve_methods and coserve run llama3.2-3b at full width and half its depth:
+# both are host-bound (their time grows with the layers' launches), and with
+# the MoE phases the script would otherwise pass 1,000 s (1,044 s on an H100
+# with both at 28 layers)
+COSERVE_LAYERS = 14
 # the leaves that start at zero: filled from the generator before serving, so
 # that every kind's rows leave the bare backbone's
 ZERO_INIT_LEAVES = ("b", "up", "s", "delta", "dm")
@@ -2434,13 +2525,13 @@ def card():
     return CARD
 
 
-def _gate_from(spread: float) -> float:
-    """``LOGIT_TOL`` unless twice the path's own plain-path spread exceeds
-    it; then max(5%, 2 S) rounded up to 0.005."""
+def _gate_from(spread: float, base: float = LOGIT_TOL) -> float:
+    """``base`` (``LOGIT_TOL``) unless twice the path's own plain-path
+    spread exceeds it; then max(5%, 2 S) rounded up to 0.005."""
     import math
 
-    if 2 * spread <= LOGIT_TOL:
-        return LOGIT_TOL
+    if 2 * spread <= base:
+        return base
     return math.ceil(max(0.05, 2 * spread) / 0.005 - 1e-9) * 0.005
 
 
@@ -2585,7 +2676,8 @@ def _fill_zero_leaves(torch, adapters, generator):
 
 
 def serve_methods_phase(torch):
-    """The serve_methods path: llama3.2-3b at full width and depth (bf16,
+    """The serve_methods path: llama3.2-3b at full width and
+    ``COSERVE_LAYERS`` layers (bf16,
     random weights from a seed), one tenant of each PEFT kind on the
     attention sites (``METHODS_TASKS``), the zero-init leaves filled; an
     8-row pool of max_len 1024 (its prefix region the prefix tenant's 16
@@ -2606,6 +2698,7 @@ def serve_methods_phase(torch):
 
     t_phase = time.perf_counter()
     cfg, tasks, plan = methods_plan()
+    cfg = cfg.with_overrides(num_layers=COSERVE_LAYERS)
     L = cfg.num_layers
     gen = ModelGenerator(cfg, seed=0)
     backbone = gen.init_backbone()
@@ -2937,7 +3030,8 @@ def _raw_device_ms(torch, prof) -> float:
 
 def coserve_phase(torch, tol):
     """The coserve path: MuxTuneService on llama3.2-3b at full width and
-    depth (bf16, random weights from a seed), CoServeConfig(decode_slots=8,
+    ``COSERVE_LAYERS`` layers (bf16, random weights from a seed),
+    CoServeConfig(decode_slots=8,
     decode_max_len=1024), reserve_slots=2, checkpoints and cadence
     checkpoints (every 2 steps) into a temporary directory, and the churn of
     the JAX service test: A (LoRA) and B (Prefix-Tuning) at clock 0; C
@@ -2982,7 +3076,7 @@ def coserve_phase(torch, tol):
                                    DecodeScheduler, MuxTuneService, RequestSpec, TenantSpec)
 
     t_phase = time.perf_counter()
-    cfg = get_config("llama3.2-3b")
+    cfg = get_config("llama3.2-3b").with_overrides(num_layers=COSERVE_LAYERS)
     T = {tid: make_task(tid, ds, mb, AdapterConfig(kind, rank=rank), seed=i)
          for i, (tid, ds, kind, rank, mb) in enumerate(COSERVE_TENANTS)}
     probe = AdmissionController(cfg, ParallelismSpec())
@@ -3763,6 +3857,508 @@ def fleet_int8_phase(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the MoE paths: deepseek-moe-16b training and serving at full width and depth
+
+
+def moe_plan(backbone_dtype="bfloat16"):
+    """The MoE training path: deepseek-moe-16b at full width and depth, the
+    training tenants on q, v and the shared experts' up / down
+    (``MOE_TARGETS``), and their plan (one hTask of 11 rows x 256)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecutionPlanner, ParallelismSpec
+    from repro_torch.launch.train import parse_tasks
+
+    cfg = get_config(MOE_ARCH).with_overrides(backbone_dtype=backbone_dtype)
+    tasks = [dataclasses.replace(t, adapter=dataclasses.replace(t.adapter, targets=MOE_TARGETS))
+             for t in parse_tasks(TRAIN_TASKS, TRAIN_MICRO_BATCH)]
+    plan = ExecutionPlanner(cfg, ParallelismSpec(num_stages=1)).plan(tasks, n_micro=1)
+    return cfg, tasks, plan
+
+
+@contextlib.contextmanager
+def moe_routes(log):
+    """Appends each MoE layer call's routed expert ids [T, k] and its
+    load-balance loss to ``log`` (in call order), through the port's
+    ``_aux_losses``; values are unchanged.  On another family nothing is
+    called."""
+    from repro_torch.models import moe
+
+    orig = moe._aux_losses
+
+    def record(probs, ids, n_experts):
+        out = orig(probs, ids, n_experts)
+        log.append((ids.detach(), out["moe_load_balance"].detach()))
+        return out
+
+    moe._aux_losses = record
+    try:
+        yield
+    finally:
+        moe._aux_losses = orig
+
+
+def route_flips(a, b, n):
+    """(layer, token) pairs whose expert set differs between two runs'
+    ``moe_routes`` logs, over their first ``n`` calls (the forward's: a
+    recomputing run logs its backward's recomputations after them), and
+    the pairs compared."""
+    flips = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum().item())
+                for (x, _), (y, _) in zip(a[:n], b[:n]))
+    return {"flips": flips, "pairs": sum(int(x.shape[0]) for x, _ in a[:n])}
+
+
+def route_stats(cfg, log):
+    """Per logged MoE call: the tokens, the capacity, the assignments
+    dropped past it and the load-balance loss (host reads)."""
+    from repro_torch.models import moe
+
+    out = []
+    for ids, lb in log:
+        T = int(ids.shape[0])
+        cap = moe._capacity(T, cfg.top_k, cfg.num_experts, cfg.capacity_factor)
+        out.append({"tokens": T, "capacity": cap,
+                    "dropped": moe.dropped_tokens(ids, cfg.num_experts, cap),
+                    "load_balance": lb.item()})
+    return out
+
+
+class _LazyF32:
+    """A stacked layer leaf (or an int8 node) that gives an f32 copy of the
+    layer it is indexed with: the f32 serving runs of an MoE backbone widen
+    one layer at a time, since the whole f32 backbone (67.5 GB) does not fit
+    beside the bf16 one."""
+
+    def __init__(self, leaf):
+        self.leaf = leaf
+
+    def __getitem__(self, i):
+        from repro_torch.models.quantize import dequantize, is_quantized
+
+        if is_quantized(self.leaf):
+            return dequantize({"q": self.leaf["q"][i], "scale": self.leaf["scale"][i]})
+        return self.leaf[i].float()
+
+
+def lazy_f32(torch, backbone):
+    """The f32 reference weights of ``backbone`` (as ``densify``), its
+    stacked layers widened one layer at a time as the model slices them."""
+    from repro_torch.models.quantize import is_quantized
+
+    def wrap(node):
+        if isinstance(node, dict) and not is_quantized(node):
+            return {k: wrap(v) for k, v in node.items()}
+        return _LazyF32(node)
+
+    return {k: wrap(v) if k == "layers" else densify(torch, v) for k, v in backbone.items()}
+
+
+def _moe_lora_decode(torch, timer, g, cfg, sites):
+    """Grouped LoRA forward and backward (against autograd of the plain
+    version) at the serving path's M = 8: four tenants at stack rank 64, two
+    rows each, at each distinct (d_in, d_out) of ``sites``; the results sum
+    the seven sites of one layer of one decode step."""
+    from repro_torch.kernels import grouped_lora as gl
+    from repro_torch.peft.methods import base_op_dims
+
+    bf16, dev = torch.bfloat16, "cuda"
+    T, r, M = 4, 64, 8
+    rt = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], dtype=torch.int32, device=dev)
+    scale = torch.tensor([2.0, 1.0, 2.0, 0.5], dtype=torch.float32, device=dev)
+    dims = base_op_dims(cfg)
+    layer = [dims[s] for s in sites]
+    per_shape = {}
+    for d_in, d_out in sorted(set(layer)):
+        x = torch.randn((M, d_in), generator=g, device=dev).to(bf16)
+        gy = torch.randn((M, d_out), generator=g, device=dev).to(bf16)
+        a = (torch.randn((T, d_in, r), generator=g, device=dev) * 0.02).to(bf16)
+        b = (torch.randn((T, r, d_out), generator=g, device=dev) * 0.02).to(bf16)
+        y, h = gl.grouped_lora_cuda(x, a, b, rt, scale, save_h=True)
+        xr, ar, br = (t.clone().requires_grad_(True) for t in (x, a, b))
+        y_ref = gl.grouped_lora_plain(xr, ar, br, rt, scale)
+        grads = gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)
+        refs = torch.autograd.grad(y_ref, (xr, ar, br), gy, retain_graph=True)
+        where = f"grouped_lora {cfg.name} M={M} {d_in}x{d_out}"
+        err_f = compare(y, y_ref, where)[0]
+        err_b = max(compare(o, ref, f"{where} {n}", GRAD_TOL["grouped_lora_bwd"])[0]
+                    for n, o, ref in zip(("dx", "dA", "dB"), grads, refs))
+        fwd = lambda: gl.grouped_lora_cuda(x, a, b, rt, scale)  # noqa: E731
+        bwd = lambda: gl.grouped_lora_bwd_cuda(x, a, b, rt, scale, h, gy)  # noqa: E731
+        ab = 2 * T * r * (d_in + d_out)
+        work_f = (2 * M * (d_in + d_out) + ab + 4 * (M + T), 2.0 * M * r * (d_in + d_out))
+        work_b = (2 * (2 * M * d_in + M * d_out) + 2 * ab + 4 * (M * r + M + T),
+                  4.0 * M * r * (d_in + d_out))
+        line = {"fwd": {"ms": timer(fwd), "device_ms": kernel_device_ms(
+                    torch, timer, fwd, "grouped_lora_pair"),
+                        "plain_ms": timer(lambda: gl.grouped_lora_plain(x, a, b, rt, scale)),
+                        "max_abs_err": err_f},
+                "bwd": {"ms": timer(bwd), "device_ms": kernel_device_ms(
+                    torch, timer, bwd, "grouped_lora"),
+                        "plain_ms": _autograd_ms(torch, timer, y_ref, (xr, ar, br), gy),
+                        "max_abs_err": err_b}}
+        for key, work in (("fwd", work_f), ("bwd", work_b)):
+            line[key]["bound_ms"], line[key]["bound_by"] = bound_ms(*work)
+            line[key]["work"] = work
+        per_shape[(d_in, d_out)] = line
+        emit({"phase": "moe_kernels", "card": card(), "kernel": "grouped_lora",
+              "model": cfg.name, "M": M, "T": T, "r": r, "d_in": d_in, "d_out": d_out,
+              **{k: {kk: vv for kk, vv in v.items() if kk != "work"} for k, v in line.items()}})
+    results = {}
+    for key, name in (("fwd", "grouped_lora_moe"), ("bwd", "grouped_lora_bwd_moe_decode")):
+        sums = {f: None if any(per_shape[sh][key][f] is None for sh in layer)
+                else sum(per_shape[sh][key][f] for sh in layer)
+                for f in ("ms", "device_ms", "plain_ms")}
+        bms, by = bound_ms(*(sum(per_shape[sh][key]["work"][i] for sh in layer)
+                             for i in (0, 1)))
+        results[name] = {
+            "shape": f"M={M}, T={T}, r={r}: the seven LoRA sites (attention and shared "
+                     f"experts) of one {cfg.name} layer (sum)",
+            **sums, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "max_abs_err": max(v[key]["max_abs_err"] for v in per_shape.values())}
+    return results
+
+
+def moe_kernel_phase(torch, timer, cfg, tasks, plan):
+    """Kernels 1-7 at the MoE paths' shapes (deepseek-moe-16b): grouped LoRA
+    forward and backward at the training path's 11 x 256 rows on q, v and
+    the shared experts' up / down, and at the serving path's 8 rows on all
+    seven sites; packed attention's forward, dq and dk/dv on the training
+    layout with one query head per k/v head (H = Hkv = 16, dh = 128), with
+    its edge cases; decode attention over an 8-row, 1024-row cache at those
+    heads; quant_matmul at M = 8, 4096 and 2816 for the model's BaseOp
+    shapes.  Each against its plain version, with the times, bounds and
+    library times of the other kernel phases; entries ``<name>_moe``."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    d, ffs = cfg.d_model, cfg.num_shared_experts * cfg.expert_d_ff
+    results = {}
+    lora, _ = _lora_train_kernels(
+        torch, timer, g, tasks, plan, ((d, cfg.q_dim), (d, ffs), (ffs, d)),
+        [(d, cfg.q_dim), (d, cfg.kv_dim), (d, ffs), (ffs, d)],
+        "the four LoRA sites (q, v, shared up and down) of one layer", cfg.name)
+    results["grouped_lora_train_moe"] = lora["grouped_lora_train"]
+    results["grouped_lora_bwd_moe"] = lora["grouped_lora_bwd"]
+    results.update(_moe_lora_decode(torch, timer, g, cfg, MOE_SITES))
+    att = _attention_train_kernels(torch, timer, g, cfg, plan, cfg.name)
+    results.update({f"{k}_moe": v for k, v in att.items()})
+    with torch.no_grad():
+        results["decode_attention_moe"] = decode_kernel_case(
+            torch, timer, g, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim())
+        shapes = ((d, cfg.q_dim), (d, ffs), (ffs, d))
+        layer = ((d, cfg.q_dim), (d, cfg.kv_dim), (d, cfg.kv_dim), (cfg.q_dim, d), (d, ffs),
+                 (d, ffs), (ffs, d))
+        results.update(quant_kernel_phase(torch, timer, shapes, layer, model="moe"))
+    return results
+
+
+def _tree_equal(torch, a, b) -> bool:
+    """Whether two states (dicts, tuples, dataclasses of tensors) hold the
+    same bits."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_tree_equal(torch, x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(torch, a[k], b[k]) for k in a)
+    if hasattr(a, "__dataclass_fields__"):
+        return all(_tree_equal(torch, getattr(a, f), getattr(b, f))
+                   for f in a.__dataclass_fields__)
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    return a == b
+
+
+def train_moe_phase(torch, cfg, tasks, plan):
+    """The MoE training path: ``train_phase`` on deepseek-moe-16b, then one
+    iteration run twice from one state on one numpy-seeded batch: the
+    losses and the adapter and optimizer state must come out the same bits
+    (dispatch and combine are gathers, no atomics), and the first run's
+    routing gives the tokens dropped per layer and the load-balance loss,
+    which must be what the engine added to the loss (``aux_coef`` times
+    its sum over the layers)."""
+    import copy
+    import itertools
+
+    import numpy as np
+
+    from repro_torch.data import HTaskLoader
+
+    counts, engine = train_phase(torch, cfg, tasks, plan)
+    vocab = cfg.vocab_size
+    fixed = {}
+    for h in range(len(plan.htasks)):
+        loader = HTaskLoader(plan.tasks, plan.alignment[h], vocab,
+                             streams={i: _seeded_stream(131 + i, vocab)
+                                      for i in range(len(plan.tasks))})
+        fixed[h] = itertools.repeat(next(loader))
+    snap = copy.deepcopy((engine.reg.adapter_params, engine.reg.opt_state, engine._slot_steps))
+    runs = []
+    for _ in range(2):
+        (engine.reg.adapter_params, engine.reg.opt_state,
+         engine._slot_steps) = copy.deepcopy(snap)
+        log = []
+        with moe_routes(log):
+            m = engine.run_iteration(fixed)
+        runs.append((m, (engine.reg.adapter_params, engine.reg.opt_state,
+                         engine._slot_steps), log))
+    (m0, s0, log0), (m1, s1, log1) = runs
+    same_loss = m0.loss == m1.loss and np.array_equal(m0.per_task_loss, m1.per_task_loss)
+    same_state = _tree_equal(torch, s0, s1)
+    same_routes = all(torch.equal(a[0], b[0]) for a, b in zip(log0, log1))
+    stats = route_stats(cfg, log0)
+    lb = sum(x["load_balance"] for x in stats)
+    aux = m0.loss - float(np.sum(m0.per_task_loss))
+    emit({"phase": "train_moe_repeat", "card": card(), "model": cfg.name,
+          "loss": [m0.loss, m1.loss], "per_task_loss": m0.per_task_loss.tolist(),
+          "same_bits_loss": same_loss, "same_bits_state": same_state,
+          "same_routes": same_routes, "moe_calls": len(log0),
+          "tokens": stats[0]["tokens"], "capacity": stats[0]["capacity"],
+          "slots": cfg.num_experts * stats[0]["capacity"],
+          "assignments": stats[0]["tokens"] * cfg.top_k,
+          "dropped_by_layer": [x["dropped"] for x in stats],
+          "dropped_share": sum(x["dropped"] for x in stats) / float(
+              len(stats) * stats[0]["tokens"] * cfg.top_k),
+          "load_balance_by_layer": [round(x["load_balance"], 6) for x in stats],
+          "moe_load_balance": lb, "aux_coef": engine.aux_coef,
+          "loss_minus_task_losses": aux})
+    if not (same_loss and same_state and same_routes):
+        raise AssertionError(f"train_moe: one iteration from one state gave other bits "
+                             f"(losses {same_loss}, state {same_state}, routes {same_routes})")
+    if len(log0) != cfg.num_layers * len(engine._schedule(None)):
+        raise AssertionError(f"train_moe: {len(log0)} MoE calls in an iteration")
+    if not abs(aux - engine.aux_coef * lb) <= 1e-2 * engine.aux_coef * lb:
+        raise AssertionError(f"train_moe: the loss holds {aux} beyond the tasks' losses, "
+                             f"aux_coef x load balance is {engine.aux_coef * lb}")
+    return counts, engine
+
+
+def serve_moe_phase(torch, backbone_dtype="bfloat16"):
+    """The MoE serving path: deepseek-moe-16b at full width and depth on a
+    ``backbone_dtype`` backbone (random weights from a seed), four LoRA
+    tenants (ranks 8-64) on the seven attention and shared-expert sites, an
+    8-row pool of max_len 1024, prompts of 64-512 tokens bound by one
+    batched prefill, 32 greedy tokens each through PEFTEngine.  Gates: the
+    launches the path implies (quant_matmul at every BaseOp on int8), the
+    backbone's bytes against Eq. 5 (the routed experts stay bf16); then a
+    teacher-forced rerun with the same bind batch (capacity depends on who
+    shares it) on the plain versions and on second plain paths
+    (``plain_split``; on int8 also ``plain_scale_first``) whose distance
+    from the first sets the gate (``_gate_from``) before the kernel path
+    runs, then on the kernels (which must give the served tokens) and on
+    f32 weights (widened a layer at a time).  Prints the routing flips of
+    each path against the plain one, the tokens dropped per layer at the
+    bind, the micro step's device ms beside the floor of reading every
+    expert's weights.  Returns the launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecutionPlanner, ModelGenerator, ParallelismSpec, PEFTEngine
+    from repro_torch.core import PEFTTask
+    from repro_torch.core.cost_model import CostModel
+    from repro_torch.kernels import ops
+    from repro_torch.models.quantize import tensor_bytes
+    from repro_torch.peft.methods import AdapterConfig, base_op_dims
+
+    t_phase = time.perf_counter()
+    int8 = backbone_dtype == "int8"
+    suffix = "_moe_int8" if int8 else "_moe"
+    cfg = get_config(MOE_ARCH).with_overrides(backbone_dtype=backbone_dtype)
+    L = cfg.num_layers
+    tenants = [AdapterConfig("lora", rank=rk, alpha=al, targets=MOE_SITES)
+               for rk, al in ((8, 16.0), (16, 16.0), (32, 64.0), (64, 32.0))]
+    tasks = [PEFTTask(f"tenant{i}", tc, (512,), 1) for i, tc in enumerate(tenants)]
+    gen = ModelGenerator(cfg, seed=0)
+    backbone = gen.init_backbone()
+    reg = gen.register_tasks(tasks)
+    mta, adapters = reg.mta, reg.adapter_params
+    for site in adapters["lora"].values():  # LoRA's B starts at 0: fill it
+        site["b"].copy_(torch.randn(site["b"].shape, generator=gen.generator,
+                                    device="cuda") * 0.02)
+    plan = ExecutionPlanner(cfg, ParallelismSpec()).plan(tasks)
+    engine = PEFTEngine(gen, plan)
+    model = engine.model
+    rows, max_len, new, Lp = 8, 1024, 32, 512
+    engine.ensure_decode_pool(rows, max_len, new)
+    rs = np.random.RandomState(0)
+    lengths = rs.randint(64, Lp + 1, rows).astype(np.int32)
+    lengths[0], lengths[5] = Lp, 64
+    tokens = np.zeros((rows, Lp), np.int32)
+    for i in range(rows):
+        tokens[i, :lengths[i]] = rs.randint(1, cfg.vocab_size, lengths[i])
+    max_new = np.full((rows,), new, np.int32)
+    slots, scales = engine.decode_row_ctx([0, 0, 1, 1, 2, 2, 3, 3])
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        engine.dispatch_decode_bind_batched(np.arange(rows), tokens, lengths, slots, scales,
+                                            max_new)
+        acct = engine.decode_accounting()
+        bind_s = time.perf_counter() - t0
+        step_s = []
+        while acct["active"].any():
+            t1 = time.perf_counter()
+            engine.dispatch_decode_micro(slots, scales)
+            acct = engine.decode_accounting()
+            step_s.append(time.perf_counter() - t1)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    n_micro = len(step_s)
+    if list(acct["n_out"]) != list(max_new) or n_micro != new - 1:
+        raise AssertionError(f"serve{suffix}: requests did not complete: n_out "
+                             f"{acct['n_out']}, {n_micro} micro steps")
+    sites = len(base_op_dims(cfg))
+    want = dict.fromkeys(counts, 0)
+    want.update({"grouped_lora": len(MOE_SITES) * L * (1 + n_micro), "packed_attention": L,
+                 "decode_attention": L * n_micro})
+    if int8:  # every BaseOp of every layer, in the bind and in each micro step
+        want["quant_matmul"] = sites * L * (1 + n_micro)
+    if counts != want:
+        raise AssertionError(f"serve{suffix}: kernel launches {counts}, the path implies {want}")
+    served = [engine.decode_outputs(i)[:new] for i in range(rows)]
+    nbytes = tensor_bytes(backbone)
+    want_bytes = CostModel(cfg, [], ParallelismSpec()).stage_memory([])
+    if abs(nbytes - want_bytes) > BACKBONE_BYTES_TOL * want_bytes:
+        raise AssertionError(f"serve{suffix}: the backbone holds {nbytes} bytes, the cost "
+                             f"model {want_bytes}")
+    # the decode micro step's weight-read floor: every routed expert's three
+    # matrices in every layer (the expert FFN runs all experts at full
+    # capacity), and every weight a micro step reads (all but the table the
+    # embedding gathers 8 rows from)
+    expert_bytes = L * cfg.num_experts * 3 * cfg.d_model * cfg.expert_d_ff * 2
+    read_bytes = nbytes - tensor_bytes(backbone["embed"]["tok"])
+    floors = {"experts_bytes": expert_bytes,
+              "experts_floor_ms": expert_bytes / HBM_BYTES_PER_S * 1e3,
+              "weights_read_bytes": read_bytes,
+              "weights_floor_ms": read_bytes / HBM_BYTES_PER_S * 1e3}
+    emit({"phase": "serve" + suffix, "card": card(), "model": cfg.name, "layers": L,
+          "d_model": cfg.d_model, "experts": cfg.num_experts, "top_k": cfg.top_k,
+          "backbone_dtype": backbone_dtype, "backbone_bytes": nbytes,
+          "cost_model_backbone_bytes": want_bytes,
+          "tenants": [{"rank": t.rank, "alpha": t.alpha} for t in tenants],
+          "requests": rows, "prompt_lengths": lengths.tolist(), "bucket": Lp,
+          "max_new": new, "micro_steps": n_micro, "launches": counts, "bind_s": bind_s,
+          "prefill_tokens_per_s": float(lengths.sum()) / bind_s,
+          "decode_tokens_per_s": rows * n_micro / sum(step_s),
+          "micro_step_ms_median": statistics.median(step_s) * 1e3, **floors,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    with torch.no_grad():
+        prof = profile_device(torch, lambda: engine.dispatch_decode_micro(slots, scales), 3,
+                              {"grouped_lora": ("grouped_lora",),
+                               "decode_attention": ("decode_attention_kernel",),
+                               "quant_matmul": ("qmm_",)})
+    emit({"phase": "profile", "path": "serve micro step" + suffix, "card": card(), **prof,
+          **floors, "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
+              statistics.median(step_s) * 1e3) if prof["device_ms_per_call"] else None})
+
+    # ---- teacher-forced rerun: each mode's logits and routes per step ----
+    dev = torch.device("cuda")
+    tok_t = torch.as_tensor(tokens, device=dev)
+    len_t = torch.as_tensor(lengths, device=dev)
+    out_t = torch.as_tensor(np.stack(served), device=dev)
+    ctxf = mta.ctx_factory_from_slots(slots, scales)
+    ar = torch.arange(rows, device=dev)
+
+    def trajectory(bb, ad, dt, log):
+        with moe_routes(log):
+            st = model.init_decode_state(rows, max_len, cache_dtype=dt)
+            lg, st = model.prefill(bb, {"tokens": tok_t}, st, adapters=ad, ctx_factory=ctxf,
+                                   lengths=len_t)
+            out = [lg[ar, (len_t - 1).long()].float()]
+            for i in range(n_micro):
+                lg, st = model.decode_step(bb, st, out_t[:, i:i + 1], adapters=ad,
+                                           ctx_factory=ctxf)
+                out.append(lg[:, 0].float())
+        return out
+
+    def rel_by_step(a, b):
+        return [((x - y).abs().max() / y.abs().max()).item() for x, y in zip(a, b)]
+
+    logs = {}
+    seconds = {}
+    with torch.no_grad():
+        second = {"plain_split": plain_split}
+        if int8:
+            second["plain_scale_first"] = plain_scale_first
+        traj = {}
+        t1 = time.perf_counter()
+        with ops.force_plain():
+            traj["plain"] = trajectory(backbone, adapters, torch.bfloat16,
+                                       logs.setdefault("plain", []))
+        seconds["plain"] = time.perf_counter() - t1
+        for name, ctx in second.items():
+            with ctx():
+                traj[name] = trajectory(backbone, adapters, torch.bfloat16,
+                                        logs.setdefault(name, []))
+        spread = max(max(rel_by_step(traj[n], traj["plain"])) for n in second)
+        base = INT8_LOGIT_TOL if int8 else LOGIT_TOL
+        tol = _gate_from(spread, base)
+        emit({"phase": "serve_check" + suffix + "_gate", "card": card(),
+              "plain_paths_vs_plain_max_rel": spread, "two_s": 2 * spread,
+              "base_tol": base, "gate": tol})
+        t1 = time.perf_counter()
+        traj["kernel"] = trajectory(backbone, adapters, torch.bfloat16,
+                                    logs.setdefault("kernel", []))
+        seconds["kernel"] = time.perf_counter() - t1
+        tf = torch.stack([x.argmax(-1) for x in traj["kernel"]], 1).to(torch.int32)
+        if not torch.equal(tf, out_t):
+            raise AssertionError(f"serve{suffix}: teacher-forced kernel tokens differ from "
+                                 f"the served tokens")
+        t1 = time.perf_counter()
+        with ops.force_plain():
+            traj["f32"] = trajectory(lazy_f32(torch, backbone), tree_map(
+                lambda t: t.float() if t.is_floating_point() else t, adapters), torch.float32,
+                logs.setdefault("f32", []))
+        seconds["f32"] = time.perf_counter() - t1
+    rel = {"kernel_vs_plain": rel_by_step(traj["kernel"], traj["plain"]),
+           "kernel_vs_f32": rel_by_step(traj["kernel"], traj["f32"]),
+           "plain_vs_f32": rel_by_step(traj["plain"], traj["f32"])}
+    rel.update({f"{n}_vs_plain": rel_by_step(traj[n], traj["plain"]) for n in second})
+    top = {k: max(v) for k, v in rel.items()}
+    flips = {f"{m}_vs_plain": route_flips(logs[m], logs["plain"], len(logs["plain"]))
+             for m in logs if m != "plain"}
+    bind = route_stats(cfg, logs["kernel"][:L])
+    agree = min((a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                for a, b in zip(traj["kernel"], traj["plain"]))
+    emit({"phase": "serve_check" + suffix, "card": card(), "steps": n_micro + 1,
+          "logit_max_rel_err": top["kernel_vs_plain"], "tol_rel": tol,
+          "logit_worst_step": rel["kernel_vs_plain"].index(top["kernel_vs_plain"]),
+          **{f"{k}_max_rel": v for k, v in top.items() if k != "kernel_vs_plain"},
+          "routing_flips": flips, "argmax_agreement_min": agree,
+          "bind_tokens": bind[0]["tokens"], "bind_capacity": bind[0]["capacity"],
+          "bind_dropped_by_layer": [x["dropped"] for x in bind],
+          "decode_capacity": route_stats(cfg, logs["kernel"][L:L + 1])[0]["capacity"],
+          "decode_dropped": sum(x["dropped"] for x in route_stats(cfg, logs["kernel"][L:])),
+          "trajectory_seconds": seconds, "phase_seconds": time.perf_counter() - t_phase,
+          "rel_err_by_step": {k: [round(x, 5) for x in v] for k, v in rel.items()}})
+    if not top["kernel_vs_plain"] <= tol:
+        raise AssertionError(f"serve_check{suffix}: logits kernel vs plain off by "
+                             f"{top['kernel_vs_plain']} of the largest logit > {tol}")
+    if not top["kernel_vs_f32"] <= 2 * top["plain_vs_f32"]:
+        raise AssertionError(f"serve_check{suffix}: the kernel path is further from the f32 "
+                             f"run ({top['kernel_vs_f32']}) than twice the plain path "
+                             f"({top['plain_vs_f32']})")
+    return counts
+
+
+def moe_phases(torch, counts):
+    """The four MoE phases on full-size deepseek-moe-16b, each after the
+    previous backbone is freed: train_moe, train_check_moe, serve_moe,
+    serve_moe_int8; their launch counts go into ``counts``."""
+    counts["train_moe"], engine = train_moe_phase(torch, *moe_plan())
+    train_check(torch, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["serve_moe"] = serve_moe_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts["serve_moe_int8"] = serve_moe_phase(torch, "int8")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3799,6 +4395,7 @@ def main() -> int:
     kern.update(methods_kernel_phase(torch, timer, *methods))
     zamba = zamba_plan()
     kern.update(zamba_kernel_phase(torch, timer, *zamba))
+    kern.update(moe_kernel_phase(torch, timer, *moe_plan()))
     torch.cuda.synchronize()
 
     # the main paths (llama3.2-3b on bf16 and int8 backbones, zamba2-2.7b
@@ -3847,6 +4444,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts["fleet_int8"] = fleet_int8_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the MoE family: deepseek-moe-16b training and serving (bf16, int8)
+    moe_phases(torch, counts)
 
     # (name, source, Pallas kernel body, the entry's own measurement, variants)
     csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -3854,26 +4455,34 @@ def main() -> int:
         ("grouped_lora", "grouped_lora.cu", "grouped_lora.py:49", "grouped_lora",
          {"train_variant": "grouped_lora_train", "zamba2_variant": "grouped_lora_train_zamba2",
           "methods_variant": "grouped_lora_train_methods_lora",
-          "methods_dora_variant": "grouped_lora_train_methods_dora"}),
+          "methods_dora_variant": "grouped_lora_train_methods_dora",
+          "moe_variant": "grouped_lora_moe", "moe_train_variant": "grouped_lora_train_moe"}),
         ("grouped_lora_bwd", "grouped_lora.cu", "grouped_lora.py:91", "grouped_lora_bwd",
          {"zamba2_variant": "grouped_lora_bwd_zamba2",
           "methods_variant": "grouped_lora_bwd_methods_lora",
-          "methods_dora_variant": "grouped_lora_bwd_methods_dora"}),
+          "methods_dora_variant": "grouped_lora_bwd_methods_dora",
+          "moe_variant": "grouped_lora_bwd_moe",
+          "moe_decode_variant": "grouped_lora_bwd_moe_decode"}),
         ("packed_attention", "packed_attention.cu", "packed_attention.py:60", "packed_attention",
          {"train_variant": "packed_attention_train",
           "zamba2_variant": "packed_attention_train_zamba2",
           "prefix_variant": "packed_attention_train_prefix",
           "bind_prefix_128_variant": "packed_attention_bind_prefix_128",
-          "bind_prefix_512_variant": "packed_attention_bind_prefix_512"}),
+          "bind_prefix_512_variant": "packed_attention_bind_prefix_512",
+          "moe_variant": "packed_attention_train_moe"}),
         ("packed_attention_dq", "packed_attention.cu", "packed_attention.py:128",
          "packed_attention_dq", {"zamba2_variant": "packed_attention_dq_zamba2",
-                                 "prefix_variant": "packed_attention_dq_prefix"}),
+                                 "prefix_variant": "packed_attention_dq_prefix",
+                                 "moe_variant": "packed_attention_dq_moe"}),
         ("packed_attention_dkv", "packed_attention.cu", "packed_attention.py:185",
          "packed_attention_dkv", {"zamba2_variant": "packed_attention_dkv_zamba2",
-                                  "prefix_variant": "packed_attention_dkv_prefix"}),
+                                  "prefix_variant": "packed_attention_dkv_prefix",
+                                  "moe_variant": "packed_attention_dkv_moe"}),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:40",
-         "decode_attention", {"pool_variant": "decode_attention_pool"}),
-        ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", "quant_matmul", {}),
+         "decode_attention", {"pool_variant": "decode_attention_pool",
+                              "moe_variant": "decode_attention_moe"}),
+        ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", "quant_matmul",
+         {"moe_variant": "quant_matmul_moe"}),
         ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:76", "mamba_scan_zamba2", {}),
         ("mamba_scan_bwd_state", "mamba_scan.cu", "mamba_scan.py:136",
          "mamba_scan_bwd_state_zamba2", {}),

@@ -2,7 +2,7 @@
 
 The port keeps its own copy of ``ArchConfig`` so it never imports the JAX
 package.  The registry lists only the configurations whose family the port
-runs (dense and hybrid); ``get_config`` raises on every other name.
+runs (dense, hybrid and MoE); ``get_config`` raises on every other name.
 """
 from __future__ import annotations
 
@@ -13,8 +13,8 @@ from dataclasses import dataclass
 @dataclass(frozen=True)
 class ArchConfig:
     """A backbone architecture: the fields of the JAX package's
-    ``ArchConfig`` that the dense and hybrid families and the planner read
-    (the MoE, xLSTM, audio and TPU execution fields come with the families
+    ``ArchConfig`` that the dense, hybrid and MoE families and the planner
+    read (the xLSTM, audio and TPU execution fields come with the families
     and tiers that use them)."""
 
     name: str
@@ -26,6 +26,13 @@ class ArchConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0  # 0 -> d_model // num_heads
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    expert_d_ff: int = 0
+    router_aux_coef: float = 0.001
+    capacity_factor: float = 1.25
     # --- SSM / hybrid ---
     ssm_state: int = 0
     ssm_head_dim: int = 64
@@ -40,6 +47,7 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    qk_norm: bool = False  # qwen3-style per-head RMSNorm on q / k before RoPE
     # the cost model's activation-memory assumption (Eq. 5): True counts one
     # activation copy per layer, as with rematerialisation
     remat: bool = True
@@ -72,12 +80,16 @@ class ArchConfig:
     def with_overrides(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)
 
-    def param_count(self) -> int:
-        """Backbone parameter count (the JAX package's formula for the dense
-        and hybrid families; the cost model's Eq. 5 reads it)."""
+    def param_count(self, active_only: bool = False) -> int:
+        """Backbone parameter count (the JAX package's formula for the dense,
+        hybrid and MoE families; the cost model's Eq. 5 reads it).
+        ``active_only`` counts an MoE layer's top-k routed experts only."""
         d = self.d_model
         n_attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
-        n_mlp = (3 if self.gated_mlp else 2) * d * self.d_ff
+        if self.qk_norm:
+            n_attn += 2 * self.resolved_head_dim()
+        per_ff = 3 if self.gated_mlp else 2
+        n_mlp = per_ff * d * self.d_ff
         n_norms = 2 * d
         if self.family == "hybrid":
             # the JAX formula, not the spec's leaf count: in-proj of x and z,
@@ -88,17 +100,23 @@ class ArchConfig:
             attn_copies = 1 if self.shared_attention else n_attn_layers
             total = ((self.num_layers - n_attn_layers) * (n_ssm + n_norms)
                      + attn_copies * (n_attn + n_mlp + n_norms))
+        elif self.family == "moe":
+            routed = self.top_k if active_only else self.num_experts
+            experts = (routed + self.num_shared_experts) * per_ff * d * self.expert_d_ff
+            total = self.num_layers * (n_attn + experts + d * self.num_experts + n_norms)
         else:
             total = self.num_layers * (n_attn + n_mlp + n_norms)
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return total + embed + d  # final norm
 
 
-# Only the configurations of the families the port runs (dense, hybrid).
+# Only the configurations of the families the port runs (dense, hybrid, MoE).
 _REGISTRY = {
     "llama3.2-3b": "llama3_2_3b",
     "smollm-360m": "smollm_360m",
     "zamba2-2.7b": "zamba2_2_7b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
 }
 
 ARCH_NAMES = tuple(_REGISTRY)
@@ -115,7 +133,7 @@ def get_config(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     """A reduced config of the same family for CPU tests (the JAX package's
-    ``smoke_config`` overrides for the dense and hybrid families)."""
+    ``smoke_config`` overrides for the dense, hybrid and MoE families)."""
     cfg = get_config(name)
     over = dict(
         num_layers=2,
@@ -128,6 +146,9 @@ def smoke_config(name: str) -> ArchConfig:
         attn_q_block=32,
         remat=False,
     )
+    if cfg.family == "moe":
+        over.update(num_experts=4, top_k=2, expert_d_ff=32,
+                    num_shared_experts=min(cfg.num_shared_experts, 1))
     if cfg.family == "hybrid":
         over.update(ssm_state=8, ssm_head_dim=16, ssm_chunk=16, num_layers=4,
                     hybrid_period=2)

@@ -10,7 +10,12 @@ package lays them out, and return the same layout as torch tensors:
   Hybrid: ``embed.{tok,unembed}``, ``final_norm.w``, the Mamba2 blocks
   ``blocks.mamba.{ln.w, mamba.{w_in, conv, dt_bias, a_log, d_skip, norm,
   w_out}}`` stacked ``[n_super, per, ...]`` and the one ``shared_attn``
-  block (the dense layer's leaves, unstacked);
+  block (the dense layer's leaves, unstacked).  MoE: the dense layout with
+  ``layers.moe.{router, w_gate, w_up, w_down}`` (the routed experts,
+  ``[L, E, ...]``, never quantized) and, where the config has shared
+  experts, ``layers.shared_mlp.w_{gate,up,down}`` in place of
+  ``layers.mlp``; a config with ``qk_norm`` adds ``layers.attn.{q_norm,
+  k_norm}``;
 * ``adapters_from_numpy``: the ``MultiTaskAdapters`` tree
   ``{kind: {site: {leaf: [L, capacity, ...]}}}`` of any of the eight kinds,
   with stacks whose capacity exceeds the live task count as

@@ -1,5 +1,5 @@
 """Cost model (Eq. 3-5): per-stage latency and per-stage memory for hTasks
-(port of ``repro.core.cost_model``, dense and hybrid families).
+(port of ``repro.core.cost_model``, dense, MoE and hybrid families).
 
 The "profile" is an analytic roofline of the target device: each operator's
 latency is ``max(flops / (peak * util(x)), bytes / hbm_bw)`` with a
@@ -83,7 +83,10 @@ def backbone_ops(cfg: ArchConfig, dtype_bytes: int = 2,
     ``dtype_bytes`` prices activation traffic; ``weight_bytes`` prices the
     resident-weight reads (``bytes_fixed``) and defaults to the activation
     precision.  Attention score+pv FLOPs depend on the context length and
-    are added at the call sites (:func:`attention_flops_per_token`).
+    are added at the call sites (:func:`attention_flops_per_token`).  The
+    MoE family adds its routed experts (top-k of them run per token, every
+    expert's weights read) and its router; neither is quantized (direct
+    products outside the BaseOp chokepoint), so both keep ``dtype_bytes``.
     """
     wb = dtype_bytes if weight_bytes is None else weight_bytes
     ops: List[OpCost] = []
@@ -95,6 +98,17 @@ def backbone_ops(cfg: ArchConfig, dtype_bytes: int = 2,
             bytes_fixed=din * dout * wb,
             bytes_per_token=(din + dout) * dtype_bytes,
         ))
+    if cfg.family == "moe":
+        d, f = cfg.d_model, cfg.expert_d_ff
+        act = 3 if cfg.gated_mlp else 2
+        ops.append(OpCost(
+            name="moe_experts",
+            flops_per_token=2.0 * act * cfg.top_k * d * f,
+            bytes_fixed=cfg.num_experts * act * d * f * dtype_bytes,
+            bytes_per_token=(cfg.top_k + 1) * d * dtype_bytes,
+        ))
+        ops.append(OpCost("router", 2.0 * d * cfg.num_experts,
+                          d * cfg.num_experts * dtype_bytes, d * dtype_bytes))
     return ops
 
 
@@ -197,7 +211,8 @@ class CostModel:
         S = p.num_stages
         # Backbone residency splits by precision: the quantizable BaseOp
         # params sit at ``weight_bytes`` (1 for int8), the remainder (norms,
-        # embedding) at activation precision, as quantize_backbone converts.
+        # embedding, the MoE router and routed experts) at activation
+        # precision, as quantize_backbone converts.
         n_quant = quantized_param_count(self.cfg)
         m_backbone = (n_quant * self.weight_bytes
                       + (self.cfg.param_count() - n_quant) * self.dtype_bytes) / p.tp

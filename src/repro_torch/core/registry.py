@@ -32,13 +32,14 @@ from repro_torch.train.optimizer import AdamWState, adamw_init, tree_map
 
 def _group_depths(cfg: ArchConfig) -> Dict[str, int]:
     """Layer dims stacked before the task axis, per adapter group ("" = the
-    whole tree): one for the dense family; the hybrid family's ``mamba``
+    whole tree): one for the dense and MoE families; the hybrid family's ``mamba``
     group is stacked [n_super, per] and its ``shared_attn`` group not at all."""
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"": 1}
     if cfg.family == "hybrid":
         return {"mamba": 2, "shared_attn": 0}
-    raise NotImplementedError(f"the port runs the dense and hybrid families, not {cfg.family}")
+    raise NotImplementedError(f"the port runs the dense, MoE and hybrid families, not "
+                              f"{cfg.family}")
 
 
 @dataclass

@@ -18,7 +18,12 @@ reduced widths via ``--scale``.
 For ``--arch zamba2-2.7b`` use ``--scale 0.25`` or more: ``scaled_config``
 (the JAX entry point's formula) keeps ``hybrid_period`` = 6, so below
 ``--scale 0.112`` it gives fewer layers than one super-block and the model
-has no block at all.
+has no block at all.  For ``--arch deepseek-moe-16b`` the same formula
+scales the width, heads and depth and keeps the experts as they are
+(``num_experts``, ``top_k``, ``expert_d_ff``), as the JAX entry point does:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --arch deepseek-moe-16b --scale 0.05 --steps 2 --stages 1 --ckpt-dir "$(mktemp -d)"
 """
 from __future__ import annotations
 

@@ -1,1 +1,1 @@
-"""Backbone modules of the port (dense family)."""
+"""Backbone modules of the port (dense, MoE and hybrid families)."""

@@ -14,24 +14,31 @@ import torch
 
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import ParamSpec, apply_rope
+from repro_torch.models.layers import ParamSpec, apply_rope, rms_norm
 from repro_torch.peft.hooks import active_context, apply_base_op
 
 
 def attention_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d, h, hkv, dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
-    return {
+    s = {
         "w_q": ParamSpec((d, h, dh)),
         "w_k": ParamSpec((d, hkv, dh)),
         "w_v": ParamSpec((d, hkv, dh)),
         "w_o": ParamSpec((h, dh, d)),
     }
+    if cfg.qk_norm:
+        s["q_norm"] = ParamSpec((dh,), init="ones")
+        s["k_norm"] = ParamSpec((dh,), init="ones")
+    return s
 
 
 def _project_qkv(p, x, cfg: ArchConfig, positions):
     q = apply_base_op("attn_q", x, p["w_q"], "bsd,dhk->bshk")
     k = apply_base_op("attn_k", x, p["w_k"], "bsd,dhk->bshk")
     v = apply_base_op("attn_v", x, p["w_v"], "bsd,dhk->bshk")
+    if cfg.qk_norm:  # qwen3: per-head RMSNorm over dh, before RoPE
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -88,14 +88,16 @@ def mlp_spec(d: int, ff: int) -> Dict[str, ParamSpec]:
     }
 
 
-def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """Gated (SwiGLU) MLP over x [B, S, d]; every projection is a BaseOp."""
+def mlp_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, prefix: str = "mlp") -> torch.Tensor:
+    """Gated (SwiGLU) MLP over x [B, S, d]; every projection is a BaseOp,
+    named ``{prefix}_gate`` / ``_up`` / ``_down`` (the MoE family's shared
+    experts are ``shared_mlp_*``)."""
     from repro_torch.peft.hooks import apply_base_op
 
-    g = apply_base_op("mlp_gate", x, p["w_gate"], "bsd,df->bsf")
-    u = apply_base_op("mlp_up", x, p["w_up"], "bsd,df->bsf")
+    g = apply_base_op(f"{prefix}_gate", x, p["w_gate"], "bsd,df->bsf")
+    u = apply_base_op(f"{prefix}_up", x, p["w_up"], "bsd,df->bsf")
     h = F.silu(g.float()).to(x.dtype) * u
-    return apply_base_op("mlp_down", h, p["w_down"], "bsf,fd->bsd")
+    return apply_base_op(f"{prefix}_down", h, p["w_down"], "bsf,fd->bsd")
 
 
 # ---------------------------------------------------------------------------

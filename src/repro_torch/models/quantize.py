@@ -32,7 +32,7 @@ from repro_torch.configs import ArchConfig
 from repro_torch.models.layers import ParamSpec
 
 #: BaseOp weight leaves eligible for int8 storage (the JAX package's set;
-#: the dense family has the attention and gated-MLP ones)
+#: the dense and MoE families have the attention and gated-MLP ones)
 QUANT_LEAVES = frozenset({
     "w_q", "w_k", "w_v", "w_o",
     "w_gate", "w_up", "w_down", "w_fc1", "w_fc2",
@@ -107,11 +107,13 @@ def quantize_backbone(params: Any, cfg: ArchConfig) -> Any:
 
     Callers gate on ``cfg.backbone_dtype == "int8"``; the walk itself is
     config-independent, as the JAX package's is.  The port's int8 tier
-    covers the dense family: a hybrid backbone raises."""
-    if cfg.family != "dense":
+    covers the dense and MoE families (an MoE layer's attention and shared
+    experts quantize, its ``moe`` subtree stays bf16): a hybrid backbone
+    raises."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"the int8 backbone tier is ported for the dense family, not {cfg.family} "
-            f"({cfg.name})")
+            f"the int8 backbone tier is ported for the dense and MoE families, not "
+            f"{cfg.family} ({cfg.name})")
     def walk(node: Any, path: Tuple[str, ...]) -> None:
         for k in list(node):
             v = node[k]

@@ -1,4 +1,4 @@
-"""Backbone assembly for the dense and hybrid families (port of
+"""Backbone assembly for the dense, MoE and hybrid families (port of
 ``repro.models.transformer``).
 
 Parameters are nested dicts of tensors laid out like the JAX package's tree:
@@ -6,6 +6,12 @@ layers stacked on axis 0 (``layers.attn.w_q`` is ``[L, d, H, dh]``), so the
 same tree converts both ways (``repro_torch.convert``).  Layers run in a
 Python loop; each layer's slice of the stacked adapter tree is installed as
 the BaseOp hook scope, as the JAX layer scan does.
+
+The MoE family (deepseek-moe, qwen3-moe) lays out as the dense one, with
+``moe`` (router and stacked expert weights) and, where the config has
+shared experts, ``shared_mlp`` in each layer's place of ``mlp``; each
+layer's load-balance loss and busiest-expert share are summed into
+``out["aux"]``, which the engine adds to the training loss.
 
 The hybrid family (zamba2) runs super-blocks of ``hybrid_period - 1``
 Mamba2 blocks (``blocks.mamba``, stacked ``[n_super, per, ...]``) followed
@@ -40,6 +46,7 @@ from repro_torch.models.layers import (
     rms_norm,
     unembed_apply,
 )
+from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.peft.hooks import adapter_scope
 
 CtxFactory = Callable[[Any], Any]  # layer-adapter slice -> AdapterContext
@@ -58,14 +65,15 @@ def _slice_layer(tree: Any, i: int) -> Any:
 
 
 class Model:
-    """Dense or hybrid decoder backbone on one device (``device="cuda"`` by
-    default; raises without CUDA unless the caller passes ``device="cpu"``)."""
+    """Dense, MoE or hybrid decoder backbone on one device (``device="cuda"``
+    by default; raises without CUDA unless the caller passes
+    ``device="cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "hybrid") or not cfg.gated_mlp:
+        if cfg.family not in ("dense", "moe", "hybrid") or not cfg.gated_mlp:
             raise NotImplementedError(
-                f"repro_torch runs dense and hybrid backbones with gated MLPs; {cfg.name} "
-                f"({cfg.family}) is not ported yet")
+                f"repro_torch runs dense, MoE and hybrid backbones with gated MLPs; "
+                f"{cfg.name} ({cfg.family}) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.vocab_padded = pad_vocab(cfg.vocab_size)
@@ -80,13 +88,19 @@ class Model:
             "ln1": {"w": ParamSpec((cfg.d_model,), init="ones")},
             "attn": attn.attention_spec(cfg),
             "ln2": {"w": ParamSpec((cfg.d_model,), init="ones")},
-            "mlp": mlp_spec(cfg.d_model, cfg.d_ff),
         }
+        if cfg.family == "moe":
+            layer["moe"] = moe_spec(cfg)
+            if cfg.num_shared_experts:
+                layer["shared_mlp"] = mlp_spec(cfg.d_model,
+                                               cfg.num_shared_experts * cfg.expert_d_ff)
+        else:
+            layer["mlp"] = mlp_spec(cfg.d_model, cfg.d_ff)
         spec: Dict[str, Any] = {
             "embed": embed_spec(self.vocab_padded, cfg.d_model, cfg.tie_embeddings),
             "final_norm": {"w": ParamSpec((cfg.d_model,), init="ones")},
         }
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             spec["layers"] = _stack_specs(layer, cfg.num_layers)
             return spec
         n_super = cfg.num_layers // cfg.hybrid_period
@@ -108,7 +122,20 @@ class Model:
     # Forward (prefill)
     # ------------------------------------------------------------------
 
-    def _block(self, lp, x, *, positions, segment_ids, collect_kv):
+    def _ffn(self, lp, h, aux_sink: Optional[Dict[str, Any]] = None):
+        """The layer's MLP, or its routed experts plus its shared experts;
+        an MoE layer adds its auxiliary losses into ``aux_sink``."""
+        if "moe" not in lp:
+            return mlp_apply(lp["mlp"], h)
+        y, aux = moe_apply(lp["moe"], h, self.cfg)
+        if "shared_mlp" in lp:
+            y = y + mlp_apply(lp["shared_mlp"], h, prefix="shared_mlp")
+        if aux_sink is not None:
+            for k, v in aux.items():
+                aux_sink[k] = aux_sink.get(k, 0.0) + v
+        return y
+
+    def _block(self, lp, x, *, positions, segment_ids, collect_kv, aux_sink=None):
         cfg = self.cfg
         h = rms_norm(x, lp["ln1"]["w"], cfg.norm_eps)
         a = attn.attention_apply(lp["attn"], h, cfg, positions=positions,
@@ -118,7 +145,7 @@ class Model:
             a, kv = a
         x = x + a
         h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
-        return x + mlp_apply(lp["mlp"], h), kv
+        return x + self._ffn(lp, h, aux_sink), kv
 
     def forward(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 adapters: Any = None, ctx_factory: Optional[CtxFactory] = None,
@@ -128,18 +155,21 @@ class Model:
         [L, B, S, Hkv, dh] post-RoPE.  With ``batch["labels"]`` (and an
         optional ``loss_mask``) ``out["per_token_loss"]`` [B, S] f32 is the
         masked next-token cross-entropy.  ``out["aux"]`` holds auxiliary
-        losses (none in these families).  The hybrid family reads the
+        losses: the MoE family's ``moe_load_balance`` and ``moe_max_frac``,
+        each summed over the layers (none in the other families).  The
+        hybrid family reads the
         segment starts ``batch["reset"]`` [B, S] too, and collects no k/v."""
         x = embed_apply(params["embed"], batch["tokens"])
         kw = dict(positions=batch.get("positions"), segment_ids=batch.get("segment_ids"))
+        aux: Dict[str, Any] = {}
         if self.cfg.family == "hybrid":
             kv = None
             x = self._run_hybrid(params, x, adapters, ctx_factory, reset=batch.get("reset"), **kw)
         else:
             x, kv = self._run_stack(params["layers"], x, adapters, ctx_factory,
-                                    collect_kv=collect_kv, **kw)
+                                    collect_kv=collect_kv, aux_sink=aux, **kw)
         x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
-        out: Dict[str, Any] = {"aux": {}}
+        out: Dict[str, Any] = {"aux": aux}
         if collect_kv:
             out["kv"] = kv
         if return_logits or "labels" in batch:
@@ -167,12 +197,14 @@ class Model:
                                  logits.float()).to(logits.dtype)
         return logits
 
-    def _run_stack(self, layers, x, adapters, ctx_factory, collect_kv=False, **kw):
+    def _run_stack(self, layers, x, adapters, ctx_factory, collect_kv=False, aux_sink=None,
+                   **kw):
         ks, vs = [], []
         for i in range(self.cfg.num_layers):
             ad = _slice_layer(adapters, i) if adapters is not None else None
             with adapter_scope(ctx_factory(ad) if ctx_factory and ad is not None else None):
-                x, kv = self._block(_slice_layer(layers, i), x, collect_kv=collect_kv, **kw)
+                x, kv = self._block(_slice_layer(layers, i), x, collect_kv=collect_kv,
+                                    aux_sink=aux_sink, **kw)
             if collect_kv:
                 ks.append(kv[0])
                 vs.append(kv[1])
@@ -215,10 +247,10 @@ class Model:
     # ------------------------------------------------------------------
 
     def _refuse_hybrid(self, what: str) -> None:
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{what} supports the dense family, not {self.cfg.family}; the hybrid "
-                f"family trains only")
+                f"{what} supports the dense and MoE families, not {self.cfg.family}; the "
+                f"hybrid family trains only")
 
     def init_decode_state(self, batch: int, max_len: int, cache_dtype=torch.bfloat16,
                           prefix_reserve: int = 0) -> Dict[str, Any]:
@@ -245,8 +277,8 @@ class Model:
         over the (padded) prompt, whose post-RoPE k/v rows are written in
         place at offset ``prefix_reserve``.  ``lengths`` [B] are the true
         prompt lengths (junk past them stays outside the window).  Returns
-        (logits over the prompt, state with ``pos`` set).  Dense family only,
-        as in the JAX package."""
+        (logits over the prompt, state with ``pos`` set).  Dense and MoE
+        families, as in the JAX package (which also serves vlm)."""
         self._refuse_hybrid("prefill-into-cache")
         out = self.forward(params, batch, adapters=adapters, ctx_factory=ctx_factory,
                            return_logits=True, collect_kv=True)
@@ -266,8 +298,10 @@ class Model:
         """One decode token for every row (``tokens`` [B, 1]); every layer's
         adapter slice is in scope, so LoRA applies as at train time.
         ``state["pos"]`` counts real tokens; the cache write index is
-        ``prefix_reserve + pos``.  Dense family only (hybrid decode, the
-        JAX package's ``gla_decode_step``, is not ported)."""
+        ``prefix_reserve + pos``.  Dense and MoE families (hybrid decode,
+        the JAX package's ``gla_decode_step``, is not ported).  Every pool
+        row routes through an MoE layer, free rows too, as in the JAX
+        package."""
         self._refuse_hybrid("decode")
         cfg = self.cfg
         pos = state["pos"]
@@ -283,6 +317,6 @@ class Model:
                 a, _ = attn.attention_decode_apply(lp["attn"], h, cfg, cache)
                 x = x + a
                 h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
-                x = x + mlp_apply(lp["mlp"], h)
+                x = x + self._ffn(lp, h)
         x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
         return self._logits(params, x), dict(state, pos=pos + 1)

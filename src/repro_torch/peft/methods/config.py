@@ -1,5 +1,5 @@
 """Per-task adapter hyperparameters and the BaseOp dim inventory (port of
-``repro.peft.methods.config``, dense and hybrid families)."""
+``repro.peft.methods.config``, dense, MoE and hybrid families)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -34,11 +34,13 @@ def supports_attention_prefix(cfg: ArchConfig) -> bool:
 
 
 def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
-    """(d_in, d_out) of every adapter-capable BaseOp of a dense or hybrid
-    backbone: attention q/k/v/o, the gated MLP and, in the hybrid family,
-    the Mamba2 in-projection (to [z, x, B, C, dt]) and out-projection."""
-    if cfg.family not in ("dense", "hybrid"):
-        raise NotImplementedError(f"the port runs the dense and hybrid families, not "
+    """(d_in, d_out) of every adapter-capable BaseOp of a dense, MoE or
+    hybrid backbone: attention q/k/v/o; the gated MLP, or in the MoE family
+    the shared experts' MLP (its routed experts are direct products, no
+    BaseOp); and in the hybrid family the Mamba2 in-projection (to [z, x,
+    B, C, dt]) and out-projection."""
+    if cfg.family not in ("dense", "moe", "hybrid"):
+        raise NotImplementedError(f"the port runs the dense, MoE and hybrid families, not "
                                   f"{cfg.family}")
     d = cfg.d_model
     dims: Dict[str, Tuple[int, int]] = {}
@@ -46,7 +48,12 @@ def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
         qd, kvd = cfg.q_dim, cfg.kv_dim
         dims.update({"attn_q": (d, qd), "attn_k": (d, kvd), "attn_v": (d, kvd),
                      "attn_o": (qd, d)})
-    if cfg.d_ff:
+    if cfg.family == "moe":
+        if cfg.num_shared_experts:
+            ffs = cfg.num_shared_experts * cfg.expert_d_ff
+            dims.update({"shared_mlp_gate": (d, ffs), "shared_mlp_up": (d, ffs),
+                         "shared_mlp_down": (ffs, d)})
+    elif cfg.d_ff:
         dims.update({"mlp_gate": (d, cfg.d_ff), "mlp_up": (d, cfg.d_ff),
                      "mlp_down": (cfg.d_ff, d)})
     if cfg.family == "hybrid":

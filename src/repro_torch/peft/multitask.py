@@ -1,5 +1,5 @@
 """Multi-task adapter state + the spatially fused Dispatch/Aggregate rule
-(port of ``repro.peft.multitask``, dense and hybrid families).
+(port of ``repro.peft.multitask``, dense, MoE and hybrid families).
 
 ``TaskSegments`` is the static row -> task map of a fused (hTask) batch and
 reduces per-token losses to per-task means.  ``MultiTaskAdapters`` builds
@@ -153,11 +153,11 @@ class MultiTaskAdapters:
 
     def spec(self) -> Dict[str, Any]:
         """Adapter ParamSpec tree mirroring the backbone's layer layout:
-        stacked over the layers (dense), or the hybrid family's two groups,
+        stacked over the layers (dense, MoE), or the hybrid family's two groups,
         ``mamba`` stacked ``[n_super, per, ...]`` over the Mamba2 sites and
         ``shared_attn`` unstacked over the rest."""
         cfg = self.cfg
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             return self._stack(self._per_layer_spec(), cfg.num_layers)
         n_super = cfg.num_layers // cfg.hybrid_period
         ssm_targets = {"ssm_in", "ssm_out"}

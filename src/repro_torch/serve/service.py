@@ -374,10 +374,11 @@ class MuxTuneService:
                or f"req{len(self.coserve.requests)}-{task_id}")
         req = InferenceRequest.from_spec(spec, task_id, rid,
                                          submit_clock=self.clock)
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "moe"):
             # the bind step's prefill-into-cache needs a full-depth KV stack;
             # reject up front instead of crashing the training iteration the
-            # bind would have interleaved into (the hybrid family trains only)
+            # bind would have interleaved into (the hybrid family trains only;
+            # the JAX package also serves vlm, which the port has not)
             return self.coserve.reject(req, "family_unsupported")
         return self.coserve.submit(req)
 

@@ -3,14 +3,17 @@
 ``chip_smoke.py`` checks one training step's adapter gradients (kernels
 against the plain versions, both against an f32 run) from the state its
 training path reached, and that state depends on the tokens it trained on.
-This script repeats that on a llama3.2-3b bf16 path for ``N`` token
-seeds: a fresh engine, the warm-up iteration and ``chip_smoke.TRAIN_ITERS``
-iterations on loaders seeded ``0 .. N - 1``, then ``train_check``.  The path
-is ``train`` (the four LoRA / Adapter / IA3 tenants, the default) or
-``methods`` (one tenant of each of the eight PEFT kinds,
-``chip_smoke.methods_plan``, checked by ``train_check_methods``).  One
-JSON line per seed with its distances (each the worst leaf's, as a share of
-that leaf's largest f32 |g|):
+This script repeats that on a bf16 path for ``N`` token seeds: a fresh
+engine, the warm-up iteration and ``chip_smoke.TRAIN_ITERS`` iterations on
+loaders seeded ``0 .. N - 1``, then ``train_check``.  The path is ``train``
+(llama3.2-3b, the four LoRA / Adapter / IA3 tenants, the default),
+``methods`` (llama3.2-3b, one tenant of each of the eight PEFT kinds,
+``chip_smoke.methods_plan``, checked by ``train_check_methods``) or ``moe``
+(deepseek-moe-16b, the four tenants on q, v and the shared experts' up /
+down, ``chip_smoke.moe_plan``, checked by ``train_check_moe``, which also
+reports each run's routing flips against the plain run).  One JSON line
+per seed with its distances (each the worst leaf's, as a share of that
+leaf's largest f32 |g|):
 
 * kernel vs plain, kernel vs f32, plain vs f32;
 * ``plain_stored_o_vs_plain`` and ``plain_reordered_vs_plain``: two plain
@@ -28,7 +31,7 @@ that leaf's largest f32 |g|):
 then a summary line: per distance the sorted values over the seeds, ``S``
 and ``S_reordered`` (the worst of the two plain-path distances).
 
-    PYTHONHASHSEED=0 python3 train_check_spread.py [ROOT] [N] [train|methods]
+    PYTHONHASHSEED=0 python3 train_check_spread.py [ROOT] [N] [train|methods|moe]
 
 ``ROOT`` is the checkout whose ``chip_smoke.py`` and ``src/`` are used
 (default ``.``), so two trees can be held to the same seeds.  The token
@@ -130,8 +133,8 @@ def main() -> int:
     root = sys.argv[1] if len(sys.argv) > 1 else "."
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     path = sys.argv[3] if len(sys.argv) > 3 else "train"
-    if path not in ("train", "methods"):
-        raise SystemExit(f"train_check_spread: unknown path {path!r} (train or methods)")
+    if path not in ("train", "methods", "moe"):
+        raise SystemExit(f"train_check_spread: unknown path {path!r} (train, methods or moe)")
     methods = path == "methods"
     os.chdir(root)
     sys.path[:0] = [".", "src"]
@@ -149,7 +152,8 @@ def main() -> int:
     _build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, tasks, plan = c.methods_plan() if methods else c.train_plan()
+    cfg, tasks, plan = {"train": c.train_plan, "methods": c.methods_plan,
+                        "moe": c.moe_plan}[path]()
     rows = []
     for seed in range(n):
         gen = ModelGenerator(cfg, seed=0)
@@ -170,12 +174,14 @@ def main() -> int:
                 ok = True
             except AssertionError:
                 ok = False
-        phase = '"train_check_methods"' if methods else '"train_check"'
-        line = [ln for ln in buf.getvalue().splitlines() if phase in ln][-1]
-        worst = json.loads(line)["grad_err_rel_to_leaf_max"]
+        phase = {"train": '"train_check"', "methods": '"train_check_methods"',
+                 "moe": '"train_check_moe"'}[path]
+        line = json.loads([ln for ln in buf.getvalue().splitlines() if phase in ln][-1])
+        worst = line["grad_err_rel_to_leaf_max"]
         rows.append({"seed": seed, "ok": ok, **{k: v["max"] for k, v in worst.items()},
                      "leaf": {k: v["leaf"] for k, v in worst.items()},
-                     "audit": audit_summary(records)})
+                     "audit": audit_summary(records),
+                     **({"routing_flips": line["routing_flips"]} if path == "moe" else {})})
         print(json.dumps(rows[-1]), flush=True)
         del engine, gen, loaders
         gc.collect()
@@ -183,7 +189,8 @@ def main() -> int:
     dists = [k for k in rows[0] if k.endswith("_vs_plain") or k.endswith("_vs_f32")]
     print(json.dumps({"root": root, "path": path, "seeds": n,
                       "failed": sum(not r["ok"] for r in rows),
-                      "tol": c.METHODS_GRAD_PATH_TOL if methods else c.GRAD_PATH_TOL,
+                      "tol": {"train": c.GRAD_PATH_TOL, "methods": c.METHODS_GRAD_PATH_TOL,
+                              "moe": c.MOE_GRAD_PATH_TOL}[path],
                       **{k: sorted(r[k] for r in rows) for k in dists},
                       "S": max(r["plain_stored_o_vs_plain"] for r in rows),
                       "S_reordered": max(r["plain_reordered_vs_plain"] for r in rows),
