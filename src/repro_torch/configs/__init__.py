@@ -41,7 +41,9 @@ class ArchConfig:
     # hybrid: layers per super-block; the last of each is the attention block
     hybrid_period: int = 0
     shared_attention: bool = False  # zamba2-style weight-shared attn block
-    gated_mlp: bool = True  # SwiGLU-style (gate/up/down); the port runs only this
+    gated_mlp: bool = True  # SwiGLU-style (gate/up/down); False -> GELU fc1/fc2
+    # q/k/v/o biases (starcoder2); the JAX package initialises them to zeros
+    attention_bias: bool = False
     # attention kind: "full" | "none" (pure recurrent)
     attention: str = "full"
     rope_theta: float = 10_000.0
@@ -83,7 +85,8 @@ class ArchConfig:
     def param_count(self, active_only: bool = False) -> int:
         """Backbone parameter count (the JAX package's formula for the dense,
         hybrid and MoE families; the cost model's Eq. 5 reads it).
-        ``active_only`` counts an MoE layer's top-k routed experts only."""
+        ``active_only`` counts an MoE layer's top-k routed experts only.
+        Like the JAX formula it counts no bias (starcoder2's q/k/v/o)."""
         d = self.d_model
         n_attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
         if self.qk_norm:
@@ -117,6 +120,8 @@ _REGISTRY = {
     "zamba2-2.7b": "zamba2_2_7b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "starcoder2-7b": "starcoder2_7b",
+    "yi-34b": "yi_34b",
 }
 
 ARCH_NAMES = tuple(_REGISTRY)

@@ -5,12 +5,16 @@ package lays them out, and return the same layout as torch tensors:
 
 * ``backbone_from_numpy``: the ``Model`` tree.  Dense: layers stacked on
   axis 0 (``embed.tok``, ``final_norm.w``, ``layers.{ln1,ln2}.w``,
-  ``layers.attn.w_{q,k,v,o}``, ``layers.mlp.w_{gate,up,down}``), the last
-  seven as ``{"q": int8, "scale": f32}`` nodes for an int8 backbone.
+  ``layers.attn.w_{q,k,v,o}``, ``layers.mlp.w_{gate,up,down}`` or, with
+  ``gated_mlp=False``, ``layers.mlp.w_{fc1,fc2}``), the BaseOp weights as
+  ``{"q": int8, "scale": f32}`` nodes for an int8 backbone; a config with
+  ``attention_bias`` adds ``layers.attn.b_{q,k,v,o}``, which stay dense.
   Hybrid: ``embed.{tok,unembed}``, ``final_norm.w``, the Mamba2 blocks
   ``blocks.mamba.{ln.w, mamba.{w_in, conv, dt_bias, a_log, d_skip, norm,
   w_out}}`` stacked ``[n_super, per, ...]`` and the one ``shared_attn``
-  block (the dense layer's leaves, unstacked).  MoE: the dense layout with
+  block (the dense layer's leaves, unstacked); on an int8 backbone ``w_in``,
+  ``w_out`` and the shared block's seven BaseOp weights are quantized
+  nodes (a stacked node's scale keeps both stack axes).  MoE: the dense layout with
   ``layers.moe.{router, w_gate, w_up, w_down}`` (the routed experts,
   ``[L, E, ...]``, never quantized) and, where the config has shared
   experts, ``layers.shared_mlp.w_{gate,up,down}`` in place of

@@ -24,6 +24,11 @@ scales the width, heads and depth and keeps the experts as they are
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --arch deepseek-moe-16b --scale 0.05 --steps 2 --stages 1 --ckpt-dir "$(mktemp -d)"
+
+``--arch starcoder2-7b`` (the GELU fc1 / fc2 MLP and attention biases) and
+``--arch yi-34b`` scale the same way; at full size yi-34b's 68.8 GB bf16
+backbone leaves a single 80 GB card too little room for its training
+activations.
 """
 from __future__ import annotations
 

@@ -1,6 +1,8 @@
 """GQA attention with RoPE: prefill through packed attention, decode through
 split-KV decode attention (port of ``repro.models.attention``, ``pairs``
-mode only, single device).
+mode only, single device).  A config with ``attention_bias`` (starcoder2)
+adds ``b_q`` / ``b_k`` / ``b_v`` / ``b_o``, each added at its BaseOp before
+the adapters apply.
 
 The decode path updates the KV cache in place, where the JAX package
 returns a new cache: ``attention_decode_apply`` writes the new token's k/v
@@ -26,6 +28,11 @@ def attention_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
         "w_v": ParamSpec((d, hkv, dh)),
         "w_o": ParamSpec((h, dh, d)),
     }
+    if cfg.attention_bias:  # starcoder2; zeros at init, as in the JAX package
+        s["b_q"] = ParamSpec((h, dh), init="zeros")
+        s["b_k"] = ParamSpec((hkv, dh), init="zeros")
+        s["b_v"] = ParamSpec((hkv, dh), init="zeros")
+        s["b_o"] = ParamSpec((d,), init="zeros")
     if cfg.qk_norm:
         s["q_norm"] = ParamSpec((dh,), init="ones")
         s["k_norm"] = ParamSpec((dh,), init="ones")
@@ -33,9 +40,9 @@ def attention_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 
 
 def _project_qkv(p, x, cfg: ArchConfig, positions):
-    q = apply_base_op("attn_q", x, p["w_q"], "bsd,dhk->bshk")
-    k = apply_base_op("attn_k", x, p["w_k"], "bsd,dhk->bshk")
-    v = apply_base_op("attn_v", x, p["w_v"], "bsd,dhk->bshk")
+    q = apply_base_op("attn_q", x, p["w_q"], "bsd,dhk->bshk", bias=p.get("b_q"))
+    k = apply_base_op("attn_k", x, p["w_k"], "bsd,dhk->bshk", bias=p.get("b_k"))
+    v = apply_base_op("attn_v", x, p["w_v"], "bsd,dhk->bshk", bias=p.get("b_v"))
     if cfg.qk_norm:  # qwen3: per-head RMSNorm over dh, before RoPE
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -67,7 +74,7 @@ def attention_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig
     out = kops.packed_attention(q, k, v, segment_ids=segment_ids, positions=positions,
                                 prefix_kv=prefix_kv, prefix_keep=prefix_keep,
                                 block_q=cfg.attn_q_block)
-    y = apply_base_op("attn_o", out, p["w_o"], "bshk,hkd->bsd")
+    y = apply_base_op("attn_o", out, p["w_o"], "bshk,hkd->bsd", bias=p.get("b_o"))
     if return_kv:
         return y, (k, v)
     return y
@@ -92,7 +99,7 @@ def attention_decode_apply(p: Dict[str, torch.Tensor], x: torch.Tensor,
     kc[rows, wr] = k_new[:, 0].to(kc.dtype)
     vc[rows, wr] = v_new[:, 0].to(vc.dtype)
     out = kops.decode_attention(q, kc, vc, pos + 1, cache_start=lo)
-    y = apply_base_op("attn_o", out, p["w_o"], "bshk,hkd->bsd")
+    y = apply_base_op("attn_o", out, p["w_o"], "bshk,hkd->bsd", bias=p.get("b_o"))
     return y, dict(cache, len=pos + 1, t=t + 1)
 
 

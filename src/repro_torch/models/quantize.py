@@ -10,17 +10,18 @@ the ``quant_matmul`` kernel.
 
 The scale keeps the weight's rank with size-1 contracted axes (keepdims), so
 dequantization is ``q.float() * scale`` under broadcasting for every site —
-the 2D MLP projections, attention q/k/v ``[d, H, dh]`` (contracted axis -3)
-and o ``[H, dh, d]`` (contracted axes -3, -2) — and a stacked ``[L, ...]``
-leaf slices per layer into matching ``q[i]`` and ``scale[i]``.
+the 2D MLP and Mamba2 projections, attention q/k/v ``[d, H, dh]``
+(contracted axis -3) and o ``[H, dh, d]`` (contracted axes -3, -2) — and a
+stacked ``[L, ...]`` leaf (the hybrid family's ``[n_super, per, ...]``)
+slices per layer into matching ``q[i]`` and ``scale[i]``.
 
 ``q`` and ``scale`` are bit-identical to the JAX package's on the same
 weights: widen to f32, ``absmax`` over the contracted axes, divide by the
 scale (not multiply by its reciprocal), round half to even, clip.  Unlike
 the JAX walk, which returns a new tree, :func:`quantize_backbone` replaces
-the leaves in place and quantizes a stacked leaf one layer at a time, so a
-dense leaf is released as soon as its node replaces it and the f32 copy
-never holds more than one layer.
+the leaves in place and quantizes a stacked leaf one layer at a time (one
+slice of every leading stack axis), so a dense leaf is released as soon as
+its node replaces it and the f32 copy never holds more than one layer.
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ import torch
 from repro_torch.configs import ArchConfig
 from repro_torch.models.layers import ParamSpec
 
-#: BaseOp weight leaves eligible for int8 storage (the JAX package's set;
-#: the dense and MoE families have the attention and gated-MLP ones)
+#: BaseOp weight leaves eligible for int8 storage (the JAX package's set:
+#: attention, the gated or plain MLP, the Mamba2 projections)
 QUANT_LEAVES = frozenset({
     "w_q", "w_k", "w_v", "w_o",
     "w_gate", "w_up", "w_down", "w_fc1", "w_fc2",
@@ -80,14 +81,17 @@ def _scale_shape(shape: Tuple[int, ...], axes: Tuple[int, ...]) -> Tuple[int, ..
 
 
 def _quantize_per_layer(w: torch.Tensor, axes: Tuple[int, ...]) -> Dict[str, torch.Tensor]:
-    """``quantize_weight`` of a stacked leaf one slice of its leading (layer)
-    axis at a time; the contracted axes are trailing, so the slices are
+    """``quantize_weight`` of a leaf with any number of leading stack axes
+    ([L, ...], or the hybrid family's [n_super, per, ...]), one slice of
+    them at a time; the contracted axes are trailing, so the slices are
     independent and the nodes equal the whole leaf's."""
+    if w.dim() == max(-a for a in axes):  # one layer's weight
+        return quantize_weight(w, axes)
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     scale = torch.empty(_scale_shape(tuple(w.shape), axes), dtype=torch.float32,
                         device=w.device)
     for i in range(w.shape[0]):
-        part = quantize_weight(w[i], axes)
+        part = _quantize_per_layer(w[i], axes)
         q[i] = part["q"]
         scale[i] = part["scale"]
     return {"q": q, "scale": scale}
@@ -106,14 +110,11 @@ def quantize_backbone(params: Any, cfg: ArchConfig) -> Any:
     leading layer axis, quantize one layer at a time.
 
     Callers gate on ``cfg.backbone_dtype == "int8"``; the walk itself is
-    config-independent, as the JAX package's is.  The port's int8 tier
-    covers the dense and MoE families (an MoE layer's attention and shared
-    experts quantize, its ``moe`` subtree stays bf16): a hybrid backbone
-    raises."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"the int8 backbone tier is ported for the dense and MoE families, not "
-            f"{cfg.family} ({cfg.name})")
+    config-independent, as the JAX package's is: every eligible leaf of
+    every subtree but ``moe`` (an MoE layer's routed experts stay bf16), so
+    on the hybrid family the Mamba2 blocks' ``w_in`` / ``w_out`` and the
+    shared block's attention and MLP; conv, ``dt_bias``, ``a_log``,
+    ``d_skip`` and the norms stay dense."""
     def walk(node: Any, path: Tuple[str, ...]) -> None:
         for k in list(node):
             v = node[k]
@@ -122,8 +123,7 @@ def quantize_backbone(params: Any, cfg: ArchConfig) -> Any:
                     walk(v, path + (k,))
             elif _quantizes(k, path):
                 axes = _contract_axes(k, path)
-                node[k] = (_quantize_per_layer(v, axes) if path[:1] == ("layers",)
-                           else quantize_weight(v, axes))
+                node[k] = _quantize_per_layer(v, axes)
                 del v  # the dense leaf goes once its node replaces it
 
     walk(params, ())
@@ -150,7 +150,10 @@ def quantized_param_count(cfg: ArchConfig) -> int:
     """Backbone params resident at ``backbone_dtype`` bytes (the BaseOp
     sites), for the Eq. 5 split accounting; the remainder (norms, embedding)
     stays at activation precision.  Analytic: per-layer BaseOp dims x layer
-    count, clamped to the true total."""
+    count, clamped to the true total.  The JAX formula: on the hybrid family
+    the first term counts the shared block's and the Mamba2 sites in every
+    layer, so it clamps to ``param_count`` and Eq. 5 prices the whole
+    backbone at one byte (zamba2: 2.068 G), below the bytes it holds."""
     from repro_torch.peft.methods import base_op_dims
 
     per_layer = sum(din * dout for din, dout in base_op_dims(cfg).values())

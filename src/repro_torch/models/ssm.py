@@ -1,5 +1,5 @@
-"""The Mamba2 block of the hybrid family (port of ``repro.models.ssm``,
-training branch).
+"""The Mamba2 block of the hybrid family (port of ``repro.models.ssm``:
+the training branch and the decode branch).
 
 The block's in-projection gives ``[z, x, B, C, dt]``; x, B and C pass a
 causal depthwise convolution and SiLU; the chunked SSD scan
@@ -14,9 +14,17 @@ dt and the skip run in f32 and are cast back to the working type.
 
 The convolution ignores ``reset`` (as the JAX package's does): a packed
 sequence's first three tokens see conv inputs of the row's previous
-segment; only the scan is cut at segment starts.  The decode branch
-(``gla_decode_step`` and the conv window state) and the xLSTM blocks are not
-ported.
+segment; only the scan is cut at segment starts.
+
+Decode (``state`` given, one token a row): the conv runs over a rolling
+window of the last three inputs (``state["conv"]``), its four taps summed
+with one ``sum`` as the JAX decode branch does (the training branch adds
+them one by one, so the two branches round apart); the scan is one
+recurrent step in f32 (:func:`gla_decode_step`, no kernel: the JAX package
+has none either).  The state is updated in place.  The window must be in
+the block's working type: an f32 run widens the bf16 window of
+:func:`mamba2_init_state` first (``Model.decode_step`` does), as the JAX
+package's concatenation widens it.  The xLSTM blocks are not ported.
 """
 from __future__ import annotations
 
@@ -64,10 +72,56 @@ def _causal_depthwise_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gla_decode_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_decay: torch.Tensor, log_input: torch.Tensor, h: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent step of the gated linear attention, in f32: q / k
+    [B, 1, H, dk], v [B, 1, H, dv], the log gates [B, 1, H], h [B, H, dk,
+    dv] f32.  ``h' = exp(la) h + exp(li) k v^T``, ``y = q h'`` cast to q's
+    type; returns (y [B, 1, H, dv], h')."""
+    a = torch.exp(log_decay.float())[:, 0, :, None, None]
+    b = torch.exp(log_input.float())[:, 0, :, None, None]
+    kv = torch.einsum("bhd,bhv->bhdv", k[:, 0].float(), v[:, 0].float())
+    h_new = a * h + b * kv
+    y = torch.einsum("bhd,bhdv->bhv", q[:, 0].float(), h_new)
+    return y[:, None].to(q.dtype), h_new
+
+
+def mamba2_init_state(cfg: ArchConfig, batch: int, device, dtype=torch.bfloat16
+                      ) -> Dict[str, torch.Tensor]:
+    """One Mamba2 block's zero decode state: ``h`` [B, nh, st, hd] f32 and
+    the conv window ``conv`` [B, CONV_W - 1, d_in + 2 st] in ``dtype``
+    (bf16, as the JAX package's, whatever the KV cache's type)."""
+    d_in, nh, st = mamba2_dims(cfg)
+    return {
+        "h": torch.zeros((batch, nh, st, cfg.ssm_head_dim), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, CONV_W - 1, d_in + 2 * st), dtype=dtype, device=device),
+    }
+
+
+def _decode_conv(conv_in: torch.Tensor, w: torch.Tensor,
+                 state: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The decode branch's conv over ``cat(window, conv_in)``: the taps'
+    products in the working type, one f32 ``sum`` over them cast back (the
+    JAX ``sum`` of a bf16 array), then the window rolled by one row in
+    place.  The window must be in ``conv_in``'s type."""
+    if state["conv"].dtype != conv_in.dtype:
+        raise ValueError(f"the conv window is {state['conv'].dtype}, the block runs in "
+                         f"{conv_in.dtype}: widen the window first, as Model.decode_step does")
+    buf = torch.cat([state["conv"], conv_in], dim=1)
+    prod = buf[:, -CONV_W:, :] * w[None]
+    out = prod.float().sum(dim=1, keepdim=True).to(prod.dtype)
+    state["conv"].copy_(buf[:, 1:, :])
+    return out
+
+
 def mamba2_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
-                 reset: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One Mamba2 block over x [B, S, d] (the training / prefill branch);
-    ``reset`` [B, S] cuts the scan at packed-segment starts."""
+                 reset: Optional[torch.Tensor] = None,
+                 state: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """One Mamba2 block over x [B, S, d]: the training / prefill branch, where
+    ``reset`` [B, S] cuts the scan at packed-segment starts; or, with the
+    block's decode ``state`` ({"h", "conv"}, updated in place), one decode
+    token a row (S = 1)."""
     B, S, _ = x.shape
     d_in, nh, st = mamba2_dims(cfg)
     hd = cfg.ssm_head_dim
@@ -75,7 +129,10 @@ def mamba2_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     proj = apply_base_op("ssm_in", x, p["w_in"], "bsd,de->bse")
     z, xin, bmat, cmat, dt_raw = torch.split(proj, [d_in, d_in, st, st, nh], dim=-1)
     conv_in = torch.cat([xin, bmat, cmat], dim=-1)
-    conv_out = _causal_depthwise_conv(conv_in, p["conv"])
+    if state is None:
+        conv_out = _causal_depthwise_conv(conv_in, p["conv"])
+    else:
+        conv_out = _decode_conv(conv_in, p["conv"], state)
     conv_out = F.silu(conv_out.float()).to(x.dtype)
     xin, bmat, cmat = torch.split(conv_out, [d_in, st, st], dim=-1)
 
@@ -87,7 +144,11 @@ def mamba2_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     v = xin.reshape(B, S, nh, hd)
     k = bmat[:, :, None, :].expand(B, S, nh, st)
     q = cmat[:, :, None, :].expand(B, S, nh, st)
-    y, _ = kops.mamba_scan(q, k, v, log_decay, log_input, chunk=cfg.ssm_chunk, reset=reset)
+    if state is None:
+        y, _ = kops.mamba_scan(q, k, v, log_decay, log_input, chunk=cfg.ssm_chunk, reset=reset)
+    else:
+        y, h_new = gla_decode_step(q, k, v, log_decay, log_input, state["h"])
+        state["h"].copy_(h_new)
 
     y = y + p["d_skip"].float()[None, None, :, None] * v.float()
     y = y.reshape(B, S, d_in).to(x.dtype)

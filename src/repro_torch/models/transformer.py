@@ -16,9 +16,16 @@ layer's load-balance loss and busiest-expert share are summed into
 The hybrid family (zamba2) runs super-blocks of ``hybrid_period - 1``
 Mamba2 blocks (``blocks.mamba``, stacked ``[n_super, per, ...]``) followed
 by one application of a single weight-shared attention+MLP block
-(``shared_attn``); its adapter tree has the same two groups.  It trains and
-never serves: ``prefill`` and ``decode_step`` refuse it, as the JAX
-package's ``prefill`` does.
+(``shared_attn``); its adapter tree has the same two groups.  It decodes
+through ``decode_step`` (each Mamba2 block's recurrent state and conv
+window, one KV cache per application of the shared block); ``prefill``
+refuses it, as the JAX package's does, so a hybrid prompt is fed through
+``decode_step`` a token at a time.
+
+The dense family takes the gated (SwiGLU) MLP or the plain GELU one
+(``gated_mlp=False``, starcoder2), and q/k/v/o biases where the config has
+``attention_bias``.  Norms are RMSNorm in every family the port runs, as in
+the JAX package (which keeps LayerNorm for its audio family).
 
 The decode state is updated in place: ``prefill`` writes the prompt's k/v
 rows into the state's cache tensors and ``decode_step`` writes each new
@@ -70,9 +77,9 @@ class Model:
     ``device="cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "moe", "hybrid") or not cfg.gated_mlp:
+        if cfg.family not in ("dense", "moe", "hybrid"):
             raise NotImplementedError(
-                f"repro_torch runs dense, MoE and hybrid backbones with gated MLPs; "
+                f"repro_torch runs dense, MoE and hybrid backbones; "
                 f"{cfg.name} ({cfg.family}) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -93,9 +100,10 @@ class Model:
             layer["moe"] = moe_spec(cfg)
             if cfg.num_shared_experts:
                 layer["shared_mlp"] = mlp_spec(cfg.d_model,
-                                               cfg.num_shared_experts * cfg.expert_d_ff)
+                                               cfg.num_shared_experts * cfg.expert_d_ff,
+                                               cfg.gated_mlp)
         else:
-            layer["mlp"] = mlp_spec(cfg.d_model, cfg.d_ff)
+            layer["mlp"] = mlp_spec(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
         spec: Dict[str, Any] = {
             "embed": embed_spec(self.vocab_padded, cfg.d_model, cfg.tie_embeddings),
             "final_norm": {"w": ParamSpec((cfg.d_model,), init="ones")},
@@ -125,11 +133,12 @@ class Model:
     def _ffn(self, lp, h, aux_sink: Optional[Dict[str, Any]] = None):
         """The layer's MLP, or its routed experts plus its shared experts;
         an MoE layer adds its auxiliary losses into ``aux_sink``."""
+        gated = self.cfg.gated_mlp
         if "moe" not in lp:
-            return mlp_apply(lp["mlp"], h)
+            return mlp_apply(lp["mlp"], h, gated)
         y, aux = moe_apply(lp["moe"], h, self.cfg)
         if "shared_mlp" in lp:
-            y = y + mlp_apply(lp["shared_mlp"], h, prefix="shared_mlp")
+            y = y + mlp_apply(lp["shared_mlp"], h, gated, prefix="shared_mlp")
         if aux_sink is not None:
             for k, v in aux.items():
                 aux_sink[k] = aux_sink.get(k, 0.0) + v
@@ -249,25 +258,35 @@ class Model:
     def _refuse_hybrid(self, what: str) -> None:
         if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"{what} supports the dense and MoE families, not {self.cfg.family}; the "
-                f"hybrid family trains only")
+                f"{what} supports the dense and MoE families, not {self.cfg.family}; "
+                f"drive a hybrid prompt through decode_step instead")
 
     def init_decode_state(self, batch: int, max_len: int, cache_dtype=torch.bfloat16,
                           prefix_reserve: int = 0) -> Dict[str, Any]:
         """Per-row decode state (the JAX ``per_row=True`` layout): ``kv``
-        caches [L, B, prefix_reserve + max_len, Hkv, dh], ``pos`` [B] the real
-        token count of each row, ``lo`` [B] each row's first valid cache
-        index."""
+        caches [L, B, prefix_reserve + max_len, Hkv, dh] (the hybrid family:
+        one per application of the shared block, [n_super, ...]), ``pos``
+        [B] the real token count of each row, ``lo`` [B] each row's first
+        valid cache index.  The hybrid family adds ``mamba``: each Mamba2
+        block's state (``ssm.mamba2_init_state``: ``h`` f32 and the bf16
+        conv window, whatever ``cache_dtype``), stacked [n_super, per, ...]."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, prefix_reserve + max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim())
         dev = self.device
-        return {
+        hybrid = cfg.family == "hybrid"
+        n_cache = cfg.num_layers // cfg.hybrid_period if hybrid else cfg.num_layers
+        shape = (n_cache, batch, prefix_reserve + max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim())
+        state = {
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "lo": torch.full((batch,), prefix_reserve, dtype=torch.int32, device=dev),
             "kv": {"k": torch.zeros(shape, dtype=cache_dtype, device=dev),
                    "v": torch.zeros(shape, dtype=cache_dtype, device=dev)},
         }
+        if hybrid:
+            lead = (n_cache, cfg.hybrid_period - 1)
+            state["mamba"] = {k: v.expand(lead + v.shape).contiguous()
+                              for k, v in ssm.mamba2_init_state(cfg, batch, dev).items()}
+        return state
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], state: Dict[str, Any],
                 adapters: Any = None, ctx_factory: Optional[CtxFactory] = None,
@@ -292,31 +311,66 @@ class Model:
             t = lengths.to(torch.int32).expand(B).clone()
         return out["logits"], dict(state, pos=t)
 
+    def _decode_block(self, lp, x, cache):
+        """One attention+MLP block (a dense or MoE layer, or the hybrid
+        family's shared block) over one decode token a row."""
+        cfg = self.cfg
+        h = rms_norm(x, lp["ln1"]["w"], cfg.norm_eps)
+        a, _ = attn.attention_decode_apply(lp["attn"], h, cfg, cache)
+        x = x + a
+        h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
+        return x + self._ffn(lp, h)
+
     def decode_step(self, params, state: Dict[str, Any], tokens: torch.Tensor,
                     adapters: Any = None, ctx_factory: Optional[CtxFactory] = None,
                     prefix_reserve: int = 0) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """One decode token for every row (``tokens`` [B, 1]); every layer's
         adapter slice is in scope, so LoRA applies as at train time.
         ``state["pos"]`` counts real tokens; the cache write index is
-        ``prefix_reserve + pos``.  Dense and MoE families (hybrid decode,
-        the JAX package's ``gla_decode_step``, is not ported).  Every pool
-        row routes through an MoE layer, free rows too, as in the JAX
-        package."""
-        self._refuse_hybrid("decode")
+        ``prefix_reserve + pos``.  Every pool row routes through an MoE
+        layer, free rows too, as in the JAX package.  The hybrid family
+        walks its super-blocks as the JAX ``decode_step`` does: each Mamba2
+        block under its (super-block, block) adapter slice and its state
+        (updated in place), then the shared block under
+        ``adapters["shared_attn"]`` over that super-block's KV cache."""
         cfg = self.cfg
         pos = state["pos"]
         x = embed_apply(params["embed"], tokens)
         kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
-        for i in range(cfg.num_layers):
-            lp = _slice_layer(params["layers"], i)
-            ad = _slice_layer(adapters, i) if adapters is not None else None
-            cache = {"k": kc_all[i], "v": vc_all[i], "len": prefix_reserve + pos, "t": pos,
-                     "lo": state["lo"]}
-            with adapter_scope(ctx_factory(ad) if ctx_factory and ad is not None else None):
-                h = rms_norm(x, lp["ln1"]["w"], cfg.norm_eps)
-                a, _ = attn.attention_decode_apply(lp["attn"], h, cfg, cache)
-                x = x + a
-                h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
-                x = x + self._ffn(lp, h)
+        new_state = dict(state, pos=pos + 1)
+
+        def cache(i):
+            return {"k": kc_all[i], "v": vc_all[i], "len": prefix_reserve + pos, "t": pos,
+                    "lo": state["lo"]}
+
+        def scope(ad):
+            return adapter_scope(ctx_factory(ad) if ctx_factory and ad is not None else None)
+
+        if cfg.family == "hybrid":
+            mamba = dict(state["mamba"])
+            dt = torch.promote_types(mamba["conv"].dtype, x.dtype)
+            if mamba["conv"].dtype != dt:  # an f32 run widens the bf16 window, as JAX's concat
+                mamba["conv"] = mamba["conv"].to(dt)
+            new_state["mamba"] = mamba
+            blocks = params["blocks"]
+            ad_mamba = adapters.get("mamba") if isinstance(adapters, dict) else None
+            ad_shared = adapters.get("shared_attn") if isinstance(adapters, dict) else None
+            for i in range(cfg.num_layers // cfg.hybrid_period):
+                mb = _slice_layer(blocks["mamba"], i)
+                ad = _slice_layer(ad_mamba, i) if ad_mamba is not None else None
+                for j in range(cfg.hybrid_period - 1):
+                    lp = _slice_layer(mb, j)
+                    with scope(_slice_layer(ad, j) if ad is not None else None):
+                        h = rms_norm(x, lp["ln"]["w"], cfg.norm_eps)
+                        x = x + ssm.mamba2_apply(lp["mamba"], h, cfg, state={
+                            "h": mamba["h"][i, j], "conv": mamba["conv"][i, j]})
+                shared = params["shared_attn"] if cfg.shared_attention \
+                    else _slice_layer(blocks["attn"], i)
+                with scope(ad_shared):
+                    x = self._decode_block(shared, x, cache(i))
+        else:
+            for i in range(cfg.num_layers):
+                with scope(_slice_layer(adapters, i) if adapters is not None else None):
+                    x = self._decode_block(_slice_layer(params["layers"], i), x, cache(i))
         x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
-        return self._logits(params, x), dict(state, pos=pos + 1)
+        return self._logits(params, x), new_state

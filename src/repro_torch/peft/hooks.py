@@ -73,9 +73,12 @@ def active_context() -> Optional[AdapterContext]:
 
 
 def apply_base_op(name: str, x: torch.Tensor, w: Union[torch.Tensor, Dict[str, torch.Tensor]],
-                  einsum_str: str) -> torch.Tensor:
+                  einsum_str: str, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A BaseOp: einsum against a dense weight, or the int8 product against
-    a quantized node, + optional adapter Dispatch/Aggregate around it."""
+    a quantized node, plus ``bias`` where given, + optional adapter
+    Dispatch/Aggregate around it.  The bias is added before the adapter's
+    ``apply``, as in the JAX package, so a method that reads ``base_out``
+    (DoRA's re-norm) sees ``base_out + bias``."""
     ctx = _ENV.ctx
     active = ctx is not None and ctx.has(name)
     if isinstance(w, dict):
@@ -83,6 +86,8 @@ def apply_base_op(name: str, x: torch.Tensor, w: Union[torch.Tensor, Dict[str, t
         w = dequantize(w, dtype=x.dtype) if active and ctx.reads_base_weight(name) else None
     else:
         out = torch.einsum(einsum_str, x, w)
+    if bias is not None:
+        out = out + bias
     if active:
         out = ctx.apply(name, x, out, w)
     return out

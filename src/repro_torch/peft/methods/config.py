@@ -35,7 +35,8 @@ def supports_attention_prefix(cfg: ArchConfig) -> bool:
 
 def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
     """(d_in, d_out) of every adapter-capable BaseOp of a dense, MoE or
-    hybrid backbone: attention q/k/v/o; the gated MLP, or in the MoE family
+    hybrid backbone: attention q/k/v/o; the gated MLP (gate / up / down) or
+    the plain one (fc1 / fc2), or in the MoE family
     the shared experts' MLP (its routed experts are direct products, no
     BaseOp); and in the hybrid family the Mamba2 in-projection (to [z, x,
     B, C, dt]) and out-projection."""
@@ -53,9 +54,11 @@ def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
             ffs = cfg.num_shared_experts * cfg.expert_d_ff
             dims.update({"shared_mlp_gate": (d, ffs), "shared_mlp_up": (d, ffs),
                          "shared_mlp_down": (ffs, d)})
-    elif cfg.d_ff:
+    elif cfg.d_ff and cfg.gated_mlp:
         dims.update({"mlp_gate": (d, cfg.d_ff), "mlp_up": (d, cfg.d_ff),
                      "mlp_down": (cfg.d_ff, d)})
+    elif cfg.d_ff:  # the plain GELU MLP (starcoder2)
+        dims.update({"mlp_fc1": (d, cfg.d_ff), "mlp_fc2": (cfg.d_ff, d)})
     if cfg.family == "hybrid":
         d_in = cfg.ssm_expand * d
         nh = d_in // cfg.ssm_head_dim

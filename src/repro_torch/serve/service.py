@@ -377,8 +377,9 @@ class MuxTuneService:
         if self.cfg.family not in ("dense", "moe"):
             # the bind step's prefill-into-cache needs a full-depth KV stack;
             # reject up front instead of crashing the training iteration the
-            # bind would have interleaved into (the hybrid family trains only;
-            # the JAX package also serves vlm, which the port has not)
+            # bind would have interleaved into (the hybrid family decodes
+            # through Model.decode_step only, as in the JAX package; the JAX
+            # package also serves vlm, which the port has not)
             return self.coserve.reject(req, "family_unsupported")
         return self.coserve.submit(req)
 

@@ -425,17 +425,20 @@ def test_hybrid_forward_matches_jax(pair):
 
 
 def test_hybrid_refuses_serving_as_jax_does(pair):
+    """``prefill`` (the bind's prefill-into-cache) refuses the hybrid family
+    in both packages; a hybrid prompt goes through ``decode_step``, which
+    serves it (``test_torch_hybrid_decode.py`` holds it to JAX), as does the
+    int8 tier."""
     model = pair["model_t"]
-    state = {"pos": torch.zeros(1, dtype=torch.int32)}
+    state = model.init_decode_state(1, 16)
     with pytest.raises(NotImplementedError, match="hybrid"):
         model.prefill(pair["bb_t"], {"tokens": torch.zeros((1, 8), dtype=torch.int32)}, state)
     with pytest.raises(NotImplementedError, match="hybrid"):
-        model.decode_step(pair["bb_t"], state, torch.zeros((1, 1), dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="hybrid"):
         pair["jmodel"].prefill(None, {"tokens": jnp.zeros((1, 8), jnp.int32)}, None)
+    logits, state = model.decode_step(pair["bb_t"], state, torch.zeros((1, 1), dtype=torch.int32))
+    assert logits.shape == (1, 1, model.vocab_padded) and state["pos"].tolist() == [1]
     gen = ModelGenerator(pair["cfg_t"].with_overrides(backbone_dtype="int8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        gen.init_backbone()
+    assert gen.init_backbone()["blocks"]["mamba"]["mamba"]["w_in"]["q"].dtype == torch.int8
 
 
 # ---------------------------------------------------------------------------

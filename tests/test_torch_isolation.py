@@ -88,11 +88,13 @@ def test_registry_lists_only_ported_configs():
     from repro_torch.configs import ARCH_NAMES, get_config
 
     assert ARCH_NAMES == ("llama3.2-3b", "smollm-360m", "zamba2-2.7b", "deepseek-moe-16b",
-                          "qwen3-moe-235b-a22b")
+                          "qwen3-moe-235b-a22b", "starcoder2-7b", "yi-34b")
     assert get_config("llama3.2-3b").num_layers == 28
     assert get_config("smollm-360m").num_layers == 32
     assert get_config("zamba2-2.7b").num_layers == 54
     assert get_config("deepseek-moe-16b").num_experts == 64
     assert get_config("qwen3-moe-235b-a22b").qk_norm
+    assert get_config("starcoder2-7b").attention_bias
+    assert get_config("yi-34b").num_layers == 60
     with pytest.raises(KeyError, match="not ported"):
         get_config("xlstm-1.3b")

@@ -472,11 +472,12 @@ def test_service_greedy_tokens_match_jax(tmp_path):
 
 
 def test_serving_admits_moe_and_refuses_hybrid():
+    """The bind's prefill stays dense / MoE only; the hybrid family decodes
+    through ``decode_step`` alone (``test_torch_hybrid_decode.py``), so the
+    service rejects its requests."""
     z = Model(smoke_config("zamba2-2.7b"), device="cpu")
     with pytest.raises(NotImplementedError, match="dense and MoE"):
         z.prefill(None, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, {})
-    with pytest.raises(NotImplementedError, match="dense and MoE"):
-        z.decode_step(None, {"pos": None}, None)
     from repro_torch.serve import MuxTuneService, RequestSpec
 
     svc = MuxTuneService(smoke_config("zamba2-2.7b"), ParallelismSpec(), device="cpu")

@@ -3,35 +3,46 @@
 ``chip_smoke.py`` checks one training step's adapter gradients (kernels
 against the plain versions, both against an f32 run) from the state its
 training path reached, and that state depends on the tokens it trained on.
-This script repeats that on a bf16 path for ``N`` token seeds: a fresh
-engine, the warm-up iteration and ``chip_smoke.TRAIN_ITERS`` iterations on
+This script repeats that on a path for ``N`` token seeds: a fresh
+engine (its backbone from ``chip_smoke.init_backbone``, starcoder2-7b's
+biases filled as there), the warm-up iteration and ``chip_smoke.TRAIN_ITERS`` iterations on
 loaders seeded ``0 .. N - 1``, then ``train_check``.  The path is ``train``
 (llama3.2-3b, the four LoRA / Adapter / IA3 tenants, the default),
 ``methods`` (llama3.2-3b, one tenant of each of the eight PEFT kinds,
-``chip_smoke.methods_plan``, checked by ``train_check_methods``) or ``moe``
+``chip_smoke.methods_plan``, checked by ``train_check_methods``), ``moe``
 (deepseek-moe-16b, the four tenants on q, v and the shared experts' up /
 down, ``chip_smoke.moe_plan``, checked by ``train_check_moe``, which also
-reports each run's routing flips against the plain run).  One JSON line
-per seed with its distances (each the worst leaf's, as a share of that
-leaf's largest f32 |g|):
+reports each run's routing flips against the plain run), ``zamba`` and
+``zamba_int8`` (zamba2-2.7b on a bf16 or an int8 backbone, the tenants on
+the Mamba2 projections and the shared block's q / v,
+``chip_smoke.zamba_plan``) or ``starcoder2`` (starcoder2-7b, the tenants
+on q, v, fc1 and fc2, ``chip_smoke.starcoder2_plan``).  One JSON line per
+seed with its distances (each the worst leaf's, as a share of that leaf's
+largest f32 |g|):
 
 * kernel vs plain, kernel vs f32, plain vs f32;
-* ``plain_stored_o_vs_plain`` and ``plain_reordered_vs_plain``: two plain
-  paths (``chip_smoke.plain_stored_o`` / ``plain_reordered``), no kernel,
-  each at a distance from the plain one that is the gate's noise floor;
-* ``swap_<family>_vs_plain`` for each family of ``ops.FAMILIES``: the
-  kernel path with that family's plain version swapped in alone
-  (``ops.force_plain([family])``; packed attention also by direction);
+* the second plain paths, no kernel, each at a distance from the plain
+  one that is the gate's noise floor: on a bf16 backbone
+  ``plain_stored_o_vs_plain`` and ``plain_reordered_vs_plain``
+  (``chip_smoke.plain_stored_o`` / ``plain_reordered``; on zamba2 this
+  script adds the latter, which chip_smoke's check leaves out), on an int8
+  one ``plain_scale_first_vs_plain``;
+* ``swap_<family>_vs_plain`` for each family of ``ops.FAMILIES`` that the
+  path runs: the kernel path with that family's plain version swapped in
+  alone (``ops.force_plain([family])``; packed attention also by
+  direction);
 * ``audit_vs_plain``: the kernel path again, every grouped-LoRA and
   packed-attention kernel call held to its plain version on the same
   operands (``audit``: per kernel the calls, the worst error as a share of
   the plain output's largest magnitude, the tolerance chip_smoke holds it
   to, how many calls exceed it, and the worst call's index);
 
-then a summary line: per distance the sorted values over the seeds, ``S``
-and ``S_reordered`` (the worst of the two plain-path distances).
+then a summary line: per distance the sorted values over the seeds, and
+per second plain path its worst (``S`` for ``plain_stored_o``,
+``S_reordered`` for ``plain_reordered``, ``S_scale_first`` for
+``plain_scale_first``) and ``S_prime``, the worst of them all.
 
-    PYTHONHASHSEED=0 python3 train_check_spread.py [ROOT] [N] [train|methods|moe]
+    PYTHONHASHSEED=0 python3 train_check_spread.py [ROOT] [N] [PATH]
 
 ``ROOT`` is the checkout whose ``chip_smoke.py`` and ``src/`` are used
 (default ``.``), so two trees can be held to the same seeds.  The token
@@ -133,8 +144,9 @@ def main() -> int:
     root = sys.argv[1] if len(sys.argv) > 1 else "."
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     path = sys.argv[3] if len(sys.argv) > 3 else "train"
-    if path not in ("train", "methods", "moe"):
-        raise SystemExit(f"train_check_spread: unknown path {path!r} (train, methods or moe)")
+    paths = ("train", "methods", "moe", "zamba", "zamba_int8", "starcoder2")
+    if path not in paths:
+        raise SystemExit(f"train_check_spread: unknown path {path!r} ({', '.join(paths)})")
     methods = path == "methods"
     os.chdir(root)
     sys.path[:0] = [".", "src"]
@@ -153,11 +165,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg, tasks, plan = {"train": c.train_plan, "methods": c.methods_plan,
-                        "moe": c.moe_plan}[path]()
+                        "moe": c.moe_plan, "zamba": c.zamba_plan,
+                        "zamba_int8": lambda: c.zamba_plan("int8"),
+                        "starcoder2": c.starcoder2_plan}[path]()
+    int8 = cfg.backbone_dtype == "int8"
+    # the families this path runs (decode attention runs in no training step)
+    families = [f for f in ops.FAMILIES if f != "decode_attention"
+                and (f != "quant_matmul" or int8)
+                and (f != "mamba_scan" or cfg.family == "hybrid")]
     rows = []
     for seed in range(n):
         gen = ModelGenerator(cfg, seed=0)
-        gen.init_backbone()
+        c.init_backbone(torch, gen)
         gen.register_tasks(tasks)
         engine = PEFTEngine(gen, plan, lr=c.TRAIN_LR)
         loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size, seed=seed)
@@ -165,8 +184,10 @@ def main() -> int:
         for _ in range(1 + c.TRAIN_ITERS):
             engine.run_iteration(loaders)
         records = []
-        extra = {f"swap_{f}": (lambda f=f: ops.force_plain([f])) for f in ops.FAMILIES}
+        extra = {f"swap_{f}": (lambda f=f: ops.force_plain([f])) for f in families}
         extra["audit"] = lambda: audited(torch, c, records)
+        if cfg.family == "hybrid" and not int8:  # (chip_smoke's check runs only S there)
+            extra["plain_reordered"] = c.plain_reordered
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             try:
@@ -174,8 +195,7 @@ def main() -> int:
                 ok = True
             except AssertionError:
                 ok = False
-        phase = {"train": '"train_check"', "methods": '"train_check_methods"',
-                 "moe": '"train_check_moe"'}[path]
+        phase = '"train_check%s"' % ("_methods" if methods else c.path_suffix(cfg))
         line = json.loads([ln for ln in buf.getvalue().splitlines() if phase in ln][-1])
         worst = line["grad_err_rel_to_leaf_max"]
         rows.append({"seed": seed, "ok": ok, **{k: v["max"] for k, v in worst.items()},
@@ -187,13 +207,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     dists = [k for k in rows[0] if k.endswith("_vs_plain") or k.endswith("_vs_f32")]
+    second = {"S": "plain_stored_o_vs_plain", "S_reordered": "plain_reordered_vs_plain",
+              "S_scale_first": "plain_scale_first_vs_plain"}
+    worst = {name: max(r[key] for r in rows) for name, key in second.items() if key in rows[0]}
     print(json.dumps({"root": root, "path": path, "seeds": n,
-                      "failed": sum(not r["ok"] for r in rows),
-                      "tol": {"train": c.GRAD_PATH_TOL, "methods": c.METHODS_GRAD_PATH_TOL,
-                              "moe": c.MOE_GRAD_PATH_TOL}[path],
+                      "failed": sum(not r["ok"] for r in rows), "tol": line["grad_tol"],
                       **{k: sorted(r[k] for r in rows) for k in dists},
-                      "S": max(r["plain_stored_o_vs_plain"] for r in rows),
-                      "S_reordered": max(r["plain_reordered_vs_plain"] for r in rows),
+                      **worst, "S_prime": max(worst.values()),
                       "seconds": time.time() - t0}), flush=True)
     return 0
 
