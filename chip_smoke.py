@@ -8,7 +8,9 @@ kinds, the online co-serving service (MuxTuneService) under tenant churn,
 the fleet tier (FleetRouter over several services: routing, live
 migration, crash recovery, autoscaling), training and serving of the MoE
 family on full-size deepseek-moe-16b, and of starcoder2-7b (attention
-biases, the GELU MLP), and serving of yi-34b at full size.
+biases, the GELU MLP), serving of yi-34b, training and serving of the vlm
+family (qwen2-vl-7b: M-RoPE, qkv biases) and of the audio family
+(whisper-large-v3: the encoder, cross-attention, LayerNorm) at full size.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -173,7 +175,8 @@ part's wall seconds:
                     this path's own plain-path spread), the f32 run widening
                     one layer's weights at a time, the routing flips of each
                     run against the plain one;
-17. serve_moe    -- phase 5 on it: four LoRA tenants on the seven attention
+17. serve_moe    -- phase 5 on it, at 14 of its 28 layers
+                    (``MOE_SERVE_LAYERS``): four LoRA tenants on the seven attention
                     and shared-expert sites, 32 greedy tokens a row; the
                     teacher-forced check's gate set from this path's own
                     ``plain_split`` spread (``_gate_from``) before the kernel
@@ -183,7 +186,8 @@ part's wall seconds:
 18. serve_moe_int8 -- phase 17 on an int8 backbone (attention and shared
                     experts int8, routed experts bf16): quant_matmul
                     launches, the backbone's bytes against Eq. 5.
-19. serve_zamba, serve_zamba_int8 -- zamba2-2.7b at full width and depth
+19. serve_zamba, serve_zamba_int8 -- zamba2-2.7b at full width and 30 of
+                    its 54 layers (``ZAMBA_SERVE_LAYERS``: 5 super-blocks)
                     on a bf16 and on an int8 backbone: four LoRA tenants on
                     the Mamba2 projections and the shared block's q / v,
                     eight rows, prompts of 16-64 tokens fed through
@@ -213,8 +217,47 @@ part's wall seconds:
                     memory.  The kernel phases hold grouped LoRA at yi's
                     sites and decode attention at 7 query heads per k/v
                     head.
+23. train_qwen2vl, serve_qwen2vl -- qwen2-vl-7b at full width and depth
+                    (28 layers, d = 3584, H = 28, Hkv = 4, dh = 128), its
+                    q/k/v/o biases filled random: phases 6-7 with the
+                    tenants on q, v, up and down (training batches carry no
+                    M-RoPE channels: plain RoPE, as in the JAX package; gate
+                    QWEN2VL_GRAD_PATH_TOL), then phase 5's shape through
+                    PEFTEngine on its seven sites, the bind's prefill (and
+                    the teacher-forced rerun's) carrying the prompt's three
+                    M-RoPE channels, gated from its own plain_split spread.
+                    The kernel phases hold grouped LoRA at its sites, packed
+                    attention (forward, dq, dk/dv) at 7 query heads per k/v
+                    head on the training layout and its forward at the
+                    bind's 8 x 512, and decode attention at those heads;
+24. serve_whisper -- whisper-large-v3 at full width and depth (32 encoder
+                    and 32 decoder layers, d = 1280, H = Hkv = 20, dh =
+                    64), every bias filled: the encoder once over random
+                    frames [8, 1500, 1280] into the fixed cross caches, four
+                    LoRA tenants on the decoder's six sites, prompts of
+                    16-64 fed through Model.decode_step (no audio prefill),
+                    32 greedy tokens; launches per step (decode attention
+                    twice a layer, grouped LoRA at q and o twice), the
+                    logits against the plain path's (gate from its own
+                    plain_split), the f32 guard, the decode against its own
+                    forward within twice the plain path's distance;
+25. train_whisper, train_check_whisper -- whisper through the model-level
+                    launch.steps.build_train_step (PEFTEngine's batches
+                    carry no frames): the LoRA / Adapter / IA3 tenants on
+                    the decoder's q, v, fc1 and fc2, 8 rows of 256 tokens
+                    beside 1500 frames each, a warm-up and six steps,
+                    launches per step checked, then phase 7 on it (gate
+                    WHISPER_GRAD_PATH_TOL).  The kernel phases hold grouped
+                    LoRA at its sites (q twice a decoder layer), packed
+                    attention at the encoder (8 x 1500, non-causal), at the
+                    decoder's self-attention and at the cross-attention (256
+                    queries over 1500 frames, non-causal: the packed
+                    attention kernels with one segment a row), forward, dq
+                    and dk/dv, and decode attention at its heads and over
+                    the whole 1500-row cross cache.
 
-Every line of phases 11-22 and of their kernel cases carries the card's
+The whole script is held to ``TIME_BUDGET_S`` (1,200 s) on one card.
+Every line of phases 11-25 and of their kernel cases carries the card's
 name and power limit (``"card"``).  Then the seconds line, a {"kernels":
 [...]} line and last {"ok": true, "device": {...}}.  Any failure raises
 (in the second process too): the script exits non-zero and prints no ok
@@ -253,6 +296,12 @@ MOE_SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "shared_mlp_gate", "shared_
 # prefill), then 32 greedy tokens: the longest prompt sets the steps
 ZAMBA_SERVE_ROWS, ZAMBA_SERVE_NEW, ZAMBA_SERVE_PROMPTS = 8, 32, (16, 64)
 ZAMBA_SERVE_STEPS = ZAMBA_SERVE_PROMPTS[1] + ZAMBA_SERVE_NEW - 1
+# the serving paths cut in depth at full width, host-bound (their seconds grow
+# with the layers' launches), so that the script with the vlm and audio paths
+# stays inside TIME_BUDGET_S on a slow host: zamba2's decode at 5 of its 9
+# super-blocks (30 of 54 layers), deepseek-moe-16b's at 14 of 28 layers
+# (their gates come from each run's own plain paths)
+ZAMBA_SERVE_LAYERS, MOE_SERVE_LAYERS = 30, 14
 # starcoder2-7b (the GELU fc1 / fc2 MLP, attention biases): the training
 # tenants on q, v, fc1 and fc2; the serving tenants on all six sites
 STARCODER2_ARCH = "starcoder2-7b"
@@ -266,10 +315,29 @@ METHODS_TASKS = ("sst2:lora:8,qa:adapter:8,rte:ia3,sst2:prefix:16,qa:diff:16,rte
                  "sst2:vera:64,qa:bitfit")
 # the supervised loop: steps, checkpoint cadence, the step a failure precedes
 METHODS_STEPS, METHODS_CKPT_EVERY, METHODS_FAIL_AT = 5, 2, 3
-# train_methods and the two fleet paths run llama3.2-3b at full width and
-# half its depth: host-bound paths, cut so that the script, with the MoE,
-# zamba2, starcoder2 and yi-34b phases, stays under its 1,000 s (as
-# COSERVE_LAYERS)
+# qwen2-vl-7b (M-RoPE, qkv biases, 7 query heads per k/v head at dh = 128):
+# the training tenants on q, v, up and down; the serving tenants on its seven
+# sites (SITES).  Its training batches carry no M-RoPE channels (plain RoPE,
+# as in the JAX package); the bind builds them.
+QWEN2VL_ARCH = "qwen2-vl-7b"
+QWEN2VL_TARGETS = ("attn_q", "attn_v", "mlp_up", "mlp_down")
+# whisper-large-v3 (32 encoder and 32 decoder layers, d = 1280, dh = 64): the
+# training tenants (TRAIN_TASKS, two rows each) on the decoder's q, v, fc1 and
+# fc2, 8 rows of 256 tokens beside 1500 frames each; the serving tenants on
+# the decoder's six sites, 8 rows, prompts of 16-64 fed through decode_step
+# (the audio family has no prefill), then 32 greedy tokens
+WHISPER_ARCH = "whisper-large-v3"
+WHISPER_TARGETS = ("attn_q", "attn_v", "mlp_fc1", "mlp_fc2")
+WHISPER_SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "mlp_fc1", "mlp_fc2")
+WHISPER_TRAIN_ROWS, WHISPER_TRAIN_LEN = 8, 256
+WHISPER_SERVE_ROWS, WHISPER_SERVE_NEW, WHISPER_SERVE_PROMPTS = 8, 32, (16, 64)
+WHISPER_SERVE_STEPS = WHISPER_SERVE_PROMPTS[1] + WHISPER_SERVE_NEW - 1
+# The wall seconds the whole script is held to on one card, the kernels'
+# build included: the limit of a run (the seconds line reports it beside the
+# total).  train_methods and the two fleet paths run llama3.2-3b at full
+# width and half its depth: host-bound paths, cut to stay inside it (as
+# COSERVE_LAYERS).
+TIME_BUDGET_S = 1200
 METHODS_LAYERS = FLEET_LAYERS = 14
 # the kinds whose adapter delta runs through the grouped-LoRA kernel
 GROUPED_LORA_KINDS = ("lora", "dora")
@@ -410,6 +478,19 @@ MOE_GRAD_PATH_TOL = 0.27
 # max(10%, 2 S, 2 S').
 ZAMBA_INT8_GRAD_PATH_TOL = 0.205
 STARCODER2_GRAD_PATH_TOL = 0.10
+# train_check_qwen2vl (qwen2-vl-7b, bf16, its q/k/v/o biases filled random,
+# the training tenants on q, v, up and down) and train_check_whisper
+# (whisper-large-v3, every bias filled, the tenants on the decoder's q, v,
+# fc1 and fc2): each set, as GRAD_PATH_TOL was, from its own second plain
+# paths before the kernel path was gated, over token seeds 0-9
+# (``train_check_spread.py . 10 qwen2vl`` / ``whisper``, NVIDIA H100 80GB
+# HBM3, 700.00 W).  qwen2-vl: ``plain_stored_o`` 0.0411 (S),
+# ``plain_reordered`` 0.0852 (S'), the kernel path 0.0588-0.1078; 2 S' =
+# 0.1705 -> 0.175.  whisper (its frames from the seed too): S = 0.0273,
+# ``plain_reordered`` 0.0252, the kernel path 0.0199-0.0304; 2 S = 0.0545,
+# under the 10% floor of max(10%, 2 S, 2 S').
+QWEN2VL_GRAD_PATH_TOL = 0.175
+WHISPER_GRAD_PATH_TOL = 0.10
 # The int8 backbone's bytes against the cost model's Eq. 5 term, which
 # counts the BaseOp weights at one byte and the rest at two but not the f32
 # scales (0.1% of the backbone at full width).
@@ -1310,7 +1391,7 @@ def step_launches(cfg, adapters):
     def sites(tree):
         return sum(len(tree.get(kind, {})) for kind in GROUPED_LORA_KINDS)
 
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "vlm", "moe"):
         attn, scans = cfg.num_layers, 0
         lora = sites(adapters) * cfg.num_layers
     else:  # hybrid: n_super x (per Mamba2 blocks + the shared block)
@@ -2149,7 +2230,8 @@ def zamba_kernel_phase(torch, timer, cfg, tasks, plan):
 def path_suffix(cfg) -> str:
     """A path's phase-name suffix: the model (none for llama3.2-3b), then
     ``_int8`` on an int8 backbone."""
-    model = {STARCODER2_ARCH: "_starcoder2", YI_ARCH: "_yi"}.get(cfg.name) or {
+    model = {STARCODER2_ARCH: "_starcoder2", YI_ARCH: "_yi", QWEN2VL_ARCH: "_qwen2vl",
+             WHISPER_ARCH: "_whisper"}.get(cfg.name) or {
         "hybrid": "_zamba", "moe": "_moe"}.get(cfg.family, "")
     return model + ("_int8" if cfg.backbone_dtype == "int8" else "")
 
@@ -2170,14 +2252,17 @@ def base_op_calls(cfg) -> int:
 def init_backbone(torch, gen):
     """``gen``'s backbone from its seed; where the config has q/k/v/o
     biases, which start at 0 in both packages and would hide their add,
-    they are then filled from ``gen``'s generator (0.1 x N(0, 1))."""
+    they are then filled from ``gen``'s generator (0.1 x N(0, 1)), and on
+    the audio family the MLP's and the LayerNorms' biases too."""
     backbone = gen.init_backbone()
+    biases = ("b_q", "b_k", "b_v", "b_o") + (
+        ("b_fc1", "b_fc2", "b") if gen.cfg.family == "audio" else ())
 
     def fill(node):
         for k, v in node.items():
             if isinstance(v, dict):
                 fill(v)
-            elif k in ("b_q", "b_k", "b_v", "b_o"):
+            elif k in biases:
                 v.copy_(torch.randn(v.shape, generator=gen.generator, device=v.device) * 0.1)
     if gen.cfg.attention_bias:
         fill(backbone)
@@ -2461,18 +2546,23 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
                 for k, t in tree.items()}
 
     params = fill(engine.reg.adapter_params)
-    plan, vocab = engine.plan, engine.model.cfg.vocab_size
-    loader = HTaskLoader(plan.tasks, plan.alignment[0], vocab,
-                         streams={i: _seeded_stream(97 + seed + i, vocab)
-                                  for i in range(len(plan.tasks))})
-    batch = device_put_batch(next(loader), dev)
+    if hasattr(engine, "check_batch"):  # whisper's trainer (its frames beside the tokens)
+        batch = engine.check_batch(seed)
+    else:
+        plan, vocab = engine.plan, engine.model.cfg.vocab_size
+        loader = HTaskLoader(plan.tasks, plan.alignment[0], vocab,
+                             streams={i: _seeded_stream(97 + seed + i, vocab)
+                                      for i in range(len(plan.tasks))})
+        batch = device_put_batch(next(loader), dev)
     fn = engine._loss_and_grads_fn(0)
     cfg = engine.model.cfg
     moe = cfg.family == "moe"
     # an f32 backbone over 24 GB (deepseek-moe-16b's 67.5, starcoder2-7b's
-    # 29.6) is widened a layer at a time, its plain runs recomputing each layer
+    # 29.6, qwen2-vl-7b's 30.5) is widened a layer at a time, its plain runs
+    # recomputing each layer; whisper's plain runs recompute each decoder
+    # layer too (each cross-attention's f32 scores over 1500 frames)
     wide = moe or cfg.param_count() * 4 > 24e9
-    plain = plain_path(torch, engine.model, remat=methods or wide)
+    plain = plain_path(torch, engine.model, remat=methods or wide or cfg.family == "audio")
     f32_params = tree_map(lambda t: t.float() if t.is_floating_point() else t, params)
     if wide:
         f32_backbone = {k: v if k == "layers" else densify(torch, v)
@@ -2502,10 +2592,12 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
     paths = [p for p in _leaf_paths(params) if _leaf(params, p).is_floating_point()
              and get_method(next(k for k in p if k in engine.reg.mta.kind_tasks)).trainable(p[-1])]
     pt, grads, routes = {}, {}, {}
+    # the f32 run takes the batch's floating entries (whisper's frames) in f32
+    f32_batch = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
     for mode, (ad, bb, ctx) in runs.items():
         routes[mode] = []
         with ctx(), moe_routes(routes[mode]):
-            _, pt[mode], gr = fn(ad, bb, batch)
+            _, pt[mode], gr = fn(ad, bb, f32_batch if mode == "f32" else batch)
         grads[mode] = [_leaf(gr, p) for p in paths]
     torch.cuda.synchronize()
     flips = {f"{m}_vs_plain": route_flips(routes[m], routes["plain"],
@@ -2536,6 +2628,10 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
         tol = MOE_GRAD_PATH_TOL
     elif cfg.name == STARCODER2_ARCH:
         tol = STARCODER2_GRAD_PATH_TOL
+    elif cfg.name == QWEN2VL_ARCH:
+        tol = QWEN2VL_GRAD_PATH_TOL
+    elif cfg.name == WHISPER_ARCH:
+        tol = WHISPER_GRAD_PATH_TOL
     else:
         tol = METHODS_GRAD_PATH_TOL if methods else GRAD_PATH_TOL
     suffix = "_methods" if methods else path_suffix(cfg)
@@ -2578,20 +2674,21 @@ def recompute(model, dense=False, widen=False):
     on an f32 copy of its weights made inside the recomputed block, so that
     no more than one layer's f32 weights live at a time: the f32 run of an
     MoE backbone (16.9 B parameters, 67.5 GB in f32) holds its bf16 layers
-    and widens them one at a time.  The kernel path runs without
-    recomputation, as training does."""
+    and widens them one at a time.  On the audio family ``dense``
+    recomputes each decoder layer (``_audio_block``).  The kernel path runs
+    without recomputation, as training does."""
     import torch
     from torch.utils.checkpoint import checkpoint
 
     from repro_torch.peft.hooks import active_context, adapter_scope
 
     def remat_block(block):
-        def run(lp, x, **kw):
+        def run(lp, x, *args, **kw):
             scope = active_context()
 
             def layer(x):
                 with adapter_scope(scope):
-                    return block(densify(torch, lp) if widen else lp, x, **kw)
+                    return block(densify(torch, lp) if widen else lp, x, *args, **kw)
             return checkpoint(layer, x, use_reentrant=False)
         return run
 
@@ -2602,7 +2699,8 @@ def recompute(model, dense=False, widen=False):
             wrapped = lambda x, *a, **kw: checkpoint(fn, x, *a,  # noqa: E731
                                                      use_reentrant=False, **kw)
         elif dense:
-            name, wrapped = "_block", remat_block(model._block)
+            name = "_audio_block" if model.cfg.family == "audio" else "_block"
+            wrapped = remat_block(getattr(model, name))
         else:
             yield
             return
@@ -2642,7 +2740,7 @@ def _leaf(tree, path):
 SERVE_METHODS_ROWS, SERVE_METHODS_MAX_LEN, SERVE_METHODS_NEW = 8, 1024, 32
 # serve_methods and coserve run llama3.2-3b at full width and half its
 # depth: both are host-bound (their time grows with the layers' launches),
-# and with the MoE phases the script would otherwise pass 1,000 s (1,044 s
+# and with the MoE phases the script would otherwise run long (1,044 s
 # on an H100 with both at 28 layers)
 COSERVE_LAYERS = 14
 # the leaves that start at zero: filled from the generator before serving, so
@@ -4289,11 +4387,12 @@ YI_TENANTS = ((8, 16.0), (8, 16.0), (16, 32.0), (16, 32.0))
 
 
 def serve_pool_phase(torch, arch, sites, prompts=(64, 512), new=32, bucket=512,
-                     ranks=SERVE_TENANTS, backbone_dtype="bfloat16"):
+                     ranks=SERVE_TENANTS, backbone_dtype="bfloat16", layers=None):
     """A serving path through PEFTEngine's decode pool (phase 5's shape) on
-    a dense or MoE model: ``arch`` at full width and depth on a
-    ``backbone_dtype`` backbone (random weights from a seed, the attention
-    biases filled where the config has them), four LoRA tenants
+    a dense, vlm or MoE model: ``arch`` at full width and depth (or
+    ``layers`` of its layers) on a ``backbone_dtype`` backbone (random weights from a seed, the attention
+    biases filled where the config has them; on vlm the prefills carry the
+    prompt's M-RoPE channels, ``launch.steps.prefill_batch``), four LoRA tenants
     (``ranks``: (rank, alpha) each) on ``sites``, two rows each of an 8-row
     pool of max_len 1024, prompts of ``prompts`` tokens bound by one
     batched prefill (padded to ``bucket``), ``new`` greedy tokens each.
@@ -4318,11 +4417,14 @@ def serve_pool_phase(torch, arch, sites, prompts=(64, 512), new=32, bucket=512,
     from repro_torch.core import PEFTTask
     from repro_torch.core.cost_model import CostModel
     from repro_torch.kernels import ops
+    from repro_torch.launch.steps import prefill_batch
     from repro_torch.models.quantize import tensor_bytes
     from repro_torch.peft.methods import AdapterConfig, base_op_dims
 
     t_phase = time.perf_counter()
     cfg = get_config(arch).with_overrides(backbone_dtype=backbone_dtype)
+    if layers:
+        cfg = cfg.with_overrides(num_layers=layers)
     int8, moe = backbone_dtype == "int8", cfg.family == "moe"
     suffix = path_suffix(cfg)
     L = cfg.num_layers
@@ -4434,8 +4536,8 @@ def serve_pool_phase(torch, arch, sites, prompts=(64, 512), new=32, bucket=512,
         t1 = time.perf_counter()
         with moe_routes(logs.setdefault(name, [])):
             st = model.init_decode_state(rows, cache_len, cache_dtype=dt)
-            lg, st = model.prefill(bb, {"tokens": tok_t}, st, adapters=ad, ctx_factory=ctxf,
-                                   lengths=len_t)
+            lg, st = model.prefill(bb, prefill_batch(cfg, tok_t), st, adapters=ad,
+                                   ctx_factory=ctxf, lengths=len_t)
             out = [lg[ar, (len_t - 1).long()].float()]
             del lg
             for i in range(n_micro):
@@ -4582,7 +4684,8 @@ def _rel_by_step(a, b):
 
 
 def serve_zamba_phase(torch, backbone_dtype="bfloat16"):
-    """The hybrid serving path: zamba2-2.7b at full width and depth on a
+    """The hybrid serving path: zamba2-2.7b at full width and
+    ``ZAMBA_SERVE_LAYERS`` of its 54 layers on a
     ``backbone_dtype`` backbone (random weights from a seed), four LoRA
     tenants (ranks 8-64) on ssm_in, ssm_out, attn_q and attn_v, two rows
     each, routed per row through ``ctx_factory_from_slots``; prompts of
@@ -4610,7 +4713,8 @@ def serve_zamba_phase(torch, backbone_dtype="bfloat16"):
 
     t_phase = time.perf_counter()
     int8 = backbone_dtype == "int8"
-    cfg = get_config("zamba2-2.7b").with_overrides(backbone_dtype=backbone_dtype)
+    cfg = get_config("zamba2-2.7b").with_overrides(backbone_dtype=backbone_dtype,
+                                                   num_layers=ZAMBA_SERVE_LAYERS)
     suffix = path_suffix(cfg)
     n_super, per = cfg.num_layers // cfg.hybrid_period, cfg.hybrid_period - 1
     tenants = [AdapterConfig("lora", rank=rk, alpha=al, targets=ZAMBA_TARGETS)
@@ -4774,18 +4878,627 @@ def serve_zamba_phase(torch, backbone_dtype="bfloat16"):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the vlm and audio families: qwen2-vl-7b and whisper-large-v3
+
+
+def qwen2vl_plan():
+    """The qwen2-vl training path: qwen2-vl-7b at full width and depth
+    (bf16), the training tenants on q, v, up and down, and their plan."""
+    return _retargeted_plan(QWEN2VL_ARCH, QWEN2VL_TARGETS)
+
+
+def _attention_case(torch, timer, g, tag, case, dims, causal, bq, bk, grads=True):
+    """Packed attention over q [B, S, H, dh] and k/v [B, Sk, Hkv, dh]
+    (``dims`` = (B, S, Sk, H, Hkv, dh)), one segment a row at positions
+    0.. each: the forward (o, lse), dq and dk/dv against the plain version
+    and autograd of it (``_attention_check``), timed (the forward, and with
+    ``grads`` the backward kernels) beside the plain version and SDPA on the
+    same q, k, v (causal, or every key visible), with the bound from the
+    visible pairs.  One line; returns {"fwd": entry, "dq": ..., "dkv": ...}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import packed_attention as pa
+
+    bf16, dev = torch.bfloat16, "cuda"
+    B, S, Sk, H, Hkv, dh = dims
+
+    def ids(n, fill=None):
+        if fill is not None:
+            return torch.full((B, n), fill, dtype=torch.int32, device=dev)
+        return torch.arange(n, dtype=torch.int32, device=dev).expand(B, n).contiguous()
+
+    ints = (ids(S), ids(S, 0), ids(Sk), ids(Sk, 0))
+    q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+    k = torch.randn((B, Sk, Hkv, dh), generator=g, device=dev).to(bf16)
+    v = torch.randn((B, Sk, Hkv, dh), generator=g, device=dev).to(bf16)
+    do = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+    where = f"packed_attention {tag} {case} (bq={bq}, bk={bk})"
+    (o, lse), (o_ref, qr, kr, vr), mask, _, errs = _attention_check(
+        torch, q, k, v, do, ints, causal, bq, bk, where)
+    pairs = int(mask.sum().item()) * H
+    del mask
+    qo, kv = 2 * B * S * H * dh, 2 * B * Sk * Hkv * dh
+    ib = 4 * 2 * B * (S + Sk) + 4 * B * H * S
+    calls = {"fwd": lambda: pa.packed_attention_cuda(q, k, v, *ints, causal, bq, bk,
+                                                     save_lse=True),
+             "dq": lambda: pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, causal,
+                                                       bq, bk),
+             "dkv": lambda: pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, causal,
+                                                         bq, bk)}
+    keys = ("fwd", "dq", "dkv") if grads else ("fwd",)
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(grads) for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    plain = {"fwd": timer(lambda: pa.packed_attention_plain(q, k, v, *ints, causal, bq, bk))}
+    lib = {"fwd": timer(sdpa)}
+    lib_dev = {"fwd": library_device_ms(torch, timer, sdpa)}
+    if grads:
+        o_lib = sdpa()
+        plain.update(dq=_autograd_ms(torch, timer, o_ref, (qr,), do),
+                     dkv=_autograd_ms(torch, timer, o_ref, (kr, vr), do))
+        lib.update(dq=_autograd_ms(torch, timer, o_lib, (qt,), dot),
+                   dkv=_autograd_ms(torch, timer, o_lib, (kt, vt), dot))
+        lib_dev.update({key: library_device_ms(torch, timer, lambda ins=ins: torch.autograd.grad(
+            o_lib, ins, dot, retain_graph=True)) for key, ins in (("dq", (qt,)),
+                                                                  ("dkv", (kt, vt)))})
+    bounds = {"fwd": bound_ms(2 * qo + 2 * kv + ib, 4.0 * dh * pairs),
+              "dq": bound_ms(4 * qo + 2 * kv + ib, 6.0 * dh * pairs),
+              "dkv": bound_ms(3 * qo + 4 * kv + ib, 8.0 * dh * pairs)}
+    shape = (f"B={B}, S={S}, Sk={Sk}, H={H}, Hkv={Hkv}, dh={dh}, "
+             f"{'causal' if causal else 'non-causal'}, {pairs} visible (query, key, head) "
+             f"triples")
+    out = {}
+    for key, err in zip(keys, errs):
+        out[key] = {"shape": shape, "ms": timer(calls[key]),
+                    "device_ms": kernel_device_ms(torch, timer, calls[key],
+                                                  f"packed_attention_{key}"),
+                    "plain_ms": plain[key], "bound_ms": bounds[key][0],
+                    "bound_by": bounds[key][1], "library_ms": lib[key],
+                    "library_device_ms": lib_dev[key], "max_abs_err": err}
+    emit({"phase": "kernels", "kernel": "packed_attention", "model": tag, "card": card(),
+          "case": case, "B": B, "S": S, "Sk": Sk, "H": H, "Hkv": Hkv, "dh": dh,
+          "causal": causal, "bq": bq, "bk": bk, "fwd_lse_max_abs_err": errs[0],
+          "dq_max_abs_err": errs[1], "dkv_max_abs_err": errs[2],
+          **{key: {kk: vv for kk, vv in e.items() if kk != "shape"} for key, e in out.items()}})
+    return out
+
+
+def _stored_o_case(torch, g, tag, dims, bq, bk):
+    """Packed attention's backward kernels where every key and value row
+    shares a large common part (as the bias b_k / b_v and the LayerNorm give
+    whisper's encoder rows) and the scores are small, non-causal: dq =
+    scale sum_k p (dp - D) k cancels that common part exactly, so the D =
+    rowsum(do * o) that the kernels (and the Pallas ones) take from the
+    stored bf16 o moves dq by far more than 2**-9 of it.  dq and dk/dv are
+    held to the plain backward that reads D from the same stored o
+    (``packed_attention_stored_o_plain``'s), within their kernel
+    tolerances; their distance from autograd of the f32 plain version is
+    printed beside, ungated.  One line; returns the largest gated error."""
+    import types
+
+    from repro_torch.kernels import packed_attention as pa
+
+    bf16, dev = torch.bfloat16, "cuda"
+    B, S, Sk, H, Hkv, dh = dims
+
+    def ids(n, fill=None):
+        if fill is not None:
+            return torch.full((B, n), fill, dtype=torch.int32, device=dev)
+        return torch.arange(n, dtype=torch.int32, device=dev).expand(B, n).contiguous()
+
+    def common(shape, n):  # N(0, 1) rows plus a part shared by every row
+        c = torch.randn((1, 1) + shape[2:], generator=g, device=dev) * n
+        return (torch.randn(shape, generator=g, device=dev) + c).to(bf16)
+
+    ints = (ids(S), ids(S, 0), ids(Sk), ids(Sk, 0))
+    q = (torch.randn((B, S, H, dh), generator=g, device=dev) * 0.1).to(bf16)
+    k, v = common((B, Sk, Hkv, dh), 3.0), common((B, Sk, Hkv, dh), 3.0)
+    do = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf16)
+    rule = (False, bq, bk)
+    o, lse = pa.packed_attention_cuda(q, k, v, *ints, *rule, save_lse=True)
+    dq = pa.packed_attention_dq_cuda(q, k, v, *ints, o, lse, do, *rule)
+    dk, dv = pa.packed_attention_dkv_cuda(q, k, v, *ints, o, lse, do, *rule)
+    ctx = types.SimpleNamespace(saved_tensors=(q, k, v, *ints, o), rule=rule)
+    ref = pa._StoredOPlainFunction.backward(ctx, do)[:3]
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    f32 = torch.autograd.grad(pa.packed_attention_plain(qr, kr, vr, *ints, *rule),
+                              (qr, kr, vr), do)
+    where = f"packed_attention {tag} shared_kv stored-o"
+    errs = {n: compare(t, r, f"{where} {n}", GRAD_TOL["packed_attention_" + kern])[0]
+            for n, t, r, kern in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
+                                     ("dq", "dkv", "dkv"))}
+    vs_f32 = {n: ((t.float() - r.float()).abs().max() / r.float().abs().max()).item()
+              for n, t, r in zip(("dq", "dk", "dv"), (dq, dk, dv), f32)}
+    emit({"phase": "kernels", "kernel": "packed_attention", "model": tag, "card": card(),
+          "case": "shared_kv", "B": B, "S": S, "Sk": Sk, "H": H, "Hkv": Hkv, "dh": dh,
+          "max_abs_err_vs_stored_o_plain": errs,
+          "rel_err_vs_f32_autograd_ungated": vs_f32})
+    return max(errs.values())
+
+
+def qwen2vl_kernel_phase(torch, timer, cfg, tasks, plan):
+    """Kernels 1-6 at qwen2-vl-7b's shapes: grouped LoRA forward and
+    backward at the training path's rows on q (3584 -> 3584), v (-> 512),
+    up (-> 18944) and down, and at M = 8 on its seven serving sites; packed
+    attention's forward, dq and dk/dv on the training layout at 7 query
+    heads per k/v head (H = 28, Hkv = 4, dh = 128: dk/dv summed over seven
+    heads), with its edge cases, and its forward at the bind's prefill (8 x
+    512); decode attention at those heads.  Entries ``<name>_qwen2vl``."""
+    g = torch.Generator(device="cuda").manual_seed(23)
+    d, ff = cfg.d_model, cfg.d_ff
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    sites = [(d, cfg.q_dim), (d, cfg.kv_dim), (d, ff), (ff, d)]
+    lora, _ = _lora_train_kernels(torch, timer, g, tasks, plan, sites, sites,
+                                  "the four LoRA sites (q, v, up, down) of one layer", cfg.name)
+    results = {"grouped_lora_train_qwen2vl": lora["grouped_lora_train"],
+               "grouped_lora_bwd_qwen2vl": lora["grouped_lora_bwd"]}
+    results.update(_lora_decode_kernels(torch, timer, g, cfg, SITES, "qwen2vl"))
+    att = _attention_train_kernels(torch, timer, g, cfg, plan, cfg.name)
+    results.update({f"{k}_qwen2vl": v for k, v in att.items()})
+    from repro_torch.kernels import packed_attention as pa
+
+    pre = _attention_case(torch, timer, g, cfg.name, "prefill", (8, 512, 512, H, Hkv, dh), True,
+                          *pa.tile_sizes(512, 512, cfg.attn_q_block), grads=False)
+    results["packed_attention_prefill_qwen2vl"] = pre["fwd"]
+    with torch.no_grad():
+        results["decode_attention_qwen2vl"] = decode_kernel_case(torch, timer, g, H, Hkv, dh,
+                                                                 cfg.name)
+    return results
+
+
+def _decode_cross_case(torch, timer, g, cfg):
+    """Decode attention over whisper's fixed cross cache: 8 rows, each
+    window the whole 1500 encoder rows (``lo`` 0, ``len`` 1500), H = Hkv =
+    20, dh = 64, against the plain version and beside SDPA over the whole
+    cache (no mask).  One line; returns its entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+
+    dev, bf16 = "cuda", torch.bfloat16
+    Bd, Smax = WHISPER_SERVE_ROWS, cfg.max_source_positions
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    qd = torch.randn((Bd, 1, H, dh), generator=g, device=dev).to(bf16)
+    kc = torch.randn((Bd, Smax, Hkv, dh), generator=g, device=dev).to(bf16)
+    vc = torch.randn((Bd, Smax, Hkv, dh), generator=g, device=dev).to(bf16)
+    end = torch.full((Bd,), Smax, dtype=torch.int32, device=dev)
+    start = torch.zeros((Bd,), dtype=torch.int32, device=dev)
+    call = lambda: ops.decode_attention(qd, kc, vc, end, start)  # noqa: E731
+    out = call()
+    with ops.force_plain():
+        ref = call()
+        plain_ms = timer(call)
+    err, rel, tol = compare(out, ref, "decode_attention cross")
+    qt = qd.transpose(1, 2).contiguous()
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    window = Bd * Smax
+    bms, by = bound_ms(2 * (2 * Bd * H * dh + 2 * window * Hkv * dh) + 4 * 2 * Bd,
+                       4.0 * H * dh * window)
+    entry = {"shape": f"B={Bd}, Smax={Smax}, H={H}, Hkv={Hkv}, dh={dh}, every row's window "
+                      f"the whole cross cache ({window} rows)",
+             "ms": timer(call),
+             "device_ms": kernel_device_ms(torch, timer, call, "decode_attention_kernel"),
+             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": timer(sdpa),
+             "library_device_ms": library_device_ms(torch, timer, sdpa), "max_abs_err": err}
+    emit({"phase": "kernels", "kernel": "decode_attention", "model": cfg.name, "card": card(),
+          "case": "cross", "max_rel_err": rel, "tol": tol,
+          **{k: v for k, v in entry.items() if k != "shape"}})
+    return entry
+
+
+class _RowPlan:
+    """The part of an ExecutionPlan that ``_lora_train_kernels`` reads, for
+    whisper's training rows (no planner: its batches carry the frames):
+    one hTask of ``rows`` x ``row_len``, the rows laid out as ``segments``."""
+
+    def __init__(self, rows, row_len, segments):
+        import types
+
+        self.htasks = [types.SimpleNamespace(rows=rows, row_len=row_len)]
+        self._segments = segments
+
+    def segments_for(self, i):
+        return self._segments
+
+
+def whisper_kernel_phase(torch, timer):
+    """Kernels 1-6 at whisper-large-v3's shapes: grouped LoRA forward and
+    backward at train_whisper's rows (8 x 256) on the decoder's q (twice a
+    layer: self and cross), v, fc1 (1280 -> 5120) and fc2, and at M = 8 on
+    its serving sites (q and o twice a layer); packed attention at the
+    encoder (8 x 1500 frames, H = Hkv = 20, dh = 64, non-causal: the tile
+    rule's gcd(1500, 128) = 4 plays no part, and the kernels' last query and
+    key tiles are partial), at the decoder's causal self-attention (8 x 256)
+    and at its cross-attention (8 x 256 queries over 1500 frames,
+    non-causal), forward, dq and dk/dv, the backward also where keys and
+    values share a large common part (``_stored_o_case``); decode attention at the
+    self-attention's heads and over the fixed cross cache.  Entries
+    ``<name>_whisper`` (the cross-attention's ``<name>_cross_whisper``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import packed_attention as pa
+
+    cfg = get_config(WHISPER_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(29)
+    d, ff, Sa = cfg.d_model, cfg.d_ff, cfg.max_source_positions
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    B, S = WHISPER_TRAIN_ROWS, WHISPER_TRAIN_LEN
+    tasks, segments = whisper_tasks()
+    layer = [(d, d), (d, d), (d, d), (d, ff), (ff, d)]
+    lora, _ = _lora_train_kernels(
+        torch, timer, g, tasks, _RowPlan(B, S, segments), sorted(set(layer)), layer,
+        "the five LoRA calls (self q, cross q, v, fc1, fc2) of one decoder layer", cfg.name)
+    results = {"grouped_lora_train_whisper": lora["grouped_lora_train"],
+               "grouped_lora_bwd_whisper": lora["grouped_lora_bwd"]}
+    results.update(_lora_decode_kernels(torch, timer, g, cfg, WHISPER_SITES + ("attn_q", "attn_o"),
+                                        "whisper"))
+    enc = _attention_case(torch, timer, g, cfg.name, "encoder", (B, Sa, Sa, H, Hkv, dh), False,
+                          *pa.tile_sizes(Sa, Sa, cfg.attn_q_block), grads=False)
+    dec = _attention_case(torch, timer, g, cfg.name, "decoder_self", (B, S, S, H, Hkv, dh), True,
+                          *pa.tile_sizes(S, S, cfg.attn_q_block))
+    cross = _attention_case(torch, timer, g, cfg.name, "cross", (B, S, Sa, H, Hkv, dh), False,
+                            *pa.tile_sizes(S, Sa))
+    _stored_o_case(torch, g, cfg.name, (B, S, Sa, H, Hkv, dh), *pa.tile_sizes(S, Sa))
+    results.update({"packed_attention_encoder_whisper": enc["fwd"],
+                    "packed_attention_train_whisper": dec["fwd"],
+                    "packed_attention_dq_whisper": dec["dq"],
+                    "packed_attention_dkv_whisper": dec["dkv"],
+                    "packed_attention_cross_whisper": cross["fwd"],
+                    "packed_attention_dq_cross_whisper": cross["dq"],
+                    "packed_attention_dkv_cross_whisper": cross["dkv"]})
+    with torch.no_grad():
+        results["decode_attention_whisper"] = decode_kernel_case(torch, timer, g, H, Hkv, dh,
+                                                                 cfg.name)
+        results["decode_attention_cross_whisper"] = _decode_cross_case(torch, timer, g, cfg)
+    return results
+
+
+def whisper_tasks():
+    """train_whisper's tenants (``TRAIN_TASKS``, two rows each) on the
+    decoder's q, v, fc1 and fc2, and their rows (contiguous, two a task)."""
+    import dataclasses
+
+    from repro_torch.launch.train import parse_tasks
+    from repro_torch.peft.multitask import TaskSegments
+
+    tasks = [dataclasses.replace(t, adapter=dataclasses.replace(t.adapter,
+                                                                targets=WHISPER_TARGETS))
+             for t in parse_tasks(TRAIN_TASKS, 2)]
+    return tasks, TaskSegments.contiguous([t.micro_batch for t in tasks])
+
+
+class WhisperTrainer:
+    """train_whisper's state: whisper-large-v3 at full width and depth (a
+    seed-0 backbone, every bias filled, ``init_backbone``), the tenants of
+    ``whisper_tasks`` and ``launch.steps.build_train_step`` (the JAX
+    package's model-level training step; its PEFTEngine batches carry no
+    frames).  Batch ``i`` (:meth:`batch`) holds 8 rows of 256 tokens, one
+    sequence a row (the decoder's self-attention takes no segments), their
+    next tokens as labels, and random bf16 frames [8, 1500, 1280], all from
+    ``data_seed`` and ``i``.  ``train_check`` reads it as it reads an
+    engine: ``reg``, ``model``, ``backbone``, ``device``,
+    ``_loss_and_grads_fn`` and ``check_batch``."""
+
+    def __init__(self, torch, data_seed: int = 0):
+        from repro_torch.configs import get_config
+        from repro_torch.core import ModelGenerator
+        from repro_torch.launch.steps import build_train_step
+
+        self.torch, self.data_seed = torch, data_seed
+        self.cfg = get_config(WHISPER_ARCH)
+        self.tasks, self.segments = whisper_tasks()
+        gen = ModelGenerator(self.cfg, seed=0)
+        self.backbone = init_backbone(torch, gen)
+        self.reg = gen.register_tasks(self.tasks)
+        self.model, self.device = gen.model, gen.device
+        self.step = build_train_step(self.model, self.reg.mta, self.segments, lr=TRAIN_LR)
+
+    def batch(self, i: int, seed=None):
+        import numpy as np
+
+        torch, cfg = self.torch, self.cfg
+        seed = self.data_seed * 1000 + i if seed is None else seed
+        rs = np.random.RandomState(seed)
+        B, S = WHISPER_TRAIN_ROWS, WHISPER_TRAIN_LEN
+        toks = torch.as_tensor(rs.randint(1, cfg.vocab_size, (B, S + 1)).astype(np.int32),
+                               device=self.device)
+        g = torch.Generator(device=self.device).manual_seed(seed)
+        frames = torch.randn((B, cfg.max_source_positions, cfg.d_model), generator=g,
+                             device=self.device).to(torch.bfloat16)
+        return {"tokens": toks[:, :S].contiguous(), "labels": toks[:, 1:].contiguous(),
+                "loss_mask": torch.ones((B, S), dtype=torch.float32, device=self.device),
+                "audio_embed": frames}
+
+    def run(self, batch):
+        """One training step; returns (loss, per-task losses) on the device."""
+        reg = self.reg
+        reg.adapter_params, reg.opt_state, loss, pt = self.step(
+            self.backbone, reg.adapter_params, reg.opt_state, batch)
+        return loss, pt
+
+    def _loss_and_grads_fn(self, _htask):
+        return self.step.loss_and_grads
+
+    def check_batch(self, seed: int):
+        return self.batch(0, seed=97 + seed)
+
+
+def whisper_step_launches(cfg, adapters):
+    """Kernel launches of one whisper training step: packed attention once
+    an encoder layer (forward only: no gradient reaches the encoder) and
+    twice a decoder layer (self and cross, forward, dq and dk/dv); grouped
+    LoRA (forward and backward) once a decoder layer at each LoRA site,
+    twice at q and o (the decoder layer's scope covers its cross-attention,
+    which projects q alone)."""
+    L = cfg.num_layers
+    lora = L * sum(2 if site in ("attn_q", "attn_o") else 1
+                   for kind in GROUPED_LORA_KINDS for site in adapters.get(kind, {}))
+    return {"grouped_lora": lora, "grouped_lora_bwd": lora,
+            "packed_attention": cfg.num_encoder_layers + 2 * L,
+            "packed_attention_dq": 2 * L, "packed_attention_dkv": 2 * L}
+
+
+def train_whisper_phase(torch):
+    """The audio training path: ``WhisperTrainer``'s one warm-up and
+    ``TRAIN_ITERS`` timed steps, each on a fresh batch; launch counts
+    checked against ``whisper_step_launches``, one step profiled.  Returns
+    (the launch counts, the trainer) for ``train_check``."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.quantize import tensor_bytes
+
+    tr = WhisperTrainer(torch)
+    cfg, B, S = tr.cfg, WHISPER_TRAIN_ROWS, WHISPER_TRAIN_LEN
+    t0 = time.perf_counter()
+    tr.run(tr.batch(0))
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    secs, losses = [], []
+    for i in range(TRAIN_ITERS):
+        batch = tr.batch(1 + i)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss, pt = tr.run(batch)
+        pt = pt.tolist()  # the step's one host read
+        secs.append(time.perf_counter() - t1)
+        if not np.all(np.isfinite(pt)):
+            raise AssertionError(f"train_whisper step {i}: non-finite loss {pt}")
+        losses.append(pt)
+        emit({"phase": "train_iteration_whisper", "iteration": i, "loss": float(loss),
+              "per_task_loss": pt, "seconds": secs[-1], "tokens_per_s": B * S / secs[-1]})
+    counts = ops.launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update({k: TRAIN_ITERS * v
+                 for k, v in whisper_step_launches(cfg, tr.reg.adapter_params).items()})
+    if counts != want:
+        raise AssertionError(f"train_whisper: kernel launches {counts}, the path implies {want}")
+    emit({"phase": "train_whisper", "card": card(), "model": cfg.name,
+          "layers": cfg.num_layers, "encoder_layers": cfg.num_encoder_layers,
+          "d_model": cfg.d_model, "backbone_bytes": tensor_bytes(tr.backbone),
+          "param_count": cfg.param_count(), "tasks": TRAIN_TASKS,
+          "targets": list(WHISPER_TARGETS), "rows": B, "row_len": S,
+          "frames": cfg.max_source_positions, "lr": TRAIN_LR, "warmup_seconds": warm_s,
+          "steps": TRAIN_ITERS, "launches": counts,
+          "seconds_per_step_median": statistics.median(secs),
+          "tokens_per_s_median": B * S / statistics.median(secs),
+          "frames_per_s_median": B * cfg.max_source_positions / statistics.median(secs),
+          "first_per_task_loss": losses[0], "last_per_task_loss": losses[-1],
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    batch = tr.batch(TRAIN_ITERS + 1)
+    prof = profile_device(torch, lambda: tr.run(batch), 1,
+                          {"grouped_lora": ("grouped_lora",),
+                           "packed_attention": ("packed_attention",),
+                           "f32_matmul": ("sgemm", "f32f32")})
+    emit({"phase": "profile", "path": "train step_whisper", "card": card(), **prof,
+          "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
+              statistics.median(secs) * 1e3) if prof["device_ms_per_call"] else None})
+    return counts, tr
+
+
+def serve_whisper_phase(torch):
+    """The audio serving path: whisper-large-v3 at full width and depth
+    (random weights from a seed, every bias filled), the encoder run once
+    over random bf16 frames [8, 1500, 1280] into the fixed cross caches
+    (``Model.init_decode_state(params=..., audio_embed=...)``: 32 x 8 x
+    1500 x 20 x 64, k and v), four LoRA tenants (ranks 8-64) on the
+    decoder's six sites, two rows each, routed per row through
+    ``ctx_factory_from_slots``; prompts of 16-64 tokens fed through
+    ``Model.decode_step`` (the audio family has no prefill), each row then
+    greedy for 32 tokens, all rows stepping together (``WHISPER_SERVE_STEPS``
+    steps).  Gates: the launches the path implies (packed attention once an
+    encoder layer; per step decode attention twice a layer, self and cross,
+    and grouped LoRA at each site, q and o twice: the cross-attention's too);
+    teacher-forced reruns of the fed tokens (each from its own encoder run)
+    on the plain versions and on a second plain path (``plain_split``),
+    whose spread sets the gate (``_gate_from``), held to the served run's
+    logits over the real vocabulary; the kernel path's distance from its
+    own ``Model.forward`` over the same tokens and frames within twice the
+    plain path's (the decode rotates the cross-attention's q at the
+    cache's row count, the forward at each token's index, as the JAX
+    package does, so neither distance is small).  No f32 rerun: the
+    plain reruns of 95 host-bound steps already take most of the phase's
+    time, and the decode-vs-forward gate holds the kernels to the plain
+    path's accuracy, as on serve_zamba_int8.  Prints the encoder's
+    seconds, the decode step's device and host ms and the peak memory.
+    Returns the launch counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ModelGenerator, PEFTTask
+    from repro_torch.kernels import ops
+    from repro_torch.models.quantize import tensor_bytes
+    from repro_torch.peft.methods import AdapterConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(WHISPER_ARCH)
+    L, suffix = cfg.num_layers, path_suffix(cfg)
+    tenants = [AdapterConfig("lora", rank=rk, alpha=al, targets=WHISPER_SITES)
+               for rk, al in SERVE_TENANTS]
+    tasks = [PEFTTask(f"tenant{i}", tc, (WHISPER_SERVE_PROMPTS[1],), 1)
+             for i, tc in enumerate(tenants)]
+    gen = ModelGenerator(cfg, seed=0)
+    backbone = init_backbone(torch, gen)
+    reg = gen.register_tasks(tasks)
+    mta, adapters = reg.mta, reg.adapter_params
+    _fill_zero_leaves(torch, adapters, gen.generator)  # LoRA's B starts at 0
+    model = gen.model
+    rows, T, new = WHISPER_SERVE_ROWS, WHISPER_SERVE_STEPS, WHISPER_SERVE_NEW
+    # logits compared over the real vocabulary: the padded columns hold -1e9
+    V = cfg.vocab_size
+    dev = torch.device("cuda")
+    frames = torch.randn((rows, cfg.max_source_positions, cfg.d_model), generator=gen.generator,
+                         device=dev).to(torch.bfloat16)
+    rs = np.random.RandomState(0)
+    lengths = rs.randint(WHISPER_SERVE_PROMPTS[0], WHISPER_SERVE_PROMPTS[1] + 1, rows)
+    lengths[0], lengths[5] = WHISPER_SERVE_PROMPTS[1], WHISPER_SERVE_PROMPTS[0]
+    prompts = np.zeros((rows, T), np.int32)
+    for i, n in enumerate(lengths):
+        prompts[i, :n] = rs.randint(1, cfg.vocab_size, n)
+    slots = {k: torch.as_tensor(v, device=dev)
+             for k, v in mta.decode_row_slots([0, 0, 1, 1, 2, 2, 3, 3]).items()}
+    ctxf = mta.ctx_factory_from_slots(slots)
+    feed = torch.as_tensor(prompts, device=dev)
+    len_t = torch.as_tensor(lengths, device=dev)
+    fed = torch.zeros((rows, T), dtype=torch.int32, device=dev)
+    picked = torch.zeros((rows, T), dtype=torch.int32, device=dev)
+    served = []
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_s = []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        # three rows more than the steps: the profile below runs three more
+        st = model.init_decode_state(rows, T + 3, params=backbone, audio_embed=frames)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        cur = feed[:, :1]
+        for t in range(T):
+            t1 = time.perf_counter()
+            fed[:, t] = cur[:, 0]
+            lg, st = model.decode_step(backbone, st, cur, adapters=adapters, ctx_factory=ctxf)
+            served.append(lg[:, 0, :V].float())
+            picked[:, t] = lg[:, 0].argmax(-1).to(torch.int32)
+            if t + 1 < T:  # the prompt while it lasts, then the row's own greedy token
+                cur = torch.where(t + 1 < len_t, feed[:, t + 1], picked[:, t])[:, None]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(counts, 0)
+    want.update({"packed_attention": cfg.num_encoder_layers, "decode_attention": 2 * L * T,
+                 "grouped_lora": (len(WHISPER_SITES) + 2) * L * T})
+    if counts != want:
+        raise AssertionError(f"serve{suffix}: kernel launches {counts}, the path implies {want}")
+    generated = [picked[i, lengths[i] - 1:lengths[i] - 1 + new].tolist() for i in range(rows)]
+    emit({"phase": "serve" + suffix, "card": card(), "model": cfg.name, "layers": L,
+          "encoder_layers": cfg.num_encoder_layers, "d_model": cfg.d_model,
+          "backbone_bytes": tensor_bytes(backbone), "param_count": cfg.param_count(),
+          "cross_cache_bytes": tensor_bytes({"k": st["cross_k"], "v": st["cross_v"]}),
+          "tenants": [{"rank": t.rank, "alpha": t.alpha} for t in tenants],
+          "rows": rows, "frames": cfg.max_source_positions, "prompt_lengths": lengths.tolist(),
+          "new_tokens": new, "steps": T, "launches": counts, "encode_s": encode_s,
+          "step_ms_median": statistics.median(step_s) * 1e3,
+          "decode_tokens_per_s": rows * T / sum(step_s),
+          "max_memory_allocated": peak, "first_generated": generated[0][:8]})
+    with torch.no_grad():
+        prof = profile_device(torch, lambda: model.decode_step(
+            backbone, st, fed[:, -1:], adapters=adapters, ctx_factory=ctxf), 3,
+            {"grouped_lora": ("grouped_lora",), "decode_attention": ("decode_attention_kernel",)})
+    emit({"phase": "profile", "path": "serve decode step" + suffix, "card": card(), **prof,
+          "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
+              statistics.median(step_s) * 1e3) if prof["device_ms_per_call"] else None})
+    del st
+
+    # ---- teacher-forced reruns of the fed tokens, and the forward ----
+    def trajectory(bb, ad, dt):
+        state = model.init_decode_state(rows, T, cache_dtype=dt, params=bb,
+                                        audio_embed=frames.to(dt))
+        out = []
+        for t in range(T):
+            lg, state = model.decode_step(bb, state, fed[:, t:t + 1], adapters=ad,
+                                          ctx_factory=ctxf)
+            out.append(lg[:, 0, :V].float())
+        return out
+
+    def forward(bb, ad):
+        lg = model.forward(bb, {"tokens": fed, "audio_embed": frames}, adapters=ad,
+                           ctx_factory=ctxf, return_logits=True)["logits"]
+        return [lg[:, t, :V].float() for t in range(T)]
+
+    traj, fwd, seconds = {}, {}, {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t1
+        return out
+
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        with ops.force_plain():
+            traj["plain"] = timed("plain", lambda: trajectory(backbone, adapters, bf16))
+            fwd["plain"] = forward(backbone, adapters)
+        with plain_split():
+            traj["plain_split"] = timed("plain_split",
+                                        lambda: trajectory(backbone, adapters, bf16))
+        spread = max(_rel_by_step(traj["plain_split"], traj["plain"]))
+        tol = _gate_from(spread, LOGIT_TOL)
+        emit({"phase": "serve_check" + suffix + "_gate", "card": card(),
+              "plain_paths_vs_plain_max_rel": spread, "two_s": 2 * spread,
+              "base_tol": LOGIT_TOL, "gate": tol})
+        traj["kernel"] = served  # the served run is the kernel path's teacher-forced run
+        fwd["kernel"] = forward(backbone, adapters)
+    rel = {"kernel_vs_plain": _rel_by_step(traj["kernel"], traj["plain"]),
+           "kernel_decode_vs_forward": _rel_by_step(traj["kernel"], fwd["kernel"]),
+           "plain_decode_vs_forward": _rel_by_step(traj["plain"], fwd["plain"]),
+           "plain_split_vs_plain": _rel_by_step(traj["plain_split"], traj["plain"])}
+    top = {k: max(v) for k, v in rel.items()}
+    agree = min((a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                for a, b in zip(traj["kernel"], traj["plain"]))
+    emit({"phase": "serve_check" + suffix, "card": card(), "steps": T,
+          "logit_max_rel_err": top["kernel_vs_plain"], "tol_rel": tol,
+          "logit_worst_step": rel["kernel_vs_plain"].index(top["kernel_vs_plain"]),
+          **{f"{k}_max_rel": v for k, v in top.items() if k != "kernel_vs_plain"},
+          "argmax_agreement_min": agree, "trajectory_seconds": seconds,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "phase_seconds": time.perf_counter() - t_phase,
+          "rel_err_by_step": {k: [round(x, 5) for x in v] for k, v in rel.items()}})
+    if not top["kernel_vs_plain"] <= tol:
+        raise AssertionError(f"serve_check{suffix}: logits kernel vs plain off by "
+                             f"{top['kernel_vs_plain']} of the largest logit > {tol}")
+    if not top["kernel_decode_vs_forward"] <= 2 * top["plain_decode_vs_forward"]:
+        raise AssertionError(f"serve_check{suffix}: the kernels' decode is "
+                             f"{top['kernel_decode_vs_forward']} from their forward, over twice "
+                             f"the plain path's {top['plain_decode_vs_forward']}")
+    return counts
+
+
 # The main paths in the order they run.  The first two groups run at once,
 # each in its own process on the one card: both are host-bound (the card
 # is 5-45% busy on them), they hold at most 43 and 17 GB, and on a slow host
-# the script would pass its time limit run one after the other.  The last
+# the script would pass its time limit run one after the other.  The
+# whisper paths (3.1 GB of weights, host-bound decode) join them.  The last
 # group needs the card to itself (deepseek-moe-16b's 60 GB of training,
-# yi-34b's 79 GB), and runs alone after them.
+# yi-34b's 79 GB, qwen2-vl-7b's 15.2 GB backbone beside its training
+# activations), and runs alone after them.
 PATHS_BESIDE = (
     ("serve", "serve_int8", "train", "train_methods", "train_int8", "train_zamba",
-     "train_zamba_int8"),
-    ("serve_methods", "coserve", "fleet", "fleet_int8", "serve_zamba", "serve_zamba_int8"))
+     "train_zamba_int8", "train_whisper"),
+    ("serve_methods", "coserve", "fleet", "fleet_int8", "serve_zamba", "serve_zamba_int8",
+     "serve_whisper"))
 PATHS_ALONE = ("train_moe", "serve_moe", "serve_moe_int8", "train_starcoder2",
-               "serve_starcoder2", "serve_yi")
+               "serve_starcoder2", "serve_yi", "train_qwen2vl", "serve_qwen2vl")
 
 
 def _timed(torch, laps, name, fn, *args, **kw):
@@ -4851,15 +5564,22 @@ def run_paths(torch, names, counts, laps, carry=None):
         "serve_zamba_int8": lambda: serve("serve_zamba_int8", serve_zamba_phase, "int8"),
         # the MoE family: deepseek-moe-16b training and serving (bf16, int8)
         "train_moe": lambda: train("train_moe", moe_plan(), train_moe_phase),
-        "serve_moe": lambda: serve("serve_moe", serve_pool_phase, MOE_ARCH, MOE_SITES),
+        "serve_moe": lambda: serve("serve_moe", serve_pool_phase, MOE_ARCH, MOE_SITES,
+                                   layers=MOE_SERVE_LAYERS),
         "serve_moe_int8": lambda: serve("serve_moe_int8", serve_pool_phase, MOE_ARCH,
-                                        MOE_SITES, backbone_dtype="int8"),
+                                        MOE_SITES, backbone_dtype="int8",
+                                        layers=MOE_SERVE_LAYERS),
         # starcoder2-7b training and serving, yi-34b serving
         "train_starcoder2": lambda: train("train_starcoder2", starcoder2_plan()),
         "serve_starcoder2": lambda: serve("serve_starcoder2", serve_pool_phase,
                                           STARCODER2_ARCH, STARCODER2_SITES),
         "serve_yi": lambda: serve("serve_yi", serve_pool_phase, YI_ARCH, SITES, (64, 256), 16,
                                   256, YI_TENANTS),
+        # the vlm family (qwen2-vl-7b) and the audio family (whisper-large-v3)
+        "train_qwen2vl": lambda: train("train_qwen2vl", qwen2vl_plan()),
+        "serve_qwen2vl": lambda: serve("serve_qwen2vl", serve_pool_phase, QWEN2VL_ARCH, SITES),
+        "train_whisper": lambda: train("train_whisper", (), train_whisper_phase),
+        "serve_whisper": lambda: serve("serve_whisper", serve_whisper_phase),
     }
     for name in names:
         table[name]()
@@ -4960,6 +5680,8 @@ def main() -> int:
         kern.update(zamba_serve_kernel_phase(torch, timer, zamba[0]))
         kern.update(starcoder2_kernel_phase(torch, timer, *starcoder2_plan()))
         kern.update(yi_kernel_phase(torch, timer))
+        kern.update(qwen2vl_kernel_phase(torch, timer, *qwen2vl_plan()))
+        kern.update(whisper_kernel_phase(torch, timer))
         torch.cuda.synchronize()
         return kern
 
@@ -4971,7 +5693,7 @@ def main() -> int:
     laps["paths_beside"] = time.perf_counter() - t
     run_paths(torch, PATHS_ALONE, counts, laps)
     emit({"phase": "seconds", "card": card(), "laps": laps,
-          "total": time.perf_counter() - t_start})
+          "total": time.perf_counter() - t_start, "budget": TIME_BUDGET_S})
 
     # (name, source, Pallas kernel body, the entry's own measurement, variants)
     csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"
@@ -4983,7 +5705,10 @@ def main() -> int:
           "moe_variant": "grouped_lora_moe", "moe_train_variant": "grouped_lora_train_moe",
           "starcoder2_variant": "grouped_lora_starcoder2",
           "starcoder2_train_variant": "grouped_lora_train_starcoder2",
-          "yi_variant": "grouped_lora_yi"}),
+          "yi_variant": "grouped_lora_yi", "qwen2vl_variant": "grouped_lora_qwen2vl",
+          "qwen2vl_train_variant": "grouped_lora_train_qwen2vl",
+          "whisper_variant": "grouped_lora_whisper",
+          "whisper_train_variant": "grouped_lora_train_whisper"}),
         ("grouped_lora_bwd", "grouped_lora.cu", "grouped_lora.py:91", "grouped_lora_bwd",
          {"zamba2_variant": "grouped_lora_bwd_zamba2",
           "methods_variant": "grouped_lora_bwd_methods_lora",
@@ -4992,7 +5717,11 @@ def main() -> int:
           "moe_decode_variant": "grouped_lora_bwd_moe_decode",
           "starcoder2_variant": "grouped_lora_bwd_starcoder2",
           "starcoder2_decode_variant": "grouped_lora_bwd_starcoder2_decode",
-          "yi_decode_variant": "grouped_lora_bwd_yi_decode"}),
+          "yi_decode_variant": "grouped_lora_bwd_yi_decode",
+          "qwen2vl_variant": "grouped_lora_bwd_qwen2vl",
+          "qwen2vl_decode_variant": "grouped_lora_bwd_qwen2vl_decode",
+          "whisper_variant": "grouped_lora_bwd_whisper",
+          "whisper_decode_variant": "grouped_lora_bwd_whisper_decode"}),
         ("packed_attention", "packed_attention.cu", "packed_attention.py:60", "packed_attention",
          {"train_variant": "packed_attention_train",
           "zamba2_variant": "packed_attention_train_zamba2",
@@ -5000,23 +5729,38 @@ def main() -> int:
           "bind_prefix_128_variant": "packed_attention_bind_prefix_128",
           "bind_prefix_512_variant": "packed_attention_bind_prefix_512",
           "moe_variant": "packed_attention_train_moe",
-          "starcoder2_variant": "packed_attention_train_starcoder2"}),
+          "starcoder2_variant": "packed_attention_train_starcoder2",
+          "qwen2vl_variant": "packed_attention_train_qwen2vl",
+          "qwen2vl_prefill_variant": "packed_attention_prefill_qwen2vl",
+          "whisper_encoder_variant": "packed_attention_encoder_whisper",
+          "whisper_variant": "packed_attention_train_whisper",
+          "whisper_cross_variant": "packed_attention_cross_whisper"}),
         ("packed_attention_dq", "packed_attention.cu", "packed_attention.py:128",
          "packed_attention_dq", {"zamba2_variant": "packed_attention_dq_zamba2",
                                  "prefix_variant": "packed_attention_dq_prefix",
                                  "moe_variant": "packed_attention_dq_moe",
-                                 "starcoder2_variant": "packed_attention_dq_starcoder2"}),
+                                 "starcoder2_variant": "packed_attention_dq_starcoder2",
+                                 "qwen2vl_variant": "packed_attention_dq_qwen2vl",
+                                 "whisper_variant": "packed_attention_dq_whisper",
+                                 "whisper_cross_variant": "packed_attention_dq_cross_whisper"}),
         ("packed_attention_dkv", "packed_attention.cu", "packed_attention.py:185",
          "packed_attention_dkv", {"zamba2_variant": "packed_attention_dkv_zamba2",
                                   "prefix_variant": "packed_attention_dkv_prefix",
                                   "moe_variant": "packed_attention_dkv_moe",
-                                  "starcoder2_variant": "packed_attention_dkv_starcoder2"}),
+                                  "starcoder2_variant": "packed_attention_dkv_starcoder2",
+                                  "qwen2vl_variant": "packed_attention_dkv_qwen2vl",
+                                  "whisper_variant": "packed_attention_dkv_whisper",
+                                  "whisper_cross_variant":
+                                      "packed_attention_dkv_cross_whisper"}),
         ("decode_attention", "decode_attention.cu", "decode_attention.py:40",
          "decode_attention", {"pool_variant": "decode_attention_pool",
                               "moe_variant": "decode_attention_moe",
                               "zamba2_variant": "decode_attention_zamba2",
                               "starcoder2_variant": "decode_attention_starcoder2",
-                              "yi_variant": "decode_attention_yi"}),
+                              "yi_variant": "decode_attention_yi",
+                              "qwen2vl_variant": "decode_attention_qwen2vl",
+                              "whisper_variant": "decode_attention_whisper",
+                              "whisper_cross_variant": "decode_attention_cross_whisper"}),
         ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", "quant_matmul",
          {"moe_variant": "quant_matmul_moe", "zamba2_variant": "quant_matmul_zamba2"}),
         ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:76", "mamba_scan_zamba2", {}),

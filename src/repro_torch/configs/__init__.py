@@ -2,20 +2,22 @@
 
 The port keeps its own copy of ``ArchConfig`` so it never imports the JAX
 package.  The registry lists only the configurations whose family the port
-runs (dense, hybrid and MoE); ``get_config`` raises on every other name.
+runs (dense, vlm, audio, hybrid and MoE); ``get_config`` raises on every
+other name (xlstm-1.3b, the ``ssm`` family).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from dataclasses import dataclass
+from typing import Tuple
 
 @dataclass(frozen=True)
 class ArchConfig:
     """A backbone architecture: the fields of the JAX package's
-    ``ArchConfig`` that the dense, hybrid and MoE families and the planner
-    read (the xLSTM, audio and TPU execution fields come with the families
-    and tiers that use them)."""
+    ``ArchConfig`` that the dense, vlm, audio, hybrid and MoE families and
+    the planner read (the xLSTM and TPU execution fields come with the
+    family and tiers that use them)."""
 
     name: str
     family: str
@@ -41,12 +43,18 @@ class ArchConfig:
     # hybrid: layers per super-block; the last of each is the attention block
     hybrid_period: int = 0
     shared_attention: bool = False  # zamba2-style weight-shared attn block
+    # --- encoder-decoder (whisper) ---
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    max_source_positions: int = 0  # whisper: 1500 frames
     gated_mlp: bool = True  # SwiGLU-style (gate/up/down); False -> GELU fc1/fc2
     # q/k/v/o biases (starcoder2); the JAX package initialises them to zeros
     attention_bias: bool = False
     # attention kind: "full" | "none" (pure recurrent)
     attention: str = "full"
     rope_theta: float = 10_000.0
+    mrope: bool = False  # qwen2-vl's three-section multimodal RoPE
+    mrope_sections: Tuple[int, int, int] = (16, 24, 24)  # t / h / w slots of dh / 2
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     qk_norm: bool = False  # qwen3-style per-head RMSNorm on q / k before RoPE
@@ -84,9 +92,12 @@ class ArchConfig:
 
     def param_count(self, active_only: bool = False) -> int:
         """Backbone parameter count (the JAX package's formula for the dense,
-        hybrid and MoE families; the cost model's Eq. 5 reads it).
-        ``active_only`` counts an MoE layer's top-k routed experts only.
-        Like the JAX formula it counts no bias (starcoder2's q/k/v/o)."""
+        vlm, audio, hybrid and MoE families; the cost model's Eq. 5 reads
+        it).  ``active_only`` counts an MoE layer's top-k routed experts
+        only.  Like the JAX formula it counts no bias (starcoder2's and
+        qwen2-vl's q/k/v/o, whisper's), and on the audio family each norm's
+        weight only: the decoder layer's two attentions, MLP and three
+        norms, the encoder layer's one attention, MLP and two norms."""
         d = self.d_model
         n_attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
         if self.qk_norm:
@@ -107,13 +118,17 @@ class ArchConfig:
             routed = self.top_k if active_only else self.num_experts
             experts = (routed + self.num_shared_experts) * per_ff * d * self.expert_d_ff
             total = self.num_layers * (n_attn + experts + d * self.num_experts + n_norms)
+        elif self.family == "audio":
+            enc = self.num_encoder_layers * (n_attn + n_mlp + n_norms)
+            total = enc + self.num_layers * (2 * n_attn + n_mlp + 3 * d)
         else:
             total = self.num_layers * (n_attn + n_mlp + n_norms)
         embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         return total + embed + d  # final norm
 
 
-# Only the configurations of the families the port runs (dense, hybrid, MoE).
+# Only the configurations of the families the port runs (dense, vlm, audio,
+# hybrid, MoE).
 _REGISTRY = {
     "llama3.2-3b": "llama3_2_3b",
     "smollm-360m": "smollm_360m",
@@ -122,6 +137,8 @@ _REGISTRY = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "starcoder2-7b": "starcoder2_7b",
     "yi-34b": "yi_34b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 ARCH_NAMES = tuple(_REGISTRY)
@@ -138,7 +155,8 @@ def get_config(name: str) -> ArchConfig:
 
 def smoke_config(name: str) -> ArchConfig:
     """A reduced config of the same family for CPU tests (the JAX package's
-    ``smoke_config`` overrides for the dense, hybrid and MoE families)."""
+    ``smoke_config`` overrides for the dense, vlm, audio, hybrid and MoE
+    families)."""
     cfg = get_config(name)
     over = dict(
         num_layers=2,
@@ -157,4 +175,8 @@ def smoke_config(name: str) -> ArchConfig:
     if cfg.family == "hybrid":
         over.update(ssm_state=8, ssm_head_dim=16, ssm_chunk=16, num_layers=4,
                     hybrid_period=2)
+    if cfg.is_encoder_decoder:
+        over.update(num_encoder_layers=2, max_source_positions=16)
+    if cfg.family == "vlm":
+        over.update(mrope_sections=(2, 3, 3))  # sums to head_dim / 2 = 8
     return cfg.with_overrides(**over)

@@ -19,7 +19,13 @@ package lays them out, and return the same layout as torch tensors:
   ``[L, E, ...]``, never quantized) and, where the config has shared
   experts, ``layers.shared_mlp.w_{gate,up,down}`` in place of
   ``layers.mlp``; a config with ``qk_norm`` adds ``layers.attn.{q_norm,
-  k_norm}``;
+  k_norm}``.  Vlm (qwen2-vl): the dense layout with the attention biases.
+  Audio (whisper): the dense layout, every norm LayerNorm's ``{w, b}``,
+  ``layers.mlp.{w_fc1, b_fc1, w_fc2, b_fc2}``, each decoder layer's
+  ``ln_cross`` and ``cross.{w_q, w_k, w_v, w_o, b_q, b_k, b_v, b_o}``, the
+  ``encoder`` stack (``ln1``, ``attn``, ``ln2``, ``mlp`` with biases) and
+  ``enc_final_norm``; on an int8 backbone every BaseOp weight but the
+  cross-attention's ``w_k`` / ``w_v`` is a quantized node;
 * ``adapters_from_numpy``: the ``MultiTaskAdapters`` tree
   ``{kind: {site: {leaf: [L, capacity, ...]}}}`` of any of the eight kinds,
   with stacks whose capacity exceeds the live task count as

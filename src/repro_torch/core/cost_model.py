@@ -1,5 +1,5 @@
 """Cost model (Eq. 3-5): per-stage latency and per-stage memory for hTasks
-(port of ``repro.core.cost_model``, dense, MoE and hybrid families).
+(port of ``repro.core.cost_model``, dense, vlm, audio, MoE and hybrid families).
 
 The "profile" is an analytic roofline of the target device: each operator's
 latency is ``max(flops / (peak * util(x)), bytes / hbm_bw)`` with a

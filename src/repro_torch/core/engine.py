@@ -51,9 +51,7 @@ from repro_torch.peft.methods import shared_leaf
 from repro_torch.train.optimizer import (
     adamw_update,
     apply_updates,
-    tree_leaves,
     tree_map,
-    tree_unflatten,
 )
 
 
@@ -251,41 +249,15 @@ class PEFTEngine:
 
     def _loss_and_grads_fn(self, htask_idx: int) -> Callable:
         """``(adapters, backbone, batch) -> (loss, per-task losses, grads)``
-        of one hTask's fused batch: the sum of the members' mean losses and
-        its gradient with respect to every floating adapter leaf (zeros for
-        a leaf no row reached, as for VeRA's frozen A / B; None for an
-        integer leaf)."""
+        of one hTask's fused batch (``steps.adapter_loss_and_grads``): the
+        sum of the members' mean losses and its gradient with respect to
+        every floating adapter leaf."""
         h = self.plan.htasks[htask_idx]
         segments = self.plan.segments_for(htask_idx)
         local_seg = segments.relabel(h.task_ids)
-        one_hot = local_seg.one_hot(self.device)
-        ctxf = self.reg.mta.ctx_factory(segments)
-        model, aux_coef = self.model, self.aux_coef
-
-        def loss_and_grads(adapters, backbone, batch):
-            # integer leaves (Diff-Pruning's rows) take no gradient: they pass
-            # through, and their gradient leaf is None
-            leaves = [t.detach().requires_grad_(True) if t.is_floating_point() else t
-                      for t in tree_leaves(adapters)]
-            with torch.enable_grad():
-                out = model.forward(backbone, batch, adapters=tree_unflatten(adapters, leaves),
-                                    ctx_factory=ctxf)
-                pt = local_seg.per_task_loss(out["per_token_loss"], batch["loss_mask"],
-                                             one_hot)
-                loss = pt.sum()
-                for k, v in out["aux"].items():
-                    if k == "moe_load_balance":
-                        loss = loss + aux_coef * v
-                got = iter(torch.autograd.grad(loss, [l for l in leaves if l.requires_grad],
-                                               allow_unused=True))
-            grads = []
-            for leaf in leaves:
-                g = next(got) if leaf.requires_grad else None
-                grads.append(torch.zeros_like(leaf) if leaf.requires_grad and g is None else g)
-            grads = tree_unflatten(adapters, grads)
-            return loss.detach(), pt.detach(), grads
-
-        return loss_and_grads
+        return steps.adapter_loss_and_grads(self.model, self.reg.mta.ctx_factory(segments),
+                                            local_seg, self.aux_coef,
+                                            local_seg.one_hot(self.device))
 
     def _make_step(self, htask_idx: int) -> Callable:
         h = self.plan.htasks[htask_idx]

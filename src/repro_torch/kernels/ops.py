@@ -183,10 +183,31 @@ def packed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k_segment_ids = torch.cat(
             [torch.where(keep > 0, -1, -2).to(torch.int32), segment_ids], dim=1)
     bq, bk = _pa.tile_sizes(S, k.shape[1], block_q, block_k)
+    return _packed(q, k, v, positions, segment_ids, k_positions.contiguous(),
+                   k_segment_ids.contiguous(), causal, bq, bk)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Non-causal attention of q [B, S, H, dh] over every row of k/v
+    [B, Sk, Hkv, dh] (whisper's cross-attention; the JAX package's
+    ``flash_attention_kvscan(causal=False)``): packed attention with one
+    segment a row and no position rule.  The kernels take ``Sk >= S``
+    (whisper: at most 448 decoder tokens over 1500 frames)."""
+    B, S, Sk = q.shape[0], q.shape[1], k.shape[1]
+    zq = torch.zeros((B, S), dtype=torch.int32, device=q.device)
+    zk = torch.zeros((B, Sk), dtype=torch.int32, device=q.device)
+    bq, bk = _pa.tile_sizes(S, Sk)
+    return _packed(q, k, v, zq, zq, zk, zk, False, bq, bk)
+
+
+def _packed(q, k, v, positions, segment_ids, k_positions, k_segment_ids, causal, bq, bk):
+    """Packed attention's dispatch: the kernels on a CUDA tensor (the
+    autograd Function when a gradient is to be taken), else the plain
+    version."""
     fwd, bwd = _use_kernel(q, "packed_attention_fwd"), _use_kernel(q, "packed_attention_bwd")
     if fwd or bwd:
         args = (aligned(q), aligned(k), aligned(v), positions, segment_ids,
-                k_positions.contiguous(), k_segment_ids.contiguous(), causal, bq, bk)
+                k_positions, k_segment_ids, causal, bq, bk)
         if _needs_grad(q, k, v):
             if fwd and bwd:
                 return _pa.PackedAttentionFunction.apply(*args)

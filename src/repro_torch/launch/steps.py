@@ -1,5 +1,6 @@
-"""Task-aware decode pool: bind, generation micro-step and sampling, and the
-training loop's host-to-device batch queue (port of ``repro.launch.steps``).
+"""Task-aware decode pool: bind, generation micro-step and sampling, the
+training loop's host-to-device batch queue, and the model-level training
+step (port of ``repro.launch.steps``).
 
 The pool is a fixed-geometry fused decode batch: ``rows`` independent
 requests share one micro-step, each row bound to a tenant's adapter slot
@@ -17,7 +18,13 @@ names the rows that sample (``temp > 0``) in a host list, ``sampled_rows``,
 so a greedy micro step reads nothing back from the device and can be
 queued between training micro steps.  A Prefix-Tuning
 row's learned k/v rows are folded into the cache's prefix region at bind
-(:func:`fold_soft_prompts`).
+(:func:`fold_soft_prompts`).  On a vlm config the bind's prefill carries the
+prompt's M-RoPE channels (:func:`prefill_batch`).
+
+:func:`build_train_step` is the JAX ``build_train_step``: one AdamW step of
+the adapters on ``Model.forward``'s per-task loss for any batch the model
+takes, the audio family's ``audio_embed`` among them (``PEFTEngine``'s
+batches carry none, so this is the step that trains whisper).
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch
 
 from repro_torch.models.transformer import Model
 from repro_torch.peft.methods import get_method
-from repro_torch.peft.multitask import MultiTaskAdapters
+from repro_torch.peft.multitask import MultiTaskAdapters, TaskSegments
+from repro_torch.train.optimizer import adamw_update, apply_updates, tree_leaves, tree_unflatten
 
 _SEED_MAX = 2 ** 62
 
@@ -212,6 +220,18 @@ def fold_soft_prompts(model: Model, mta: MultiTaskAdapters, adapters, row_slots,
     return state
 
 
+def prefill_batch(cfg, tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The bind's prefill batch over ``tokens`` [R, Lp]: on a vlm config
+    (M-RoPE) with the prompt's three position channels, ``arange(Lp)`` on
+    each (text only), as the JAX bind builds them."""
+    batch = {"tokens": tokens}
+    if cfg.mrope:
+        R, S = tokens.shape
+        batch["mrope_positions"] = torch.arange(S, dtype=torch.int32,
+                                                device=tokens.device).expand(3, R, S)
+    return batch
+
+
 def build_decode_batched_bind_step(model: Model, mta: MultiTaskAdapters, max_len: int,
                                    prefix_reserve: int = 0):
     """Bind ``R`` requests to pool rows at once: batched chunked prefill of
@@ -229,7 +249,8 @@ def build_decode_batched_bind_step(model: Model, mta: MultiTaskAdapters, max_len
         ps = pool["state"]
         st1 = model.init_decode_state(R, max_len, cache_dtype=ps["kv"]["k"].dtype,
                                       prefix_reserve=prefix_reserve)
-        logits, st1 = model.prefill(backbone, {"tokens": tokens}, st1, adapters=adapters,
+        logits, st1 = model.prefill(backbone, prefill_batch(model.cfg, tokens), st1,
+                                    adapters=adapters,
                                     ctx_factory=ctxf, prefix_reserve=prefix_reserve,
                                     lengths=lengths)
         fold_soft_prompts(model, mta, adapters, row_slots, st1, prefix_reserve)
@@ -277,3 +298,58 @@ def build_decode_bind_step(model: Model, mta: MultiTaskAdapters, max_len: int,
                       scales, one(max_new), sampling, sampled_rows)
 
     return bind
+
+
+def adapter_loss_and_grads(model: Model, ctx_factory, segments: TaskSegments,
+                           aux_coef: float = 1e-3, one_hot=None):
+    """``(adapters, backbone, batch) -> (loss, per-task losses, grads)``:
+    ``model.forward`` over ``batch`` under ``ctx_factory``, the sum of the
+    tasks' mean losses (rows laid out as ``segments``; ``one_hot`` its
+    :meth:`TaskSegments.one_hot`, built per call when absent) plus
+    ``aux_coef`` times an MoE model's load-balance loss, and its gradient
+    with respect to every floating adapter leaf (zeros for a leaf no row
+    reached, as for VeRA's frozen A / B; None for an integer leaf)."""
+
+    def loss_and_grads(adapters, backbone, batch):
+        # integer leaves (Diff-Pruning's rows) take no gradient: they pass
+        # through, and their gradient leaf is None
+        leaves = [t.detach().requires_grad_(True) if t.is_floating_point() else t
+                  for t in tree_leaves(adapters)]
+        with torch.enable_grad():
+            out = model.forward(backbone, batch, adapters=tree_unflatten(adapters, leaves),
+                                ctx_factory=ctx_factory)
+            pt = segments.per_task_loss(out["per_token_loss"], batch["loss_mask"], one_hot)
+            loss = pt.sum()
+            for k, v in out["aux"].items():
+                if k == "moe_load_balance":
+                    loss = loss + aux_coef * v
+            got = iter(torch.autograd.grad(loss, [l for l in leaves if l.requires_grad],
+                                           allow_unused=True))
+        grads = []
+        for leaf in leaves:
+            g = next(got) if leaf.requires_grad else None
+            grads.append(torch.zeros_like(leaf) if leaf.requires_grad and g is None else g)
+        return loss.detach(), pt.detach(), tree_unflatten(adapters, grads)
+
+    return loss_and_grads
+
+
+def build_train_step(model: Model, mta: MultiTaskAdapters, segments: TaskSegments,
+                     lr: float = 1e-4, aux_coef: float = 1e-3):
+    """``train_step(backbone, adapters, opt_state, batch) -> (adapters,
+    opt_state, loss, per-task losses)``: :func:`adapter_loss_and_grads`
+    under ``mta.ctx_factory(segments)``, then one AdamW update at ``lr``
+    (the JAX ``build_train_step``).  ``batch`` holds ``tokens``, ``labels``
+    and ``loss_mask`` [B, S], rows laid out as ``segments``, and whatever
+    else the model reads (whisper's ``audio_embed``).
+    ``train_step.loss_and_grads`` is its first half."""
+    loss_and_grads = adapter_loss_and_grads(model, mta.ctx_factory(segments), segments,
+                                            aux_coef)
+
+    def train_step(backbone, adapters, opt_state, batch):
+        loss, pt, grads = loss_and_grads(adapters, backbone, batch)
+        updates, opt_state = adamw_update(grads, opt_state, adapters, lr=lr)
+        return apply_updates(adapters, updates), opt_state, loss, pt
+
+    train_step.loss_and_grads = loss_and_grads
+    return train_step

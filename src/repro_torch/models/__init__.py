@@ -1,1 +1,1 @@
-"""Backbone modules of the port (dense, MoE and hybrid families)."""
+"""Backbone modules of the port (dense, vlm, audio, MoE and hybrid families)."""

@@ -1,12 +1,14 @@
 """Shared layer primitives (port of ``repro.models.layers``): parameter
-specs with seeded init, RMSNorm, RoPE, the gated and the plain (GELU) MLP,
+specs with seeded init, RMSNorm and LayerNorm, RoPE, qwen2-vl's M-RoPE,
+whisper's sinusoidal position table, the gated and the plain (GELU) MLP,
 embed / unembed.
 
-Rounding follows the JAX package: norms and RoPE compute in f32 and cast
-back; SiLU and GELU run in f32, are cast to the working type, then used.
+Rounding follows the JAX package: norms, RoPE and M-RoPE compute in f32 and
+cast back; SiLU and GELU run in f32, are cast to the working type, then used.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -83,6 +85,15 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * w.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis in f32 (biased variance, as ``jnp.var``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
+
+
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                           device=device) / head_dim))
@@ -101,6 +112,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE over x [..., S, H, dh]: the dh/2
+    frequency slots split into (t, h, w) ``sections``, each rotated by its
+    own channel of ``positions`` [3, ..., S].  With the three channels
+    equal (text only) it is :func:`apply_rope`."""
+    dh = x.shape[-1]
+    half = dh // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to head_dim / 2 = {half}")
+    inv = rope_freqs(dh, theta, x.device)
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                     torch.tensor(sections, device=x.device))
+    pos = torch.movedim(positions, 0, -1).float()  # [..., S, 3]
+    ang = pos[..., sec_id] * inv                   # [..., S, dh/2]
+    ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's sinusoidal table [length, dim] f32: sines then cosines."""
+    log_timescale = math.log(10_000.0) / (dim // 2 - 1)
+    inv = torch.exp(-log_timescale * torch.arange(dim // 2, dtype=torch.float32, device=device))
+    scaled = torch.arange(length, dtype=torch.float32, device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
@@ -109,7 +150,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 def mlp_spec(d: int, ff: int, gated: bool = True, bias: bool = False) -> Dict[str, ParamSpec]:
     """The gated MLP's gate / up / down, or the plain MLP's fc1 / fc2 (with
     zero-initialised biases where ``bias``: the JAX package gives them to
-    the audio family only)."""
+    the audio family only, whisper's encoder and decoder)."""
     if gated:
         return {
             "w_gate": ParamSpec((d, ff)),

@@ -1,5 +1,5 @@
-"""Backbone assembly for the dense, MoE and hybrid families (port of
-``repro.models.transformer``).
+"""Backbone assembly for the dense, vlm, audio, MoE and hybrid families
+(port of ``repro.models.transformer``).
 
 Parameters are nested dicts of tensors laid out like the JAX package's tree:
 layers stacked on axis 0 (``layers.attn.w_q`` is ``[L, d, H, dh]``), so the
@@ -24,8 +24,28 @@ refuses it, as the JAX package's does, so a hybrid prompt is fed through
 
 The dense family takes the gated (SwiGLU) MLP or the plain GELU one
 (``gated_mlp=False``, starcoder2), and q/k/v/o biases where the config has
-``attention_bias``.  Norms are RMSNorm in every family the port runs, as in
-the JAX package (which keeps LayerNorm for its audio family).
+``attention_bias``.  The vlm family (qwen2-vl) is the dense stack with
+M-RoPE: ``forward`` reads ``batch["mrope_positions"]`` [3, B, S] where a
+batch carries them (the bind does, training batches do not, so training
+runs plain RoPE) and ``decode_step`` builds them from ``pos`` on all three
+channels.  Norms are RMSNorm in every family but audio.
+
+The audio family (whisper) is an encoder-decoder: ``encoder`` layers
+(LayerNorm with bias, non-causal self-attention, the GELU MLP with biases)
+over the frame embeddings ``batch["audio_embed"]`` [B, Sa, d] plus the
+sinusoidal table, then ``layers`` of the decoder, each a causal
+self-attention, a cross-attention (``ln_cross`` / ``cross``) over the
+encoder's k/v and the MLP, with LayerNorms and MLP biases.  As in the JAX
+package the decoder's self-attention takes no segments (packed rows would
+see each other), every attention applies RoPE to q (and to its own k), the
+decoder layer's adapter scope covers its cross-attention (so a tenant's
+``attn_q`` / ``attn_o`` apply twice a layer) while the cross k/v are plain
+products of the encoder output (``_cross_kv``), and the encoder carries no
+adapters.  The cross-attention projects q alone: the JAX package also
+projects x's k/v there and drops them, which changes no output.  It decodes
+through ``decode_step`` over the fixed cross cache that
+``init_decode_state(audio_embed=...)`` fills; ``prefill`` refuses it, as the
+JAX package's does.
 
 The decode state is updated in place: ``prefill`` writes the prompt's k/v
 rows into the state's cache tensors and ``decode_step`` writes each new
@@ -46,17 +66,33 @@ from repro_torch.models.layers import (
     ParamSpec,
     embed_apply,
     embed_spec,
+    layer_norm,
     materialize,
     mlp_apply,
     mlp_spec,
     pad_vocab,
     rms_norm,
+    sinusoidal_positions,
     unembed_apply,
 )
 from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.peft.hooks import adapter_scope
 
 CtxFactory = Callable[[Any], Any]  # layer-adapter slice -> AdapterContext
+
+
+def _norm_spec(d: int, audio: bool) -> Dict[str, ParamSpec]:
+    """RMSNorm's weight, or on the audio family LayerNorm's weight and bias."""
+    s = {"w": ParamSpec((d,), init="ones")}
+    if audio:
+        s["b"] = ParamSpec((d,), init="zeros")
+    return s
+
+
+def _apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float) -> torch.Tensor:
+    if "b" in p:
+        return layer_norm(x, p["w"], p["b"], eps)
+    return rms_norm(x, p["w"], eps)
 
 
 def _stack_specs(spec: Any, n: int) -> Any:
@@ -72,14 +108,14 @@ def _slice_layer(tree: Any, i: int) -> Any:
 
 
 class Model:
-    """Dense, MoE or hybrid decoder backbone on one device (``device="cuda"``
-    by default; raises without CUDA unless the caller passes
-    ``device="cpu"``)."""
+    """Dense, vlm, audio, MoE or hybrid backbone on one device
+    (``device="cuda"`` by default; raises without CUDA unless the caller
+    passes ``device="cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "moe", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid"):
             raise NotImplementedError(
-                f"repro_torch runs dense, MoE and hybrid backbones; "
+                f"repro_torch runs dense, vlm, audio, MoE and hybrid backbones; "
                 f"{cfg.name} ({cfg.family}) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -91,10 +127,11 @@ class Model:
 
     def spec(self) -> Dict[str, Any]:
         cfg = self.cfg
+        d, audio = cfg.d_model, cfg.family == "audio"
         layer = {
-            "ln1": {"w": ParamSpec((cfg.d_model,), init="ones")},
+            "ln1": _norm_spec(d, audio),
             "attn": attn.attention_spec(cfg),
-            "ln2": {"w": ParamSpec((cfg.d_model,), init="ones")},
+            "ln2": _norm_spec(d, audio),
         }
         if cfg.family == "moe":
             layer["moe"] = moe_spec(cfg)
@@ -103,12 +140,21 @@ class Model:
                                                cfg.num_shared_experts * cfg.expert_d_ff,
                                                cfg.gated_mlp)
         else:
-            layer["mlp"] = mlp_spec(cfg.d_model, cfg.d_ff, cfg.gated_mlp)
+            layer["mlp"] = mlp_spec(d, cfg.d_ff, cfg.gated_mlp, bias=audio and cfg.attention_bias)
         spec: Dict[str, Any] = {
-            "embed": embed_spec(self.vocab_padded, cfg.d_model, cfg.tie_embeddings),
-            "final_norm": {"w": ParamSpec((cfg.d_model,), init="ones")},
+            "embed": embed_spec(self.vocab_padded, d, cfg.tie_embeddings),
+            "final_norm": _norm_spec(d, audio),
         }
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "vlm", "moe"):
+            spec["layers"] = _stack_specs(layer, cfg.num_layers)
+            return spec
+        if audio:
+            enc_layer = {"ln1": _norm_spec(d, True), "attn": attn.attention_spec(cfg),
+                         "ln2": _norm_spec(d, True),
+                         "mlp": mlp_spec(d, cfg.d_ff, cfg.gated_mlp, bias=True)}
+            layer.update(ln_cross=_norm_spec(d, True), cross=attn.attention_spec(cfg))
+            spec["encoder"] = _stack_specs(enc_layer, cfg.num_encoder_layers)
+            spec["enc_final_norm"] = _norm_spec(d, True)
             spec["layers"] = _stack_specs(layer, cfg.num_layers)
             return spec
         n_super = cfg.num_layers // cfg.hybrid_period
@@ -144,23 +190,27 @@ class Model:
                 aux_sink[k] = aux_sink.get(k, 0.0) + v
         return y
 
-    def _block(self, lp, x, *, positions, segment_ids, collect_kv, aux_sink=None):
+    def _block(self, lp, x, *, positions, segment_ids, collect_kv, aux_sink=None,
+               mrope_positions=None):
         cfg = self.cfg
-        h = rms_norm(x, lp["ln1"]["w"], cfg.norm_eps)
+        h = _apply_norm(lp["ln1"], x, cfg.norm_eps)
         a = attn.attention_apply(lp["attn"], h, cfg, positions=positions,
+                                 mrope_positions=mrope_positions,
                                  segment_ids=segment_ids, return_kv=collect_kv)
         kv = None
         if collect_kv:
             a, kv = a
         x = x + a
-        h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
+        h = _apply_norm(lp["ln2"], x, cfg.norm_eps)
         return x + self._ffn(lp, h, aux_sink), kv
 
     def forward(self, params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                 adapters: Any = None, ctx_factory: Optional[CtxFactory] = None,
                 return_logits: bool = False, collect_kv: bool = False) -> Dict[str, Any]:
         """Forward over ``batch["tokens"]`` [B, S] (optional ``positions`` and
-        ``segment_ids``).  ``collect_kv`` adds ``out["kv"] = (k, v)``, each
+        ``segment_ids``; on the vlm family ``mrope_positions`` [3, B, S]; on
+        the audio family ``audio_embed`` [B, Sa, d], which the encoder
+        reads, and no positions or segments).  ``collect_kv`` adds ``out["kv"] = (k, v)``, each
         [L, B, S, Hkv, dh] post-RoPE.  With ``batch["labels"]`` (and an
         optional ``loss_mask``) ``out["per_token_loss"]`` [B, S] f32 is the
         masked next-token cross-entropy.  ``out["aux"]`` holds auxiliary
@@ -168,16 +218,23 @@ class Model:
         each summed over the layers (none in the other families).  The
         hybrid family reads the
         segment starts ``batch["reset"]`` [B, S] too, and collects no k/v."""
+        cfg = self.cfg
         x = embed_apply(params["embed"], batch["tokens"])
         kw = dict(positions=batch.get("positions"), segment_ids=batch.get("segment_ids"))
         aux: Dict[str, Any] = {}
-        if self.cfg.family == "hybrid":
-            kv = None
+        kv = None
+        if cfg.family == "hybrid":
             x = self._run_hybrid(params, x, adapters, ctx_factory, reset=batch.get("reset"), **kw)
+        elif cfg.family == "audio":
+            if collect_kv:
+                raise NotImplementedError("the audio family collects no k/v (it has no prefill)")
+            x = self._run_audio(params, batch["audio_embed"], x, adapters, ctx_factory)
         else:
+            mrope = batch.get("mrope_positions") if cfg.mrope else None
             x, kv = self._run_stack(params["layers"], x, adapters, ctx_factory,
-                                    collect_kv=collect_kv, aux_sink=aux, **kw)
-        x = rms_norm(x, params["final_norm"]["w"], self.cfg.norm_eps)
+                                    collect_kv=collect_kv, aux_sink=aux,
+                                    mrope_positions=mrope, **kw)
+        x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
         out: Dict[str, Any] = {"aux": aux}
         if collect_kv:
             out["kv"] = kv
@@ -251,31 +308,92 @@ class Model:
                                   shared, ad_shared, ctx_factory, **kw)
         return x
 
+    # ---- audio (whisper) ----
+
+    def _encode_audio(self, params, audio_embed: torch.Tensor) -> torch.Tensor:
+        """The encoder over the frame embeddings [B, Sa, d] plus the
+        sinusoidal table: non-causal self-attention and the MLP in each
+        layer, no adapters, then ``enc_final_norm``."""
+        cfg = self.cfg
+        S = audio_embed.shape[1]
+        pos = sinusoidal_positions(S, cfg.d_model, audio_embed.device).to(audio_embed.dtype)
+        x = audio_embed + pos[None]
+        for i in range(cfg.num_encoder_layers):
+            lp = _slice_layer(params["encoder"], i)
+            h = _apply_norm(lp["ln1"], x, cfg.norm_eps)
+            x = x + attn.attention_apply(lp["attn"], h, cfg, causal=False)
+            h = _apply_norm(lp["ln2"], x, cfg.norm_eps)
+            x = x + mlp_apply(lp["mlp"], h, cfg.gated_mlp)
+        return _apply_norm(params["enc_final_norm"], x, cfg.norm_eps)
+
+    @staticmethod
+    def _cross_kv(p, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A cross-attention's k/v [B, Sa, Hkv, dh] from the encoder output:
+        plain products (no BaseOp, so no adapter), plus the biases."""
+        k = torch.einsum("bsd,dhk->bshk", enc, p["w_k"])
+        v = torch.einsum("bsd,dhk->bshk", enc, p["w_v"])
+        if "b_k" in p:
+            k, v = k + p["b_k"], v + p["b_v"]
+        return k, v
+
+    def _audio_block(self, lp, x, enc):
+        """One decoder layer: causal self-attention (no segments, no
+        positions: the JAX package's), the cross-attention over ``enc``,
+        the MLP."""
+        cfg = self.cfg
+        h = _apply_norm(lp["ln1"], x, cfg.norm_eps)
+        x = x + attn.attention_apply(lp["attn"], h, cfg, causal=True)
+        h = _apply_norm(lp["ln_cross"], x, cfg.norm_eps)
+        x = x + attn.attention_apply(lp["cross"], h, cfg,
+                                     kv_override=self._cross_kv(lp["cross"], enc))
+        h = _apply_norm(lp["ln2"], x, cfg.norm_eps)
+        return x + mlp_apply(lp["mlp"], h, cfg.gated_mlp)
+
+    def _run_audio(self, params, audio_embed, x, adapters, ctx_factory):
+        """The encoder, then the decoder over the token embeddings ``x``
+        plus the sinusoidal table, each layer under its adapter slice (the
+        JAX ``_forward_audio``)."""
+        cfg = self.cfg
+        enc = self._encode_audio(params, audio_embed)
+        S = x.shape[1]
+        x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
+        for i in range(cfg.num_layers):
+            ad = _slice_layer(adapters, i) if adapters is not None else None
+            with adapter_scope(ctx_factory(ad) if ctx_factory and ad is not None else None):
+                x = self._audio_block(_slice_layer(params["layers"], i), x, enc)
+        return x
+
     # ------------------------------------------------------------------
     # Decode (serving)
     # ------------------------------------------------------------------
 
     def _refuse_hybrid(self, what: str) -> None:
-        if self.cfg.family not in ("dense", "moe"):
+        if self.cfg.family not in ("dense", "vlm", "moe"):
             raise NotImplementedError(
-                f"{what} supports the dense and MoE families, not {self.cfg.family}; "
-                f"drive a hybrid prompt through decode_step instead")
+                f"{what} supports the dense and MoE families and vlm, not "
+                f"{self.cfg.family}; "
+                f"drive a {self.cfg.family} prompt through decode_step instead")
 
     def init_decode_state(self, batch: int, max_len: int, cache_dtype=torch.bfloat16,
-                          prefix_reserve: int = 0) -> Dict[str, Any]:
+                          prefix_reserve: int = 0, *, params=None,
+                          audio_embed: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """Per-row decode state (the JAX ``per_row=True`` layout): ``kv``
         caches [L, B, prefix_reserve + max_len, Hkv, dh] (the hybrid family:
         one per application of the shared block, [n_super, ...]), ``pos``
         [B] the real token count of each row, ``lo`` [B] each row's first
         valid cache index.  The hybrid family adds ``mamba``: each Mamba2
         block's state (``ssm.mamba2_init_state``: ``h`` f32 and the bf16
-        conv window, whatever ``cache_dtype``), stacked [n_super, per, ...]."""
+        conv window, whatever ``cache_dtype``), stacked [n_super, per, ...].
+        The audio family adds the fixed cross caches ``cross_k`` /
+        ``cross_v`` [L, B, Sa, Hkv, dh]: each decoder layer's ``_cross_kv``
+        of the encoder's output over ``audio_embed`` [B, Sa, d] (with
+        ``params``), or zeros of ``max_source_positions`` rows without it."""
         cfg = self.cfg
         dev = self.device
         hybrid = cfg.family == "hybrid"
         n_cache = cfg.num_layers // cfg.hybrid_period if hybrid else cfg.num_layers
-        shape = (n_cache, batch, prefix_reserve + max_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim())
+        hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim()
+        shape = (n_cache, batch, prefix_reserve + max_len, hkv, dh)
         state = {
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "lo": torch.full((batch,), prefix_reserve, dtype=torch.int32, device=dev),
@@ -286,6 +404,17 @@ class Model:
             lead = (n_cache, cfg.hybrid_period - 1)
             state["mamba"] = {k: v.expand(lead + v.shape).contiguous()
                               for k, v in ssm.mamba2_init_state(cfg, batch, dev).items()}
+        if cfg.family == "audio":
+            src = audio_embed.shape[1] if audio_embed is not None else cfg.max_source_positions
+            cshape = (cfg.num_layers, batch, src, hkv, dh)
+            ck = torch.zeros(cshape, dtype=cache_dtype, device=dev)
+            cv = torch.zeros(cshape, dtype=cache_dtype, device=dev)
+            if audio_embed is not None:
+                enc = self._encode_audio(params, audio_embed)
+                for i in range(cfg.num_layers):
+                    k, v = self._cross_kv(_slice_layer(params["layers"]["cross"], i), enc)
+                    ck[i], cv[i] = k.to(cache_dtype), v.to(cache_dtype)
+            state["cross_k"], state["cross_v"] = ck, cv
         return state
 
     def prefill(self, params, batch: Dict[str, torch.Tensor], state: Dict[str, Any],
@@ -296,8 +425,9 @@ class Model:
         over the (padded) prompt, whose post-RoPE k/v rows are written in
         place at offset ``prefix_reserve``.  ``lengths`` [B] are the true
         prompt lengths (junk past them stays outside the window).  Returns
-        (logits over the prompt, state with ``pos`` set).  Dense and MoE
-        families, as in the JAX package (which also serves vlm)."""
+        (logits over the prompt, state with ``pos`` set).  Dense, vlm and
+        MoE families, as in the JAX package; a vlm batch carries its
+        ``mrope_positions``."""
         self._refuse_hybrid("prefill-into-cache")
         out = self.forward(params, batch, adapters=adapters, ctx_factory=ctx_factory,
                            return_logits=True, collect_kv=True)
@@ -311,14 +441,20 @@ class Model:
             t = lengths.to(torch.int32).expand(B).clone()
         return out["logits"], dict(state, pos=t)
 
-    def _decode_block(self, lp, x, cache):
-        """One attention+MLP block (a dense or MoE layer, or the hybrid
-        family's shared block) over one decode token a row."""
+    def _decode_block(self, lp, x, cache, mrope=None, cross=None):
+        """One attention+MLP block (a dense, vlm or MoE layer, or the hybrid
+        family's shared block) over one decode token a row; ``mrope`` the
+        token's M-RoPE channels; ``cross`` an audio decoder layer's fixed
+        cross cache, read between the self-attention and the MLP."""
         cfg = self.cfg
-        h = rms_norm(x, lp["ln1"]["w"], cfg.norm_eps)
-        a, _ = attn.attention_decode_apply(lp["attn"], h, cfg, cache)
+        h = _apply_norm(lp["ln1"], x, cfg.norm_eps)
+        a, _ = attn.attention_decode_apply(lp["attn"], h, cfg, cache, mrope_positions=mrope)
         x = x + a
-        h = rms_norm(x, lp["ln2"]["w"], cfg.norm_eps)
+        if cross is not None:
+            h = _apply_norm(lp["ln_cross"], x, cfg.norm_eps)
+            c, _ = attn.attention_decode_apply(lp["cross"], h, cfg, cross, update_cache=False)
+            x = x + c
+        h = _apply_norm(lp["ln2"], x, cfg.norm_eps)
         return x + self._ffn(lp, h)
 
     def decode_step(self, params, state: Dict[str, Any], tokens: torch.Tensor,
@@ -332,12 +468,30 @@ class Model:
         walks its super-blocks as the JAX ``decode_step`` does: each Mamba2
         block under its (super-block, block) adapter slice and its state
         (updated in place), then the shared block under
-        ``adapters["shared_attn"]`` over that super-block's KV cache."""
+        ``adapters["shared_attn"]`` over that super-block's KV cache.  The
+        vlm family rotates by M-RoPE with ``pos`` on all three channels.
+        The audio family adds each position's sinusoidal row to the token's
+        embedding and runs each decoder layer's cross-attention over its
+        fixed cross cache: the whole of it (``lo`` 0, ``len`` its rows),
+        q rotated at the cache's row count as in the JAX package (whose
+        cross cache has no ``t``)."""
         cfg = self.cfg
         pos = state["pos"]
         x = embed_apply(params["embed"], tokens)
         kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
         new_state = dict(state, pos=pos + 1)
+        B = tokens.shape[0]
+        mrope = pos.reshape(1, -1, 1).expand(3, B, 1).to(torch.int32) if cfg.mrope else None
+        cross = None
+        if cfg.family == "audio":
+            pe = sinusoidal_positions(kc_all.shape[2], cfg.d_model, x.device)
+            x = x + pe[pos.long()][:, None].to(x.dtype)
+            n_src = torch.full((B,), state["cross_k"].shape[2], dtype=torch.int32,
+                               device=x.device)
+
+            def cross(i):
+                return {"k": state["cross_k"][i], "v": state["cross_v"][i], "len": n_src,
+                        "t": n_src, "lo": torch.zeros_like(n_src)}
 
         def cache(i):
             return {"k": kc_all[i], "v": vc_all[i], "len": prefix_reserve + pos, "t": pos,
@@ -371,6 +525,7 @@ class Model:
         else:
             for i in range(cfg.num_layers):
                 with scope(_slice_layer(adapters, i) if adapters is not None else None):
-                    x = self._decode_block(_slice_layer(params["layers"], i), x, cache(i))
-        x = rms_norm(x, params["final_norm"]["w"], cfg.norm_eps)
+                    x = self._decode_block(_slice_layer(params["layers"], i), x, cache(i),
+                                           mrope, cross(i) if cross else None)
+        x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
         return self._logits(params, x), new_state

@@ -1,5 +1,5 @@
 """Per-task adapter hyperparameters and the BaseOp dim inventory (port of
-``repro.peft.methods.config``, dense, MoE and hybrid families)."""
+``repro.peft.methods.config``, dense, vlm, audio, MoE and hybrid families)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -34,15 +34,16 @@ def supports_attention_prefix(cfg: ArchConfig) -> bool:
 
 
 def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
-    """(d_in, d_out) of every adapter-capable BaseOp of a dense, MoE or
-    hybrid backbone: attention q/k/v/o; the gated MLP (gate / up / down) or
+    """(d_in, d_out) of every adapter-capable BaseOp of a dense, vlm, audio,
+    MoE or hybrid backbone: attention q/k/v/o (on audio the decoder's self-
+    and cross-attention share them); the gated MLP (gate / up / down) or
     the plain one (fc1 / fc2), or in the MoE family
     the shared experts' MLP (its routed experts are direct products, no
     BaseOp); and in the hybrid family the Mamba2 in-projection (to [z, x,
     B, C, dt]) and out-projection."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
-        raise NotImplementedError(f"the port runs the dense, MoE and hybrid families, not "
-                                  f"{cfg.family}")
+    if cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid"):
+        raise NotImplementedError(f"the port runs the dense, vlm, audio, MoE and hybrid "
+                                  f"families, not {cfg.family}")
     d = cfg.d_model
     dims: Dict[str, Tuple[int, int]] = {}
     if cfg.attention != "none":
@@ -57,7 +58,7 @@ def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
     elif cfg.d_ff and cfg.gated_mlp:
         dims.update({"mlp_gate": (d, cfg.d_ff), "mlp_up": (d, cfg.d_ff),
                      "mlp_down": (cfg.d_ff, d)})
-    elif cfg.d_ff:  # the plain GELU MLP (starcoder2)
+    elif cfg.d_ff:  # the plain GELU MLP (starcoder2, whisper)
         dims.update({"mlp_fc1": (d, cfg.d_ff), "mlp_fc2": (cfg.d_ff, d)})
     if cfg.family == "hybrid":
         d_in = cfg.ssm_expand * d

@@ -374,12 +374,11 @@ class MuxTuneService:
                or f"req{len(self.coserve.requests)}-{task_id}")
         req = InferenceRequest.from_spec(spec, task_id, rid,
                                          submit_clock=self.clock)
-        if self.cfg.family not in ("dense", "moe"):
+        if self.cfg.family not in ("dense", "vlm", "moe"):
             # the bind step's prefill-into-cache needs a full-depth KV stack;
             # reject up front instead of crashing the training iteration the
-            # bind would have interleaved into (the hybrid family decodes
-            # through Model.decode_step only, as in the JAX package; the JAX
-            # package also serves vlm, which the port has not)
+            # bind would have interleaved into (the hybrid and audio families
+            # decode through Model.decode_step only, as in the JAX package)
             return self.coserve.reject(req, "family_unsupported")
         return self.coserve.submit(req)
 

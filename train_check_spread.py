@@ -15,8 +15,13 @@ down, ``chip_smoke.moe_plan``, checked by ``train_check_moe``, which also
 reports each run's routing flips against the plain run), ``zamba`` and
 ``zamba_int8`` (zamba2-2.7b on a bf16 or an int8 backbone, the tenants on
 the Mamba2 projections and the shared block's q / v,
-``chip_smoke.zamba_plan``) or ``starcoder2`` (starcoder2-7b, the tenants
-on q, v, fc1 and fc2, ``chip_smoke.starcoder2_plan``).  One JSON line per
+``chip_smoke.zamba_plan``), ``starcoder2`` (starcoder2-7b, the tenants
+on q, v, fc1 and fc2, ``chip_smoke.starcoder2_plan``), ``qwen2vl``
+(qwen2-vl-7b, its biases filled as there, the tenants on q, v, up and
+down, ``chip_smoke.qwen2vl_plan``) or ``whisper`` (whisper-large-v3, the
+tenants on the decoder's q, v, fc1 and fc2: a ``chip_smoke.WhisperTrainer``
+whose batches, frames included, come from the seed, trained through
+``launch.steps.build_train_step`` as chip_smoke's ``train_whisper`` does).  One JSON line per
 seed with its distances (each the worst leaf's, as a share of that leaf's
 largest f32 |g|):
 
@@ -35,7 +40,9 @@ largest f32 |g|):
   packed-attention kernel call held to its plain version on the same
   operands (``audit``: per kernel the calls, the worst error as a share of
   the plain output's largest magnitude, the tolerance chip_smoke holds it
-  to, how many calls exceed it, and the worst call's index);
+  to, how many calls exceed it, and the worst call's index; packed
+  attention's dq, dk and dv also against the plain backward that reads D
+  from the kernel's stored o, ``<name>_stored_o``);
 
 then a summary line: per distance the sorted values over the seeds, and
 per second plain path its worst (``S`` for ``plain_stored_o``,
@@ -58,6 +65,7 @@ import json
 import os
 import sys
 import time
+import types
 
 
 @contextlib.contextmanager
@@ -95,9 +103,14 @@ def audited(torch, c, records):
             out = orig[name](q, k, v, p, s, kp, ks, o, lse, do, *rule)
             refs = dict(zip(("dq", "dk", "dv"), vjp(pa.packed_attention_plain, (q, k, v),
                                                     (p, s, kp, ks, *rule), do)))
+            # the plain backward reading D from the kernel's stored o, as the
+            # kernels (and the Pallas ones) do
+            ctx = types.SimpleNamespace(saved_tensors=(q, k, v, p, s, kp, ks, o), rule=rule)
+            stored = dict(zip(("dq", "dk", "dv"), pa._StoredOPlainFunction.backward(ctx, do)))
             for n_, t in zip(out_names, out if isinstance(out, tuple) else (out,)):
-                records.append((f"packed_attention_{n_}", rel(t, refs[n_]),
-                                c.GRAD_TOL["packed_attention_" + name]))
+                tol = c.GRAD_TOL["packed_attention_" + name]
+                records.append((f"packed_attention_{n_}", rel(t, refs[n_]), tol))
+                records.append((f"packed_attention_{n_}_stored_o", rel(t, stored[n_]), tol))
             return out
         return fn
 
@@ -144,7 +157,8 @@ def main() -> int:
     root = sys.argv[1] if len(sys.argv) > 1 else "."
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     path = sys.argv[3] if len(sys.argv) > 3 else "train"
-    paths = ("train", "methods", "moe", "zamba", "zamba_int8", "starcoder2")
+    paths = ("train", "methods", "moe", "zamba", "zamba_int8", "starcoder2", "qwen2vl",
+             "whisper")
     if path not in paths:
         raise SystemExit(f"train_check_spread: unknown path {path!r} ({', '.join(paths)})")
     methods = path == "methods"
@@ -164,10 +178,16 @@ def main() -> int:
     _build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg, tasks, plan = {"train": c.train_plan, "methods": c.methods_plan,
-                        "moe": c.moe_plan, "zamba": c.zamba_plan,
-                        "zamba_int8": lambda: c.zamba_plan("int8"),
-                        "starcoder2": c.starcoder2_plan}[path]()
+    if path == "whisper":
+        from repro_torch.configs import get_config
+
+        cfg, tasks, plan = get_config(c.WHISPER_ARCH), None, None
+    else:
+        cfg, tasks, plan = {"train": c.train_plan, "methods": c.methods_plan,
+                            "moe": c.moe_plan, "zamba": c.zamba_plan,
+                            "zamba_int8": lambda: c.zamba_plan("int8"),
+                            "starcoder2": c.starcoder2_plan,
+                            "qwen2vl": c.qwen2vl_plan}[path]()
     int8 = cfg.backbone_dtype == "int8"
     # the families this path runs (decode attention runs in no training step)
     families = [f for f in ops.FAMILIES if f != "decode_attention"
@@ -175,14 +195,19 @@ def main() -> int:
                 and (f != "mamba_scan" or cfg.family == "hybrid")]
     rows = []
     for seed in range(n):
-        gen = ModelGenerator(cfg, seed=0)
-        c.init_backbone(torch, gen)
-        gen.register_tasks(tasks)
-        engine = PEFTEngine(gen, plan, lr=c.TRAIN_LR)
-        loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size, seed=seed)
-                   for i in range(len(plan.htasks))}
-        for _ in range(1 + c.TRAIN_ITERS):
-            engine.run_iteration(loaders)
+        if path == "whisper":
+            engine = gen = loaders = c.WhisperTrainer(torch, data_seed=seed)
+            for i in range(1 + c.TRAIN_ITERS):
+                engine.run(engine.batch(i))
+        else:
+            gen = ModelGenerator(cfg, seed=0)
+            c.init_backbone(torch, gen)
+            gen.register_tasks(tasks)
+            engine = PEFTEngine(gen, plan, lr=c.TRAIN_LR)
+            loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size, seed=seed)
+                       for i in range(len(plan.htasks))}
+            for _ in range(1 + c.TRAIN_ITERS):
+                engine.run_iteration(loaders)
         records = []
         extra = {f"swap_{f}": (lambda f=f: ops.force_plain([f])) for f in families}
         extra["audit"] = lambda: audited(torch, c, records)
