@@ -10,7 +10,9 @@ migration, crash recovery, autoscaling), training and serving of the MoE
 family on full-size deepseek-moe-16b, and of starcoder2-7b (attention
 biases, the GELU MLP), serving of yi-34b, training and serving of the vlm
 family (qwen2-vl-7b: M-RoPE, qkv biases) and of the audio family
-(whisper-large-v3: the encoder, cross-attention, LayerNorm) at full size.
+(whisper-large-v3: the encoder, cross-attention, LayerNorm), and serving
+of the ssm family (xlstm-1.3b: mLSTM and sLSTM blocks, the mamba_scan
+forward tiled for its [1024, 1025] state) at full size.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -206,7 +208,8 @@ part's wall seconds:
                     depth, its q/k/v/o biases filled with random values:
                     phases 6-7 with the tenants on q, v, fc1 and fc2 (gate
                     STARCODER2_GRAD_PATH_TOL), then phase 5's shape through
-                    PEFTEngine on all six sites, gated from its own
+                    PEFTEngine on all six sites at 16 of its 32 layers
+                    (``STARCODER2_SERVE_LAYERS``), gated from its own
                     plain_split spread.  The kernel phases hold grouped LoRA
                     at fc1 / fc2, packed attention (forward, dq, dk/dv) at 9
                     query heads per k/v head and decode attention there;
@@ -223,16 +226,18 @@ part's wall seconds:
                     tenants on q, v, up and down (training batches carry no
                     M-RoPE channels: plain RoPE, as in the JAX package; gate
                     QWEN2VL_GRAD_PATH_TOL), then phase 5's shape through
-                    PEFTEngine on its seven sites, the bind's prefill (and
+                    PEFTEngine on its seven sites at 14 of its 28 layers
+                    (``QWEN2VL_SERVE_LAYERS``), the bind's prefill (and
                     the teacher-forced rerun's) carrying the prompt's three
                     M-RoPE channels, gated from its own plain_split spread.
                     The kernel phases hold grouped LoRA at its sites, packed
                     attention (forward, dq, dk/dv) at 7 query heads per k/v
                     head on the training layout and its forward at the
                     bind's 8 x 512, and decode attention at those heads;
-24. serve_whisper -- whisper-large-v3 at full width and depth (32 encoder
-                    and 32 decoder layers, d = 1280, H = Hkv = 20, dh =
-                    64), every bias filled: the encoder once over random
+24. serve_whisper -- whisper-large-v3 at full width, its 32 encoder layers
+                    and 16 of its 32 decoder layers (``WHISPER_SERVE_LAYERS``;
+                    d = 1280, H = Hkv = 20, dh = 64), every bias
+                    filled: the encoder once over random
                     frames [8, 1500, 1280] into the fixed cross caches, four
                     LoRA tenants on the decoder's six sites, prompts of
                     16-64 fed through Model.decode_step (no audio prefill),
@@ -255,6 +260,24 @@ part's wall seconds:
                     attention kernels with one segment a row), forward, dq
                     and dk/dv, and decode attention at its heads and over
                     the whole 1500-row cross cache.
+26. serve_xlstm  -- xlstm-1.3b at full width and depth (48 blocks: 6
+                    super-blocks of 7 mLSTM and 1 sLSTM, 7.06 GB): four
+                    LoRA tenants on the mLSTM's ssm_in, q and v and the
+                    sLSTM's ssm_in, prompts of 16-64 fed through
+                    Model.decode_step (no prefill, as in the JAX package),
+                    32 greedy tokens (95 steps) over 5.64 GB of mLSTM
+                    states; launches per step, the teacher-forced logits
+                    against the plain path's (gate from plain_reordered's
+                    spread), Model.forward over the same tokens on the tiled
+                    mamba_scan (42 calls) against the decode, and every
+                    kernel call of that forward and of two decode steps held
+                    to its plain version (``audited_serving``).  The kernel
+                    phases (``xlstm_kernels``) hold the tiled forward at
+                    (dk, dv) = (1024, 1025), padded to 1088, against the
+                    plain version: the training shape (8 x 256, resets), a
+                    two-chunk carry case with a random h0 and the entry
+                    states, and this path's forward (8 x 95), each twice for
+                    the same bits, no spill; and grouped LoRA at its sites.
 
 The whole script is held to ``TIME_BUDGET_S`` (1,200 s) on one card.
 Every line of phases 11-25 and of their kernel cases carries the card's
@@ -296,12 +319,22 @@ MOE_SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "shared_mlp_gate", "shared_
 # prefill), then 32 greedy tokens: the longest prompt sets the steps
 ZAMBA_SERVE_ROWS, ZAMBA_SERVE_NEW, ZAMBA_SERVE_PROMPTS = 8, 32, (16, 64)
 ZAMBA_SERVE_STEPS = ZAMBA_SERVE_PROMPTS[1] + ZAMBA_SERVE_NEW - 1
+# the ssm family's serving path (serve_xlstm): xlstm-1.3b at full width and
+# depth, its tenants on the mLSTM's up-projection and q / v (an ssm_out
+# tenant cannot run on the sLSTM blocks), the zamba2 path's traffic
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_TARGETS = ("ssm_in", "attn_q", "attn_v")
+XLSTM_HEADS, XLSTM_DK = 4, 1024  # the mLSTM's heads and head width (dv = dk + 1)
+XLSTM_SERVE_STEPS = ZAMBA_SERVE_STEPS
 # the serving paths cut in depth at full width, host-bound (their seconds grow
-# with the layers' launches), so that the script with the vlm and audio paths
-# stays inside TIME_BUDGET_S on a slow host: zamba2's decode at 5 of its 9
-# super-blocks (30 of 54 layers), deepseek-moe-16b's at 14 of 28 layers
-# (their gates come from each run's own plain paths)
-ZAMBA_SERVE_LAYERS, MOE_SERVE_LAYERS = 30, 14
+# with the layers' launches), so that the script with the vlm, audio and ssm
+# paths stays inside TIME_BUDGET_S on a slow host: zamba2's decode at 5 of its
+# 9 super-blocks (30 of 54 layers), deepseek-moe-16b's at 14 of 28 layers,
+# whisper's at 16 of its 32 decoder layers (the encoder whole), starcoder2-7b's
+# at 16 of 32 and qwen2-vl-7b's at 14 of 28 (their gates come from each run's
+# own plain paths)
+ZAMBA_SERVE_LAYERS, MOE_SERVE_LAYERS, WHISPER_SERVE_LAYERS = 30, 14, 16
+STARCODER2_SERVE_LAYERS, QWEN2VL_SERVE_LAYERS = 16, 14
 # starcoder2-7b (the GELU fc1 / fc2 MLP, attention biases): the training
 # tenants on q, v, fc1 and fc2; the serving tenants on all six sites
 STARCODER2_ARCH = "starcoder2-7b"
@@ -863,6 +896,7 @@ SASS_EXPECT = (("quant_matmul", "qmm_wgmma_kernel", "HGMMA"),
                ("packed_attention", "packed_attention_dq_kernel", "HMMA"),
                ("packed_attention", "packed_attention_dkv_kernel", "HMMA"),
                ("mamba_scan", "mamba_scan_fwd_kernel", "HMMA"),
+               ("mamba_scan", "mamba_scan_fwd_tiled_kernel", "HMMA"),
                ("mamba_scan", "mamba_scan_bwd_state_kernel", "HMMA"),
                ("mamba_scan", "mamba_scan_bwd_chunk_kernel", "HMMA"))
 
@@ -2208,6 +2242,144 @@ def _mamba_train_kernels(torch, timer, g, cfg, plan):
     for name in worst:  # over the three cases
         results[name]["max_abs_err"] = worst[name]
     return results
+
+
+def _xlstm_scan_case(torch, g, B, S, resets, h0_zero):
+    """Inputs of a mamba_scan call as mlstm_apply forms them at xlstm-1.3b's
+    width (H = 4, dk = 1024, dv = 1025): q, k / sqrt(1024) and v with its
+    ones-column (bf16; the division by 32 is exact), log-sigmoid gates of
+    a forget pre-activation around 2 and an input one around 0, ``la``
+    zeroed at the reset rows as ``ops.mamba_scan`` does."""
+    import torch.nn.functional as F
+
+    dev, bf16, H, dk = "cuda", torch.bfloat16, XLSTM_HEADS, XLSTM_DK
+    q = torch.randn((B, S, H, dk), generator=g, device=dev).to(bf16)
+    k = (torch.randn((B, S, H, dk), generator=g, device=dev).to(bf16).float() / 32.0).to(bf16)
+    v = torch.cat([torch.randn((B, S, H, dk), generator=g, device=dev),
+                   torch.ones((B, S, H, 1), device=dev)], dim=-1).to(bf16)
+    la = F.logsigmoid(torch.randn((B, S, H), generator=g, device=dev) + 2.0)
+    li = F.logsigmoid(torch.randn((B, S, H), generator=g, device=dev))
+    h0 = torch.zeros((B, H, dk, dk + 1), device=dev) if h0_zero \
+        else torch.randn((B, H, dk, dk + 1), generator=g, device=dev) * 0.5
+    r = None
+    if resets:
+        r = (torch.rand((B, S), generator=g, device=dev) < resets).to(torch.int32)
+        r[:, 0] = 1  # every row opens a segment, as a packed training row
+        la = torch.where(r[:, :, None] > 0, torch.zeros_like(la), la)
+    return [t.contiguous() for t in (q, k, v, la, li)] + [r, h0]
+
+
+def _xlstm_scan_work(torch, B, S, H, Q, dk, dv, r, h0_zero):
+    """(bytes, operations) of the scan at (dk, dv) on these inputs (what the
+    function needs, not what the tiled kernel does): q, k, v, la, li, r and
+    h0 read once, y and the final state written once; per chunk the live
+    (query, key) pairs' scores and P v (2 (dk + dv) each), the entry state's
+    q H on the rows it reaches where that state is not zero (not in the
+    first chunk from h0 = 0, nor after a chunk cut by a reset: a carried
+    zero), and the update's k v on the rows that feed the exit state."""
+    n = S // Q
+    rc = torch.zeros((B, n, Q), dtype=torch.int64, device="cuda") if r is None \
+        else r.reshape(B, n, Q).long()
+    seg = torch.cumsum(rc, dim=2)
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device="cuda"))
+    pairs = int(((seg[..., :, None] == seg[..., None, :]) & tri).sum().item()) * H
+    entry_rows = (seg == 0).sum(dim=2)  # [B, n]
+    live_in = torch.ones((B, n), dtype=torch.bool, device="cuda")
+    live_in[:, 0] = not h0_zero
+    for c in range(1, n):  # a chunk's entry state is zero where every earlier one was cut
+        live_in[:, c] = live_in[:, c - 1] | (seg[:, c - 1, -1] > 0)
+    entry = int((entry_rows * live_in).sum().item()) * H
+    exit_ = int((seg == seg[..., -1:]).sum().item()) * H
+    rows = B * S * H
+    state = B * H * dk * dv * 4
+    nbytes = (2 * rows * dk * 2 + rows * dv * 2 + 2 * rows * 4 + (B * S * 4 if r is not None
+              else 0) + state + rows * dv * 2 + state)
+    return nbytes, 2.0 * (dk + dv) * pairs + 2.0 * dk * dv * (entry + exit_)
+
+
+def xlstm_kernel_phase(torch, timer):
+    """The kernels of serve_xlstm at their shapes.  The tiled mamba_scan
+    forward at xlstm-1.3b's (dk, dv) = (1024, 1025) (through
+    ``ops.tile_padded``, v padded to 1088) against ``mamba_scan_plain`` on
+    the card: the training shape (B = 8, S = 256, one chunk of 256, random
+    resets, h0 = 0), a carry case (B = 2, S = 512: two chunks, a non-zero
+    h0, the final state and the entry states wanted) and serve_xlstm's
+    forward (8 rows of 95, one chunk of 95: partial 64-row tiles).  y within
+    KERNEL_TOL of its largest magnitude, the final and entry states within
+    F32_TOL; each case run twice for the same bits; the tiled kernel and the
+    tile sum may not spill.  Then grouped LoRA at M = 8 on the tenants'
+    sites (ssm_in 2048 -> 8192, attn_q / attn_v 4096 -> 4096).  Entries
+    ``mamba_scan_tiled_xlstm`` (the path case) with the others as variants,
+    ``grouped_lora_xlstm``, ``grouped_lora_bwd_xlstm_decode``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import mamba_scan as ms
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    H, dk, dv = XLSTM_HEADS, XLSTM_DK, XLSTM_DK + 1
+    Sd = XLSTM_SERVE_STEPS
+    cases = {"train": (8, 256, 256, 0.01, True), "carry": (2, 512, 256, 0.0, False),
+             "serve_forward": (8, Sd, Sd, 0.0, True)}
+    results = {}
+    ptxas = {e["kernel"]: e for e in _build.ptxas_report() if e["source"] == "mamba_scan.cu"}
+    resources = {}
+    for kernel in ("mamba_scan_fwd_tiled_kernel", "mamba_scan_tile_sum_kernel"):
+        rep = next(e for name, e in ptxas.items() if kernel in name)
+        if rep["spill_stores"] + rep["spill_loads"]:
+            raise AssertionError(f"{kernel} spills: {rep}")
+        resources[kernel] = {key: rep[key] for key in ("registers", "spill_stores", "spill_loads")}
+    resources["mamba_scan_fwd_tiled_kernel"].update(ms.occupancy("mamba_scan_fwd_tiled", 256))
+    with torch.no_grad():
+        for case, (B, S, Q, resets, h0_zero) in cases.items():
+            where = f"mamba_scan tiled {case} B={B} S={S} H={H} dk={dk} dv={dv} Q={Q}"
+            q, k, v, la, li, r, h0 = _xlstm_scan_case(torch, g, B, S, resets, h0_zero)
+            y, h = ops.tile_padded(ms.mamba_scan_tiled_cuda, q, k, v, la, li, r, h0, Q)
+            y2, h2 = ops.tile_padded(ms.mamba_scan_tiled_cuda, q, k, v, la, li, r, h0, Q)
+            _same_bits(torch, y, y2, where + " y")
+            _same_bits(torch, h, h2, where + " h")
+            y_ref, h_ref, hin_ref = ms.mamba_scan_plain(q, k, v, la, li, r, h0, Q,
+                                                        save_states=True)
+            err = {"y": compare(y, y_ref, where + " y")[0],
+                   "h": compare(h, h_ref, where + " h", F32_TOL)[0]}
+            # the padded operands as the op hands them to the kernel
+            vp = torch.nn.functional.pad(v, (0, -dv % ms.TILE))
+            h0p = torch.nn.functional.pad(h0, (0, -dv % ms.TILE))
+            args = (q, k, vp, la, li, r, h0p, Q)
+            if case == "carry":
+                _, _, hin = ms.mamba_scan_tiled_cuda(*args, save_states=True)
+                err["hin"] = compare(hin[..., :dv], hin_ref, where + " hin", F32_TOL)[0]
+            del y2, h2, hin_ref
+            work = _xlstm_scan_work(torch, B, S, H, Q, dk, dv, r, h0_zero)
+            bms, by = bound_ms(*work)
+            res = {"shape": f"B={B}, S={S}, H={H}, (dk, dv) = ({dk}, {dv}) padded to "
+                            f"({dk}, {vp.shape[-1]}), Q={Q}, reset rows "
+                            f"{0 if r is None else int(r.sum().item())}, h0 "
+                            f"{'0' if h0_zero else 'random'}",
+                   "ms": timer(lambda: ms.mamba_scan_tiled_cuda(*args), runs=5, warmup=1),
+                   "device_ms": kernel_device_ms(
+                       torch, timer, lambda: ms.mamba_scan_tiled_cuda(*args), "mamba_scan_", 3),
+                   "tile_sum_device_ms": kernel_device_ms(
+                       torch, timer, lambda: ms.mamba_scan_tiled_cuda(*args), "tile_sum", 3),
+                   "plain_ms": timer(lambda: ms.mamba_scan_plain(q, k, v, la, li, r, h0, Q),
+                                     runs=3, warmup=1),
+                   "bound_ms": bms, "bound_by": by, "library_ms": None,
+                   "bytes_bound_ms": work[0] / HBM_BYTES_PER_S * 1e3,
+                   "operations_bound_ms": work[1] / BF16_FLOP_PER_S * 1e3,
+                   "max_abs_err": max(err.values())}
+            results[case] = res
+            emit({"phase": "xlstm_kernels", "card": card(), "kernel": "mamba_scan_tiled",
+                  "case": case, "max_abs_err": err, "tol_rel": {"y": KERNEL_TOL,
+                                                                "h": F32_TOL, "hin": F32_TOL},
+                  **({"resources": resources} if case == "train" else {}),
+                  **{key: val for key, val in res.items() if key != "max_abs_err"}})
+            del q, k, v, y, h, y_ref, h_ref, args, vp, h0p
+            torch.cuda.empty_cache()
+    own = dict(results["serve_forward"])
+    own["train_variant"], own["carry_variant"] = results["train"], results["carry"]
+    out = {"mamba_scan_tiled_xlstm": own}
+    out.update(_lora_decode_kernels(torch, timer, g, get_config(XLSTM_ARCH), XLSTM_TARGETS,
+                                    "xlstm"))
+    return out
 
 
 def zamba_kernel_phase(torch, timer, cfg, tasks, plan):
@@ -5304,10 +5476,11 @@ def train_whisper_phase(torch):
 
 
 def serve_whisper_phase(torch):
-    """The audio serving path: whisper-large-v3 at full width and depth
+    """The audio serving path: whisper-large-v3 at full width, its 32
+    encoder layers and ``WHISPER_SERVE_LAYERS`` of its 32 decoder layers
     (random weights from a seed, every bias filled), the encoder run once
     over random bf16 frames [8, 1500, 1280] into the fixed cross caches
-    (``Model.init_decode_state(params=..., audio_embed=...)``: 32 x 8 x
+    (``Model.init_decode_state(params=..., audio_embed=...)``: L x 8 x
     1500 x 20 x 64, k and v), four LoRA tenants (ranks 8-64) on the
     decoder's six sites, two rows each, routed per row through
     ``ctx_factory_from_slots``; prompts of 16-64 tokens fed through
@@ -5338,7 +5511,7 @@ def serve_whisper_phase(torch):
     from repro_torch.peft.methods import AdapterConfig
 
     t_phase = time.perf_counter()
-    cfg = get_config(WHISPER_ARCH)
+    cfg = get_config(WHISPER_ARCH).with_overrides(num_layers=WHISPER_SERVE_LAYERS)
     L, suffix = cfg.num_layers, path_suffix(cfg)
     tenants = [AdapterConfig("lora", rank=rk, alpha=al, targets=WHISPER_SITES)
                for rk, al in SERVE_TENANTS]
@@ -5484,11 +5657,256 @@ def serve_whisper_phase(torch):
     return counts
 
 
+@contextlib.contextmanager
+def audited_serving(torch, records):
+    """Each tiled mamba_scan and grouped-LoRA kernel call, as it runs, held
+    to its plain version on the same operands: a record per output,
+    ``(name, error as a share of the plain output's largest magnitude,
+    tolerance)``; y and the LoRA delta at KERNEL_TOL, the final state at
+    F32_TOL.  The kernels' results are returned unchanged.  On a model
+    whose logits no end-to-end comparison can hold (a bf16 unit anywhere
+    grows to the logits' size over its depth) this holds every kernel call
+    of the path on the operands the path gave it."""
+    from repro_torch.kernels import grouped_lora as gl
+    from repro_torch.kernels import mamba_scan as ms
+
+    orig_scan, orig_lora = ms.mamba_scan_tiled_cuda, gl.grouped_lora_cuda
+
+    def rel(out, ref):
+        scale = ref.float().abs().max().item()
+        return (out.float() - ref.float()).abs().max().item() / scale if scale else 0.0
+
+    def scan(q, k, v, la, li, r, h0, chunk, save_states=False):
+        out = orig_scan(q, k, v, la, li, r, h0, chunk, save_states)
+        y_ref, h_ref = ms.mamba_scan_plain(q, k, v, la, li, r, h0, chunk)
+        records.append(("mamba_scan_tiled_y", rel(out[0], y_ref), KERNEL_TOL))
+        records.append(("mamba_scan_tiled_h", rel(out[1], h_ref), F32_TOL))
+        return out
+
+    def lora(x, a, b, rt, scale, **kw):
+        out = orig_lora(x, a, b, rt, scale, **kw)
+        y = out[0] if isinstance(out, tuple) else out
+        records.append(("grouped_lora", rel(y, gl.grouped_lora_plain(x, a, b, rt, scale)),
+                        KERNEL_TOL))
+        return out
+
+    ms.mamba_scan_tiled_cuda, gl.grouped_lora_cuda = scan, lora
+    try:
+        yield
+    finally:
+        ms.mamba_scan_tiled_cuda, gl.grouped_lora_cuda = orig_scan, orig_lora
+
+
+def serve_xlstm_phase(torch):
+    """The ssm family's serving path: xlstm-1.3b at full width and depth (48
+    blocks: 6 super-blocks of 7 mLSTM and 1 sLSTM; random bf16 weights from
+    a seed, 7.06 GB), four LoRA tenants (``SERVE_TENANTS``' ranks and
+    alphas) on the mLSTM's ssm_in, attn_q and attn_v and the sLSTM's ssm_in,
+    two rows each, routed per row through ``ctx_factory_from_slots``;
+    prompts of 16-64 tokens fed through ``Model.decode_step`` (the family
+    has no prefill), each row then greedy for 32 tokens, all rows stepping
+    together (``XLSTM_SERVE_STEPS`` steps) over 5.64 GB of mLSTM states.
+    Gates: the launches the path implies (per step grouped LoRA 132 = 6 x
+    (7 x 3 + 1), no other kernel: the recurrent steps are plain PyTorch, as
+    in the JAX package); a teacher-forced rerun of the fed tokens on the
+    plain versions and one on a second plain path, ``plain_reordered``
+    (grouped LoRA's f32 sums as two halves), whose spread sets the gate
+    (``_gate_from``), held to the served run's logits (``plain_split``, the
+    other second plain path, changes decode attention only, which this
+    path does not run: it is the plain path bit for bit, so it is not
+    rerun); ``Model.forward`` over the same tokens on the kernels: 42
+    ``ops.mamba_scan`` calls, each one ``mamba_scan_tiled`` call (two CUDA
+    launches: the 16 x 17 tiles of the padded [1024, 1088] state a (row,
+    head), then their sum), and 132 grouped LoRA, nothing else; its
+    distance from the kernels' decode within twice the plain path's.  On
+    random weights this model carries a difference of one bf16 unit to
+    the logits' size over its 48 blocks (the plain paths' spread is of that
+    order from the first step), so those gates cannot fail; the audit
+    (``audited_serving``) holds each of the forward's 42 tiled scans and
+    132 grouped-LoRA calls and each grouped-LoRA call of two decode steps
+    to its plain version on the operands the path gave it.  Prints the
+    decode step's device and host ms and the peak memory.  Returns the
+    launch counts of the decode and the forward."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ModelGenerator, PEFTTask
+    from repro_torch.kernels import ops
+    from repro_torch.models.quantize import tensor_bytes
+    from repro_torch.peft.methods import AdapterConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    suffix = "_xlstm"
+    n_super, per = cfg.num_layers // cfg.slstm_period, cfg.slstm_period - 1
+    tenants = [AdapterConfig("lora", rank=rk, alpha=al, targets=XLSTM_TARGETS)
+               for rk, al in SERVE_TENANTS]
+    tasks = [PEFTTask(f"tenant{i}", tc, (ZAMBA_SERVE_PROMPTS[1],), 1)
+             for i, tc in enumerate(tenants)]
+    gen = ModelGenerator(cfg, seed=0)
+    backbone = gen.init_backbone()
+    reg = gen.register_tasks(tasks)
+    mta, adapters = reg.mta, reg.adapter_params
+    _fill_zero_leaves(torch, adapters, gen.generator)  # LoRA's B starts at 0
+    model = gen.model
+    rows, T, new = ZAMBA_SERVE_ROWS, XLSTM_SERVE_STEPS, ZAMBA_SERVE_NEW
+    rs = np.random.RandomState(0)
+    lengths = rs.randint(ZAMBA_SERVE_PROMPTS[0], ZAMBA_SERVE_PROMPTS[1] + 1, rows)
+    lengths[0], lengths[5] = ZAMBA_SERVE_PROMPTS[1], ZAMBA_SERVE_PROMPTS[0]
+    prompts = np.zeros((rows, T), np.int32)
+    for i, n in enumerate(lengths):
+        prompts[i, :n] = rs.randint(1, cfg.vocab_size, n)
+    dev = torch.device("cuda")
+    slots = {k: torch.as_tensor(v, device=dev)
+             for k, v in mta.decode_row_slots([0, 0, 1, 1, 2, 2, 3, 3]).items()}
+    ctxf = mta.ctx_factory_from_slots(slots)
+    feed = torch.as_tensor(prompts, device=dev)
+    len_t = torch.as_tensor(lengths, device=dev)
+    fed = torch.zeros((rows, T), dtype=torch.int32, device=dev)  # the token each step takes
+    picked = torch.zeros((rows, T), dtype=torch.int32, device=dev)  # each step's argmax
+    served = []  # each step's logits: the kernel path's trajectory of the check below
+    vocab = cfg.vocab_size
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    step_s = []
+    with torch.no_grad():
+        st = model.init_decode_state(rows, T)
+        state_bytes = tensor_bytes(st["mlstm"]) + tensor_bytes(st["slstm"])
+        cur = feed[:, :1]
+        for t in range(T):
+            t1 = time.perf_counter()
+            fed[:, t] = cur[:, 0]
+            lg, st = model.decode_step(backbone, st, cur, adapters=adapters, ctx_factory=ctxf)
+            served.append(lg[:, 0, :vocab].float())
+            picked[:, t] = lg[:, 0, :vocab].argmax(-1).to(torch.int32)
+            if t + 1 < T:  # the prompt while it lasts, then the row's own greedy token
+                cur = torch.where(t + 1 < len_t, feed[:, t + 1], picked[:, t])[:, None]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lora_a_step = n_super * (per * len(XLSTM_TARGETS) + 1)
+    want = dict.fromkeys(counts, 0)
+    want["grouped_lora"] = lora_a_step * T
+    if counts != want:
+        raise AssertionError(f"serve{suffix}: kernel launches {counts}, the path implies {want}")
+    generated = [picked[i, lengths[i] - 1:lengths[i] - 1 + new].tolist() for i in range(rows)]
+    emit({"phase": "serve" + suffix, "card": card(), "model": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model, "super_blocks": n_super,
+          "backbone_bytes": tensor_bytes(backbone), "state_bytes": state_bytes,
+          "tenants": [{"rank": t.rank, "alpha": t.alpha} for t in tenants],
+          "rows": rows, "prompt_lengths": lengths.tolist(), "new_tokens": new, "steps": T,
+          "launches": counts, "step_ms_median": statistics.median(step_s) * 1e3,
+          "decode_tokens_per_s": rows * T / sum(step_s),
+          "max_memory_allocated": peak, "first_generated": generated[0][:8]})
+    with torch.no_grad():
+        prof = profile_device(torch, lambda: model.decode_step(
+            backbone, st, fed[:, -1:], adapters=adapters, ctx_factory=ctxf), 3,
+            {"grouped_lora": ("grouped_lora",)})
+    emit({"phase": "profile", "path": "serve decode step" + suffix, "card": card(), **prof,
+          "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
+              statistics.median(step_s) * 1e3) if prof["device_ms_per_call"] else None})
+    del st
+
+    # ---- teacher-forced reruns of the fed tokens, and the forward ----
+    def trajectory():
+        state = model.init_decode_state(rows, T)
+        out = []
+        for t in range(T):
+            lg, state = model.decode_step(backbone, state, fed[:, t:t + 1], adapters=adapters,
+                                          ctx_factory=ctxf)
+            out.append(lg[:, 0, :vocab].float())
+        return out
+
+    def forward():
+        lg = model.forward(backbone, {"tokens": fed}, adapters=adapters, ctx_factory=ctxf,
+                           return_logits=True)["logits"]
+        return [lg[:, t, :vocab].float() for t in range(T)]
+
+    traj, fwd, seconds = {}, {}, {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t1
+        return out
+
+    second = {"plain_reordered": plain_reordered}
+    with torch.no_grad():
+        with ops.force_plain():
+            traj["plain"] = timed("plain", trajectory)
+            fwd["plain"] = timed("plain_forward", forward)
+        for name, ctx in second.items():
+            with ctx():
+                traj[name] = timed(name, trajectory)
+        spread = max(max(_rel_by_step(traj[n], traj["plain"])) for n in second)
+        tol = _gate_from(spread, LOGIT_TOL)
+        emit({"phase": "serve_check" + suffix + "_gate", "card": card(),
+              "plain_paths_vs_plain_max_rel": spread, "two_s": 2 * spread,
+              "base_tol": LOGIT_TOL, "gate": tol})
+        traj["kernel"] = served  # the served run is the kernel path's teacher-forced run
+        ops.reset_launch_counts()
+        fwd["kernel"] = timed("kernel_forward", forward)
+        fwd_counts = ops.launch_counts()
+        records = []
+        with audited_serving(torch, records):
+            forward()
+            state = model.init_decode_state(rows, T)
+            for t in range(2):
+                model.decode_step(backbone, state, fed[:, t:t + 1], adapters=adapters,
+                                  ctx_factory=ctxf)
+            del state
+    audit = {}
+    for name, err, tol_ in records:
+        e = audit.setdefault(name, {"calls": 0, "max": 0.0, "tol": tol_, "over": 0})
+        e["calls"] += 1
+        e["max"] = max(e["max"], err)
+        e["over"] += err > tol_
+    want = dict.fromkeys(fwd_counts, 0)
+    want.update({"grouped_lora": lora_a_step, "mamba_scan_tiled": n_super * per})
+    if fwd_counts != want:
+        raise AssertionError(f"serve{suffix} forward: kernel launches {fwd_counts}, the path "
+                             f"implies {want}")
+    rel = {"kernel_vs_plain": _rel_by_step(traj["kernel"], traj["plain"]),
+           "kernel_decode_vs_forward": _rel_by_step(traj["kernel"], fwd["kernel"]),
+           "plain_decode_vs_forward": _rel_by_step(traj["plain"], fwd["plain"]),
+           "kernel_forward_vs_plain_forward": _rel_by_step(fwd["kernel"], fwd["plain"])}
+    rel.update({f"{n}_vs_plain": _rel_by_step(traj[n], traj["plain"]) for n in second})
+    top = {k: max(v) for k, v in rel.items()}
+    agree = min((a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                for a, b in zip(traj["kernel"], traj["plain"]))
+    emit({"phase": "serve_check" + suffix, "card": card(), "steps": T,
+          "logit_max_rel_err": top["kernel_vs_plain"], "tol_rel": tol,
+          "logit_worst_step": rel["kernel_vs_plain"].index(top["kernel_vs_plain"]),
+          **{f"{k}_max_rel": v for k, v in top.items() if k != "kernel_vs_plain"},
+          "forward_launches": fwd_counts, "audit": audit, "argmax_agreement_min": agree,
+          "trajectory_seconds": seconds, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "phase_seconds": time.perf_counter() - t_phase,
+          "rel_err_by_step": {k: [round(x, 5) for x in v] for k, v in rel.items()}})
+    if not top["kernel_vs_plain"] <= tol:
+        raise AssertionError(f"serve_check{suffix}: logits kernel vs plain off by "
+                             f"{top['kernel_vs_plain']} of the largest logit > {tol}")
+    if not top["kernel_decode_vs_forward"] <= 2 * top["plain_decode_vs_forward"]:
+        raise AssertionError(f"serve_check{suffix}: the kernels' decode is "
+                             f"{top['kernel_decode_vs_forward']} from their forward, over twice "
+                             f"the plain path's {top['plain_decode_vs_forward']}")
+    calls = {name: e["calls"] for name, e in audit.items()}
+    if calls != {"mamba_scan_tiled_y": n_super * per, "mamba_scan_tiled_h": n_super * per,
+                 "grouped_lora": 3 * lora_a_step} or any(e["over"] for e in audit.values()):
+        raise AssertionError(f"serve_check{suffix}: audit {audit}")
+    return {k: counts[k] + fwd_counts[k] for k in counts}
+
+
 # The main paths in the order they run.  The first two groups run at once,
 # each in its own process on the one card: both are host-bound (the card
 # is 5-45% busy on them), they hold at most 43 and 17 GB, and on a slow host
 # the script would pass its time limit run one after the other.  The
-# whisper paths (3.1 GB of weights, host-bound decode) join them.  The last
+# whisper paths (3.1 GB of weights, host-bound decode) join them, and
+# serve_xlstm (17.2 GB at its peak, host-bound decode: 19% busy) joins the
+# second, which ended first without it (395 s against 413).  The last
 # group needs the card to itself (deepseek-moe-16b's 60 GB of training,
 # yi-34b's 79 GB, qwen2-vl-7b's 15.2 GB backbone beside its training
 # activations), and runs alone after them.
@@ -5496,7 +5914,7 @@ PATHS_BESIDE = (
     ("serve", "serve_int8", "train", "train_methods", "train_int8", "train_zamba",
      "train_zamba_int8", "train_whisper"),
     ("serve_methods", "coserve", "fleet", "fleet_int8", "serve_zamba", "serve_zamba_int8",
-     "serve_whisper"))
+     "serve_whisper", "serve_xlstm"))
 PATHS_ALONE = ("train_moe", "serve_moe", "serve_moe_int8", "train_starcoder2",
                "serve_starcoder2", "serve_yi", "train_qwen2vl", "serve_qwen2vl")
 
@@ -5572,14 +5990,18 @@ def run_paths(torch, names, counts, laps, carry=None):
         # starcoder2-7b training and serving, yi-34b serving
         "train_starcoder2": lambda: train("train_starcoder2", starcoder2_plan()),
         "serve_starcoder2": lambda: serve("serve_starcoder2", serve_pool_phase,
-                                          STARCODER2_ARCH, STARCODER2_SITES),
+                                          STARCODER2_ARCH, STARCODER2_SITES,
+                                          layers=STARCODER2_SERVE_LAYERS),
         "serve_yi": lambda: serve("serve_yi", serve_pool_phase, YI_ARCH, SITES, (64, 256), 16,
                                   256, YI_TENANTS),
         # the vlm family (qwen2-vl-7b) and the audio family (whisper-large-v3)
         "train_qwen2vl": lambda: train("train_qwen2vl", qwen2vl_plan()),
-        "serve_qwen2vl": lambda: serve("serve_qwen2vl", serve_pool_phase, QWEN2VL_ARCH, SITES),
+        "serve_qwen2vl": lambda: serve("serve_qwen2vl", serve_pool_phase, QWEN2VL_ARCH, SITES,
+                                       layers=QWEN2VL_SERVE_LAYERS),
         "train_whisper": lambda: train("train_whisper", (), train_whisper_phase),
         "serve_whisper": lambda: serve("serve_whisper", serve_whisper_phase),
+        # the ssm family (xlstm-1.3b): decode, and the forward on the tiled scan
+        "serve_xlstm": lambda: serve("serve_xlstm", serve_xlstm_phase),
     }
     for name in names:
         table[name]()
@@ -5682,6 +6104,7 @@ def main() -> int:
         kern.update(yi_kernel_phase(torch, timer))
         kern.update(qwen2vl_kernel_phase(torch, timer, *qwen2vl_plan()))
         kern.update(whisper_kernel_phase(torch, timer))
+        kern.update(xlstm_kernel_phase(torch, timer))
         torch.cuda.synchronize()
         return kern
 
@@ -5708,7 +6131,8 @@ def main() -> int:
           "yi_variant": "grouped_lora_yi", "qwen2vl_variant": "grouped_lora_qwen2vl",
           "qwen2vl_train_variant": "grouped_lora_train_qwen2vl",
           "whisper_variant": "grouped_lora_whisper",
-          "whisper_train_variant": "grouped_lora_train_whisper"}),
+          "whisper_train_variant": "grouped_lora_train_whisper",
+          "xlstm_variant": "grouped_lora_xlstm"}),
         ("grouped_lora_bwd", "grouped_lora.cu", "grouped_lora.py:91", "grouped_lora_bwd",
          {"zamba2_variant": "grouped_lora_bwd_zamba2",
           "methods_variant": "grouped_lora_bwd_methods_lora",
@@ -5721,7 +6145,8 @@ def main() -> int:
           "qwen2vl_variant": "grouped_lora_bwd_qwen2vl",
           "qwen2vl_decode_variant": "grouped_lora_bwd_qwen2vl_decode",
           "whisper_variant": "grouped_lora_bwd_whisper",
-          "whisper_decode_variant": "grouped_lora_bwd_whisper_decode"}),
+          "whisper_decode_variant": "grouped_lora_bwd_whisper_decode",
+          "xlstm_decode_variant": "grouped_lora_bwd_xlstm_decode"}),
         ("packed_attention", "packed_attention.cu", "packed_attention.py:60", "packed_attention",
          {"train_variant": "packed_attention_train",
           "zamba2_variant": "packed_attention_train_zamba2",
@@ -5764,6 +6189,8 @@ def main() -> int:
         ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", "quant_matmul",
          {"moe_variant": "quant_matmul_moe", "zamba2_variant": "quant_matmul_zamba2"}),
         ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:76", "mamba_scan_zamba2", {}),
+        # the forward at xlstm's (1024, 1025) state, tiled 64 x 64 (row 8's variant)
+        ("mamba_scan_tiled", "mamba_scan.cu", "mamba_scan.py:76", "mamba_scan_tiled_xlstm", {}),
         ("mamba_scan_bwd_state", "mamba_scan.cu", "mamba_scan.py:136",
          "mamba_scan_bwd_state_zamba2", {}),
         ("mamba_scan_bwd_chunk", "mamba_scan.cu", "mamba_scan.py:175",

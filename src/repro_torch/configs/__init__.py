@@ -1,9 +1,8 @@
 """Architecture configs (port of ``repro.configs``).
 
 The port keeps its own copy of ``ArchConfig`` so it never imports the JAX
-package.  The registry lists only the configurations whose family the port
-runs (dense, vlm, audio, hybrid and MoE); ``get_config`` raises on every
-other name (xlstm-1.3b, the ``ssm`` family).
+package.  The registry lists every configuration of the JAX package's: the
+dense, vlm, audio, hybrid, MoE and ``ssm`` (xlstm-1.3b) families.
 """
 from __future__ import annotations
 
@@ -15,9 +14,8 @@ from typing import Tuple
 @dataclass(frozen=True)
 class ArchConfig:
     """A backbone architecture: the fields of the JAX package's
-    ``ArchConfig`` that the dense, vlm, audio, hybrid and MoE families and
-    the planner read (the xLSTM and TPU execution fields come with the
-    family and tiers that use them)."""
+    ``ArchConfig`` that its families and the planner read (the TPU
+    execution fields and ``param_dtype`` are not ported)."""
 
     name: str
     family: str
@@ -43,6 +41,8 @@ class ArchConfig:
     # hybrid: layers per super-block; the last of each is the attention block
     hybrid_period: int = 0
     shared_attention: bool = False  # zamba2-style weight-shared attn block
+    # xLSTM: blocks per super-block, the last of each the sLSTM (0 = none)
+    slstm_period: int = 0
     # --- encoder-decoder (whisper) ---
     is_encoder_decoder: bool = False
     num_encoder_layers: int = 0
@@ -91,13 +91,15 @@ class ArchConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self, active_only: bool = False) -> int:
-        """Backbone parameter count (the JAX package's formula for the dense,
-        vlm, audio, hybrid and MoE families; the cost model's Eq. 5 reads
-        it).  ``active_only`` counts an MoE layer's top-k routed experts
-        only.  Like the JAX formula it counts no bias (starcoder2's and
-        qwen2-vl's q/k/v/o, whisper's), and on the audio family each norm's
-        weight only: the decoder layer's two attentions, MLP and three
-        norms, the encoder layer's one attention, MLP and two norms."""
+        """Backbone parameter count (the JAX package's formula; the cost
+        model's Eq. 5 reads it).  ``active_only`` counts an MoE layer's
+        top-k routed experts only.  Like the JAX formula it counts no bias
+        (starcoder2's and qwen2-vl's q/k/v/o, whisper's), and on the audio
+        family each norm's weight only: the decoder layer's two attentions,
+        MLP and three norms, the encoder layer's one attention, MLP and two
+        norms.  On the ``ssm`` family it is the formula's attention and
+        norms per block, not the mLSTM / sLSTM tree (xlstm-1.3b: 1,011,550,208
+        against 3,530,119,504 leaves' values), as in the JAX package."""
         d = self.d_model
         n_attn = d * (self.q_dim + 2 * self.kv_dim) + self.q_dim * d
         if self.qk_norm:
@@ -114,6 +116,8 @@ class ArchConfig:
             attn_copies = 1 if self.shared_attention else n_attn_layers
             total = ((self.num_layers - n_attn_layers) * (n_ssm + n_norms)
                      + attn_copies * (n_attn + n_mlp + n_norms))
+        elif self.family == "ssm":  # the JAX formula: no d_ff MLP, no block weights
+            total = self.num_layers * (n_attn + n_norms)
         elif self.family == "moe":
             routed = self.top_k if active_only else self.num_experts
             experts = (routed + self.num_shared_experts) * per_ff * d * self.expert_d_ff
@@ -127,8 +131,6 @@ class ArchConfig:
         return total + embed + d  # final norm
 
 
-# Only the configurations of the families the port runs (dense, vlm, audio,
-# hybrid, MoE).
 _REGISTRY = {
     "llama3.2-3b": "llama3_2_3b",
     "smollm-360m": "smollm_360m",
@@ -139,6 +141,7 @@ _REGISTRY = {
     "yi-34b": "yi_34b",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "whisper-large-v3": "whisper_large_v3",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 ARCH_NAMES = tuple(_REGISTRY)
@@ -146,17 +149,14 @@ ARCH_NAMES = tuple(_REGISTRY)
 
 def get_config(name: str) -> ArchConfig:
     if name not in _REGISTRY:
-        raise KeyError(
-            f"configuration {name!r} is not ported to repro_torch yet; "
-            f"ported: {', '.join(ARCH_NAMES)}")
+        raise KeyError(f"unknown configuration {name!r}; known: {', '.join(ARCH_NAMES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_REGISTRY[name]}")
     return mod.CONFIG
 
 
 def smoke_config(name: str) -> ArchConfig:
     """A reduced config of the same family for CPU tests (the JAX package's
-    ``smoke_config`` overrides for the dense, vlm, audio, hybrid and MoE
-    families)."""
+    ``smoke_config`` overrides)."""
     cfg = get_config(name)
     over = dict(
         num_layers=2,
@@ -172,9 +172,12 @@ def smoke_config(name: str) -> ArchConfig:
     if cfg.family == "moe":
         over.update(num_experts=4, top_k=2, expert_d_ff=32,
                     num_shared_experts=min(cfg.num_shared_experts, 1))
-    if cfg.family == "hybrid":
-        over.update(ssm_state=8, ssm_head_dim=16, ssm_chunk=16, num_layers=4,
-                    hybrid_period=2)
+    if cfg.family in ("hybrid", "ssm"):
+        over.update(ssm_state=8, ssm_head_dim=16, ssm_chunk=16, num_layers=4)
+        if cfg.hybrid_period:
+            over.update(hybrid_period=2)
+        if cfg.slstm_period:
+            over.update(slstm_period=2)
     if cfg.is_encoder_decoder:
         over.update(num_encoder_layers=2, max_source_positions=16)
     if cfg.family == "vlm":

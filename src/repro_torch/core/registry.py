@@ -34,13 +34,15 @@ def _group_depths(cfg: ArchConfig) -> Dict[str, int]:
     """Layer dims stacked before the task axis, per adapter group ("" = the
     whole tree): one for the dense, vlm, audio (the decoder's layers) and MoE
     families; the hybrid family's ``mamba``
-    group is stacked [n_super, per] and its ``shared_attn`` group not at all."""
+    group is stacked [n_super, per] and its ``shared_attn`` group not at all;
+    the ``ssm`` family's ``mlstm`` group [n_super, per], ``slstm`` [n_super]."""
     if cfg.family in ("dense", "vlm", "moe", "audio"):
         return {"": 1}
     if cfg.family == "hybrid":
         return {"mamba": 2, "shared_attn": 0}
-    raise NotImplementedError(f"the port runs the dense, vlm, audio, MoE and hybrid families, not "
-                              f"{cfg.family}")
+    if cfg.family == "ssm":
+        return {"mlstm": 2, "slstm": 1}
+    raise ValueError(cfg.family)
 
 
 @dataclass

@@ -101,6 +101,21 @@
 // rows through a per-warp f32 stage; the chunk backward runs one block per
 // (chunk, b, h) and carries nothing.  All three share one shared-memory
 // layout.
+//
+// The tiled forward (`mamba_scan_fwd_tiled_kernel`) takes a state of any
+// [dk, dv] in 64 x 64 tiles (xlstm's mLSTM: dk = 1024, dv = 1025 padded to
+// 1088 by the caller, 4.2 MB a (row, head), far past an SM's shared memory).
+// The scan is bilinear in (q, k) over dk and acts on v column by column, so
+// tile (kd, vd)'s share of it is the (64, 64) scan of q and k's columns
+// kd * 64 .. + 63 and v's columns vd * 64 .. + 63 from that tile of h0: it
+// carries that tile, and its share of y's columns vd is an f32 partial.  One
+// block per (tile, b, h) runs the forward's body unchanged but for the
+// strides (`fwd_body<true>`); the partials go to plane kd of a scratch
+// [dk / 64][B, S, H, dv], and `mamba_scan_tile_sum_kernel` sums the planes
+// in order kd = 0, 1, ... and rounds once to bf16 (no atomics: the same bits
+// each run).  Every tile recomputes its chunk's decays and the q . k scores
+// of its 64 columns, so the work is dv / 64 times the scores and dk / 64
+// times the P v products of one pass over the whole state.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -133,7 +148,9 @@ struct Args {
   bf16* dv;
   float* dcum;         // [B, S, H]
   float* dli;
+  float* ypart;        // tiled forward: partial y [dk / 64][B, S, H, dv] f32
   int S, H, Q, n;
+  int kdim, vdim;      // tiled forward: the state's dk, dv (multiples of 64); else 64
   int want_dh0;        // state bwd: dh0 is wanted (else the first chunk's products are skipped)
 };
 
@@ -569,7 +586,10 @@ __device__ bool chunk_prologue(const Args& a, int b, int t0, int h, const Smem& 
 
 // The ring over a chunk's rows: item it loads tile (items[it] & 7) of two
 // tensors, (x0, x1) for pass 0 and (y0, y1) for pass 1, into stage it % STAGES.
-struct Ring {
+// With TWO_STRIDES the second tensor of a pass has rows `stride1` apart (the
+// tiled forward's v, whose rows are dv wide where k's are dk wide).
+template <bool TWO_STRIDES>
+struct RingT {
   const Smem& s;
   const bf16* x0;
   const bf16* x1;
@@ -577,6 +597,7 @@ struct Ring {
   const bf16* y1;
   size_t stride;
   int Q, n;
+  size_t stride1;
 
   __device__ const bf16* tile(int it, int which) const {
     return s.ring + ((it % STAGES) * 2 + which) * TR * DP;
@@ -590,7 +611,8 @@ struct Ring {
       const int which = i / (TR * 8), r = (i >> 3) % TR, c = i & 7, row = r0 + r;
       const bf16* src = which ? (second ? y1 : x1) : (second ? y0 : x0);
       const bool ok = row < Q;
-      cp_async16(dst + (which * TR + r) * DP + c * 8, ok ? src + row * stride + c * 8 : src, ok);
+      const size_t st = TWO_STRIDES && which ? stride1 : stride;
+      cp_async16(dst + (which * TR + r) * DP + c * 8, ok ? src + row * st + c * 8 : src, ok);
     }
   }
 
@@ -614,6 +636,8 @@ struct Ring {
   }
 };
 
+typedef RingT<false> Ring;
+
 // What the decays are on a pair of 16-row slabs, query rows from i0 and key
 // rows from j0 <= i0: 0 no live pair, 2 every pair live (one segment, every
 // key before every query), 1 test each element
@@ -625,13 +649,49 @@ __device__ __forceinline__ int slab_kind(const int* seg, int i0, int j0) {
 
 // ---- forward ---------------------------------------------------------------
 
-__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// f32 accumulators of a warp's 16 rows x 64 straight to rows r0 .. r0 + 15
+// of dst (row r at dst + r * stride), 8-byte stores, rows at or past Q
+// dropped (the tiled forward's partial y)
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[8][4], float* dst,
+                                               size_t stride, int r0, int Q) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= Q) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<float2*>(dst + row * stride + nt * 8 + 2 * t4) =
+          make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
+  }
+}
+
+// The forward of one (b, h) over its chunks.  TILED: the block computes one
+// 64 x 64 tile (kd, vd) of a [dk, dv] state (blockIdx.x = kd * dv / 64 + vd,
+// blockIdx.y = b * H + h): the scan over q, k's columns kd * 64 .. + 63 and
+// v's columns vd * 64 .. + 63 from that tile of h0, which is the exact
+// share of that tile in the whole scan (the scan is bilinear in (q, k) over
+// dk and acts on v column by column); its y, the share of those dk columns
+// in y's columns vd, goes out in f32 to plane kd of `ypart`, which
+// `mamba_scan_tile_sum_kernel` sums over kd.  Otherwise dk = dv = 64 and y
+// leaves as bf16.
+template <bool TILED>
+__device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw) {
   const Smem s = carve(smem_raw);
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  int bh = blockIdx.x, kd = 0, vd = 0;
+  if (TILED) {
+    bh = blockIdx.y;
+    kd = blockIdx.x / (a.vdim / D);
+    vd = blockIdx.x % (a.vdim / D);
+  }
+  const int b = bh / a.H, h = bh % a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const int Q = a.Q, nt = (Q + TR - 1) / TR;
-  const size_t stride = static_cast<size_t>(a.H) * D;
+  const size_t stride = static_cast<size_t>(a.H) * (TILED ? a.kdim : D);  // q, k rows
+  const size_t vstride = TILED ? static_cast<size_t>(a.H) * a.vdim : stride;  // v, y rows
+  const size_t srow = TILED ? a.vdim : D;  // a state's rows
+  const size_t sstate = TILED ? static_cast<size_t>(a.kdim) * a.vdim : D * D;  // one (b, h) state
+  const size_t soff = TILED ? static_cast<size_t>(kd) * D * a.vdim + vd * D : 0;  // the tile's
   const int d0 = warp * 16;  // this warp's rows of the state
 
   // H [d0 + g (+ 8)][nt * 8 + 2 t4 (+ 1)], this warp's rows of the carried
@@ -639,13 +699,13 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) 
   // its three bf16 terms in shared memory, whose sum is H exactly
   float hs[8][4];
   {
-    const float* src = a.h0 + static_cast<size_t>(bh) * D * D;
+    const float* src = a.h0 + static_cast<size_t>(bh) * sstate + soff;
 #pragma unroll
     for (int nt8 = 0; nt8 < 8; ++nt8)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float2 x =
-            *reinterpret_cast<const float2*>(src + (d0 + g + 8 * i) * D + nt8 * 8 + 2 * t4);
+            *reinterpret_cast<const float2*>(src + (d0 + g + 8 * i) * srow + nt8 * 8 + 2 * t4);
         hs[nt8][2 * i] = x.x;
         hs[nt8][2 * i + 1] = x.y;
       }
@@ -653,7 +713,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) 
 
   for (int c = 0; c < a.n; ++c) {
     const int t0 = c * Q;
-    const size_t base = row_off(a, b, t0, h) * D;
+    const size_t base = row_off(a, b, t0, h) * (TILED ? a.kdim : D) + (TILED ? kd * D : 0);
+    const size_t vbase = TILED ? row_off(a, b, t0, h) * a.vdim + vd * D : base;
     __syncthreads();  // the previous chunk's vectors, split and stage are no longer read
     // each round's q fragments are loaded a round ahead, the first round's
     // while the set-up runs
@@ -661,7 +722,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) 
     load_a_rows(qn, a.q + base, stride, (nt - 1) * TR + warp * 16, Q);
     chunk_prologue(a, b, t0, h, s, nt, false, nullptr);
     // this chunk's entry state: the backward's residual, and its three terms
-    float* hin = a.hin != nullptr ? a.hin + (static_cast<size_t>(bh) * a.n + c) * D * D : nullptr;
+    float* hin =
+        a.hin != nullptr ? a.hin + (static_cast<size_t>(bh) * a.n + c) * sstate + soff : nullptr;
     bool nonzero = false;
 #pragma unroll
     for (int nt8 = 0; nt8 < 8; ++nt8)
@@ -669,7 +731,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) 
       for (int i = 0; i < 2; ++i) {
         const int row = d0 + g + 8 * i, col = nt8 * 8 + 2 * t4;
         if (hin != nullptr)
-          *reinterpret_cast<float2*>(hin + row * D + col) =
+          *reinterpret_cast<float2*>(hin + row * srow + col) =
               make_float2(hs[nt8][2 * i], hs[nt8][2 * i + 1]);
         nonzero |= hs[nt8][2 * i] != 0.f || hs[nt8][2 * i + 1] != 0.f;
         uint32_t t[3];
@@ -680,7 +742,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) 
       }
     // (the split is written) a state of zeros adds nothing to y
     const bool h_live = __syncthreads_or(nonzero);
-    const Ring ring{s, a.k + base, a.v + base, nullptr, nullptr, stride, Q, s.items[MAX_ITEMS]};
+    const RingT<TILED> ring{s,       a.k + base, a.v + vbase,         nullptr,
+                            nullptr, stride,     Q,           s.items[MAX_ITEMS], vstride};
     ring.start();
     const int last = s.seg[Q - 1];
     float upd[8][4];  // sum_j w_j k_j (x) v_j over the chunk, this warp's rows d
@@ -761,7 +824,11 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) 
           }
         }
       }
-      store_rows(y, s.stage + warp * 16 * DP, a.y + base, stride, i0, Q);
+      if (TILED)  // plane kd of the partial y, [dk / 64][B * H * S * dv]
+        store_rows_f32(y, a.ypart + kd * (static_cast<size_t>(gridDim.y) * a.S * a.vdim) + vbase,
+                       vstride, i0, Q);
+      else
+        store_rows(y, s.stage + warp * 16 * DP, a.y + base, stride, i0, Q);
     }
     cp_async_wait<0>();  // (only empty groups are left)
     const float cdec = last == 0 ? expf(s.cum[Q - 1]) : 0.f;
@@ -778,13 +845,42 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) 
         hs[nt8][2 * i + 1] = cdec * ((x[0].y + x[1].y) + x[2].y) + upd[nt8][2 * i + 1];
       }
   }
-  float* hout = a.hout + static_cast<size_t>(bh) * D * D;
+  float* hout = a.hout + static_cast<size_t>(bh) * sstate + soff;
 #pragma unroll
   for (int nt8 = 0; nt8 < 8; ++nt8)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<float2*>(hout + (d0 + g + 8 * i) * D + nt8 * 8 + 2 * t4) =
+      *reinterpret_cast<float2*>(hout + (d0 + g + 8 * i) * srow + nt8 * 8 + 2 * t4) =
           make_float2(hs[nt8][2 * i], hs[nt8][2 * i + 1]);
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_body<false>(a, smem_raw);
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_tiled_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  fwd_body<true>(a, smem_raw);
+}
+
+// y = the sum of the tiled forward's dk / 64 partial planes, kd = 0, 1, ...
+// in turn (a fixed order: two runs give the same bits), rounded once to
+// bf16; four values a thread (`plane`, the values of one plane, is a
+// multiple of 64)
+__global__ void mamba_scan_tile_sum_kernel(const float* __restrict__ part, bf16* __restrict__ y,
+                                           size_t plane, int nk) {
+  const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i >= plane) return;
+  float4 acc = *reinterpret_cast<const float4*>(part + i);
+  for (int kd = 1; kd < nk; ++kd) {
+    const float4 x = *reinterpret_cast<const float4*>(part + kd * plane + i);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  *reinterpret_cast<uint2*>(y + i) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
 }
 
 // ---- chunk backward ----------------------------------------------------------
@@ -1128,14 +1224,15 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_kernel(Ar
     store_state_rows(gs, stage, a.dh0 + (static_cast<size_t>(bh) * D + d0) * D);
 }
 
-enum class Kind { kFwd, kBwdState, kBwdChunk };
+enum class Kind { kFwd, kBwdState, kBwdChunk, kFwdTiled };
 
 // the kernel of a kind, its dynamic shared memory (one layout for the
-// three) and block size; the attributes it launches with are set
+// four) and block size; the attributes it launches with are set
 cudaError_t prepare(Kind kind, void (**fn)(Args), size_t* smem, int* threads) {
-  *fn = kind == Kind::kFwd ? mamba_scan_fwd_kernel
+  *fn = kind == Kind::kFwd        ? mamba_scan_fwd_kernel
         : kind == Kind::kBwdState ? mamba_scan_bwd_state_kernel
-                                  : mamba_scan_bwd_chunk_kernel;
+        : kind == Kind::kBwdChunk ? mamba_scan_bwd_chunk_kernel
+                                  : mamba_scan_fwd_tiled_kernel;
   *smem = kMmaSmem;
   *threads = MMA_THREADS;
   cudaError_t err = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1162,11 +1259,36 @@ int launch(Kind kind, Args a, int B, int dk, int dv, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiled forward: one block per (64 x 64 tile of the state, b, h), then
+// the sum of the partial planes over the dk tiles
+int launch_tiled(Args a, int B, void* stream) {
+  if (B <= 0 || a.S <= 0 || a.H <= 0 || a.kdim <= 0 || a.vdim <= 0 || a.kdim % D || a.vdim % D ||
+      a.Q <= 0 || a.Q > QMAX || a.S % a.Q != 0 || B * a.H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a.n = a.S / a.Q;
+  void (*fn)(Args);
+  size_t smem;
+  int threads;
+  cudaError_t err = prepare(Kind::kFwdTiled, &fn, &smem, &threads);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  fn<<<dim3((a.kdim / D) * (a.vdim / D), B * a.H), threads, smem, st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t plane = static_cast<size_t>(B) * a.S * a.H * a.vdim;
+  const int sum_threads = 256;
+  const size_t blocks = (plane / 4 + sum_threads - 1) / sum_threads;
+  mamba_scan_tile_sum_kernel<<<static_cast<unsigned>(blocks), sum_threads, 0, st>>>(
+      a.ypart, a.y, plane, a.kdim / D);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Args make_args(int S, int H, int Q) {
   Args a{};
   a.S = S;
   a.H = H;
   a.Q = Q;
+  a.kdim = a.vdim = D;
   return a;
 }
 
@@ -1192,6 +1314,33 @@ extern "C" int mamba_scan_fwd(const void* q, const void* k, const void* v, const
   a.hout = static_cast<float*>(hout);
   a.hin = static_cast<float*>(hin);
   return launch(Kind::kFwd, a, B, dk, dv, stream);
+}
+
+// The forward at a [dk, dv] state of 64 x 64 tiles (dk, dv multiples of
+// 64): q, k [B, S, H, dk] bf16, v [B, S, H, dv] bf16, la, li, r as above,
+// h0 [B, H, dk, dv] f32 -> y [B, S, H, dv] bf16 (through ypart, scratch of
+// dk / 64 x B x S x H x dv f32), hout [B, H, dk, dv] f32 and, when hin is
+// not null, hin [B * H, S / Q, dk, dv] f32.  Two launches on the stream:
+// the tiles, then their sum over dk.
+extern "C" int mamba_scan_fwd_tiled(const void* q, const void* k, const void* v,
+                                    const void* la, const void* li, const void* r,
+                                    const void* h0, void* y, void* ypart, void* hout, void* hin,
+                                    int B, int S, int H, int dk, int dv, int Q, void* stream) {
+  Args a = make_args(S, H, Q);
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.la = static_cast<const float*>(la);
+  a.li = static_cast<const float*>(li);
+  a.r = static_cast<const int*>(r);
+  a.h0 = static_cast<const float*>(h0);
+  a.y = static_cast<bf16*>(y);
+  a.ypart = static_cast<float*>(ypart);
+  a.hout = static_cast<float*>(hout);
+  a.hin = static_cast<float*>(hin);
+  a.kdim = dk;
+  a.vdim = dv;
+  return launch_tiled(a, B, stream);
 }
 
 // q [B, S, H, 64] bf16, la [B, S, H] f32, r or null, dy [B, S, H, 64] bf16,
@@ -1240,12 +1389,12 @@ extern "C" int mamba_scan_bwd_chunk(const void* q, const void* k, const void* v,
   return launch(Kind::kBwdChunk, a, B, dkdim, dvdim, stream);
 }
 
-// kind 0 forward, 1 state backward, 2 chunk backward, at chunk length Q:
-// the dynamic shared memory of a block and how many blocks an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the launch's
-// attributes set).
+// kind 0 forward, 1 state backward, 2 chunk backward, 3 tiled forward, at
+// chunk length Q: the dynamic shared memory of a block and how many blocks
+// an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the
+// launch's attributes set).
 extern "C" int mamba_scan_occupancy(int kind, int Q, int* smem_bytes, int* blocks_per_sm) {
-  if (kind < 0 || kind > 2 || Q <= 0 || Q > QMAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (kind < 0 || kind > 3 || Q <= 0 || Q > QMAX) return static_cast<int>(cudaErrorInvalidValue);
   void (*fn)(Args);
   size_t smem;
   int threads;

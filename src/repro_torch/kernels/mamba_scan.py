@@ -29,6 +29,14 @@ la, li, h0); the ``dla`` of the telescoping identity (a segment-bounded
 reverse cumsum of the kernel's per-position rows, plus the final-state term
 ``<dH_f, H_f>`` at the last position) is taken here in PyTorch, outside the
 kernels, as the JAX package takes it outside its Pallas kernels.
+
+The three kernels are built for (dk, dv) = (64, 64) (zamba2's heads).  A
+larger state (xlstm's mLSTM: (1024, 1025)) runs the forward only, through
+:func:`mamba_scan_tiled_cuda`: one block per 64 x 64 tile of the state, each
+the (64, 64) forward on its columns of q / k and v, then a fixed-order sum
+of the tiles' partial y over dk (the Pallas kernel's
+``VMEM((dk, dv), f32)`` scratch takes any size; the backward kernels at
+that size are not ported yet).
 """
 from __future__ import annotations
 
@@ -39,11 +47,14 @@ import torch
 
 from repro_torch.kernels import _build
 
-# launches of the CUDA kernels (plain calls are not counted)
-launch_counts = {"mamba_scan": 0, "mamba_scan_bwd_state": 0, "mamba_scan_bwd_chunk": 0}
+# launches of the CUDA kernels (plain calls are not counted); a
+# ``mamba_scan_tiled`` call is two launches on its stream (the tiles, their sum)
+launch_counts = {"mamba_scan": 0, "mamba_scan_bwd_state": 0, "mamba_scan_bwd_chunk": 0,
+                 "mamba_scan_tiled": 0}
 
 _QMAX = 256          # largest chunk the kernels take
-_DIMS = ((64, 64),)  # (dk, dv) the kernels are built for
+_DIMS = ((64, 64),)  # (dk, dv) of the three kernels; the tiled forward takes multiples of
+TILE = 64            # TILE x TILE tiles of the state
 
 
 def _gates(rc: torch.Tensor):
@@ -228,13 +239,14 @@ def mamba_scan_backward_plain(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int
 
 
 # the C source's kernel kinds (``mamba_scan_occupancy``)
-_KINDS = {"mamba_scan_fwd": 0, "mamba_scan_bwd_state": 1, "mamba_scan_bwd_chunk": 2}
+_KINDS = {"mamba_scan_fwd": 0, "mamba_scan_bwd_state": 1, "mamba_scan_bwd_chunk": 2,
+          "mamba_scan_fwd_tiled": 3}
 
 
 def smem_bytes(kernel: str, chunk: int) -> int:
     """Dynamic shared memory of one block of ``kernel`` (a key of
     ``_KINDS``) at chunk length ``chunk``, as the C source sizes it.  The
-    three kernels share one fixed layout: a ring of three stages of two
+    four kernels share one fixed layout: a ring of three stages of two
     64 x 72 bf16 tiles, the state's three bf16 terms (3 x 64 x 72; the
     state backward's f32 output stage, 4 x 16 x 72, in their room), a
     16 x 72 stage for each of 4 warps, six per-row vectors of 256 and 40
@@ -259,9 +271,10 @@ def occupancy(kernel: str, chunk: int) -> dict:
     return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
-def _check(q, k, v, la, li, r, chunk, state=None):
+def _check(q, k, v, la, li, r, chunk, state=None, tiled=False):
     """Raise on what the kernels do not take; ``state`` is an f32
-    [B, H, dk, dv] operand (h0 or dhf) when the kernel reads one."""
+    [B, H, dk, dv] operand (h0 or dhf) when the kernel reads one; ``tiled``:
+    the tiled forward's (dk, dv), multiples of ``TILE``."""
     if not q.is_cuda:
         raise ValueError("mamba_scan_cuda takes CUDA tensors")
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
@@ -269,7 +282,10 @@ def _check(q, k, v, la, li, r, chunk, state=None):
                          f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     B, S, H, dk = q.shape
     dv = v.shape[-1]
-    if (dk, dv) not in _DIMS:
+    if tiled and (dk % TILE or dv % TILE or B * H > 65535):
+        raise ValueError(f"the tiled mamba_scan kernel takes dk, dv multiples of {TILE} and "
+                         f"B * H <= 65535; got (dk, dv) = {(dk, dv)}, B * H = {B * H}")
+    if not tiled and (dk, dv) not in _DIMS:
         raise ValueError(f"mamba_scan kernel takes (dk, dv) in {_DIMS}, got {(dk, dv)}")
     if not (1 <= chunk <= _QMAX and S % chunk == 0):
         raise ValueError(f"mamba_scan kernel takes a chunk of 1..{_QMAX} dividing S; "
@@ -321,6 +337,35 @@ def mamba_scan_cuda(q, k, v, la, li, r, h0, chunk: int, save_states: bool = Fals
              hin.data_ptr() if save_states else None, B, S, H, dk, dv, chunk, _stream(q))
     _build.check("mamba_scan", err)
     launch_counts["mamba_scan"] += 1
+    return (y, hout, hin) if save_states else (y, hout)
+
+
+def mamba_scan_tiled_cuda(q, k, v, la, li, r, h0, chunk: int, save_states: bool = False):
+    """The forward at a large state, on the arguments of
+    :func:`mamba_scan_plain` with dk and dv multiples of ``TILE``
+    (``ops.mamba_scan`` pads xlstm's dv = 1025 to 1088).  Two launches: one
+    block per (``TILE`` x ``TILE`` tile of the [dk, dv] state, batch row,
+    head) runs the (64, 64) forward's chunk loop on its dk columns of q / k
+    and dv columns of v from its tile of h0, carrying that tile; its f32
+    share of y goes to plane kd of a [dk / TILE, B, S, H, dv] scratch, and
+    the second kernel sums the planes in order kd = 0, 1, ... and rounds
+    once to bf16."""
+    _check(q, k, v, la, li, r, chunk, h0, tiled=True)
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    n = S // chunk
+    y = torch.empty_like(v)
+    ypart = torch.empty((dk // TILE, B, S, H, dv), dtype=torch.float32, device=q.device)
+    hout = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    hin = torch.empty((B * H, n, dk, dv), dtype=torch.float32, device=q.device) \
+        if save_states else None
+    fn = _build.function("mamba_scan", "mamba_scan_fwd_tiled",
+                         [_build.P] * 11 + [_build.I] * 6 + [_build.P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), li.data_ptr(),
+             _rptr(r), h0.data_ptr(), y.data_ptr(), ypart.data_ptr(), hout.data_ptr(),
+             hin.data_ptr() if save_states else None, B, S, H, dk, dv, chunk, _stream(q))
+    _build.check("mamba_scan", err)
+    launch_counts["mamba_scan_tiled"] += 1
     return (y, hout, hin) if save_states else (y, hout)
 
 

@@ -279,8 +279,27 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# chunked SSD / GLA scan (the hybrid family's Mamba2 blocks)
+# chunked SSD / GLA scan (the hybrid family's Mamba2 blocks, xlstm's mLSTM)
 # ---------------------------------------------------------------------------
+
+
+def tile_padded(scan, q, k, v, la, li, r, h0, chunk: int):
+    """``scan`` (the tiled kernel, or a plain version) over q / k and v
+    padded with zero columns to multiples of ``mamba_scan.TILE`` (xlstm's
+    dv = 1025 to 1088) and h0 with zero rows and columns, then y and the
+    final state sliced back to (dk, dv).  Exact: a zero column of v gives
+    zero columns of y and of the state, and a zero column of q / k adds
+    nothing to a score and keeps its state row at zero."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    pk, pv = -dk % _ms.TILE, -dv % _ms.TILE
+    if pk:
+        q, k = F.pad(q, (0, pk)), F.pad(k, (0, pk))
+    if pv:
+        v = F.pad(v, (0, pv))
+    if pk or pv:
+        h0 = F.pad(h0, (0, pv, 0, pk))
+    y, h = scan(aligned(q), aligned(k), aligned(v), la, li, r, h0.contiguous(), chunk)
+    return y[..., :dv], h[:, :, :dk, :dv]
 
 
 def mamba_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: torch.Tensor,
@@ -292,13 +311,18 @@ def mamba_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: tor
     type, final state [B, H, dk, dv] f32).  The chunk is ``min(chunk, S)``.
     A reset position's own decay is zeroed here, outside the op, so its
     ``log_decay`` gradient is 0 (``mamba_scan.py:446-449`` of the JAX
-    package)."""
+    package).  On the card (dk, dv) = (64, 64) runs the three kernels (the
+    forward, or with a gradient to take the autograd Function); any other
+    (dk, dv) runs the tiled forward through :func:`tile_padded` and has no
+    backward kernels yet: a gradient raises.  The plain version takes q / k
+    / v in any types (mLSTM hands it an f32 k, as the JAX package does)."""
     B, S, H, dk = q.shape
+    dv = v.shape[-1]
     Q = min(chunk, S)
     if S % Q:
         raise ValueError(f"mamba_scan: chunk {Q} does not divide S = {S}")
     if h0 is None:
-        h0 = torch.zeros((B, H, dk, v.shape[-1]), dtype=torch.float32, device=q.device)
+        h0 = torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device)
     la = log_decay.float()
     r = None
     if reset is not None:
@@ -306,9 +330,22 @@ def mamba_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: tor
         r = (reset > 0).to(torch.int32)
     li, h0 = log_input.float(), h0.float()
     if _use_kernel(q, "mamba_scan"):
-        args = (aligned(q), aligned(k), aligned(v), la.contiguous(),
-                li.contiguous(), r.contiguous() if r is not None else None, h0.contiguous(), Q)
-        if _needs_grad(q, k, v, la, li, h0):
+        # the kernels take q / k / v in one type: mLSTM's k / sqrt(hd) is f32
+        # (exact in bf16 when hd is a power of 4, as xlstm-1.3b's 1024)
+        k = k.to(q.dtype)
+        r = r.contiguous() if r is not None else None
+        grad = _needs_grad(q, k, v, la, li, h0)
+        if (dk, dv) not in _ms._DIMS:
+            if grad:
+                raise NotImplementedError(
+                    f"mamba_scan: no backward kernels at (dk, dv) = {(dk, dv)}: the state and "
+                    f"chunk backward kernels are built for {_ms._DIMS} only (their tiled "
+                    f"versions, for xlstm's (1024, 1025), are not ported yet)")
+            return tile_padded(_ms.mamba_scan_tiled_cuda, q, k, v, la.contiguous(),
+                               li.contiguous(), r, h0, Q)
+        args = (aligned(q), aligned(k), aligned(v), la.contiguous(), li.contiguous(), r,
+                h0.contiguous(), Q)
+        if grad:
             return _ms.MambaScanFunction.apply(*args)
         return _ms.mamba_scan_cuda(*args)
     return _ms.mamba_scan_plain(q, k, v, la, li, r, h0, Q)

@@ -1,5 +1,6 @@
-"""The Mamba2 block of the hybrid family (port of ``repro.models.ssm``:
-the training branch and the decode branch).
+"""The Mamba2 block of the hybrid family and the mLSTM / sLSTM blocks of the
+``ssm`` family (port of ``repro.models.ssm``: the training branch and the
+decode branch of each).
 
 The block's in-projection gives ``[z, x, B, C, dt]``; x, B and C pass a
 causal depthwise convolution and SiLU; the chunked SSD scan
@@ -24,11 +25,31 @@ recurrent step in f32 (:func:`gla_decode_step`, no kernel: the JAX package
 has none either).  The state is updated in place.  The window must be in
 the block's working type: an f32 run widens the bf16 window of
 :func:`mamba2_init_state` first (``Model.decode_step`` does), as the JAX
-package's concatenation widens it.  The xLSTM blocks are not ported.
+package's concatenation widens it.
+
+The mLSTM block (xlstm's matrix memory) runs the same scan with the block's
+own q / k / v projections (BaseOps ``attn_q`` / ``attn_k`` / ``attn_v`` on
+the inner width), sigmoid gates from ``w_gates`` (``log_sigmoid`` in f32)
+and its normalizer as an extra ones-column of v (dv = head width + 1);
+``y / max(|n|, 1)``, an RMSNorm and the ``silu(z)`` gate precede the
+down-projection.  As in the JAX package, k is divided by sqrt(head width)
+after its BaseOp, which widens it to f32 (a bf16 array over a numpy
+float64 there); ``ops.mamba_scan`` hands the kernels k in q's type.  Decode
+is one :func:`gla_decode_step` on the block's [B, H, hd, hd + 1] f32 state.
+
+The sLSTM block (scalar memory) is a strict time recurrence over S: a plain
+f32 loop (the JAX ``lax.scan``), with per-head recurrent matrices ``r`` and
+the exponential gating's stabiliser ``m``.  It takes no ``reset``: a packed
+row's sLSTM state runs on across its segments, as in the JAX package.  Its
+out-projection is the BaseOp ``ssm_out``, whose adapters the JAX package
+declares at the mLSTM's width (d_in, d); an ``ssm_out`` tenant therefore
+cannot run on an sLSTM block, and the port raises naming the site.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +57,7 @@ import torch.nn.functional as F
 from repro_torch.configs import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models.layers import ParamSpec, rms_norm
-from repro_torch.peft.hooks import apply_base_op
+from repro_torch.peft.hooks import active_context, apply_base_op
 
 CONV_W = 4
 
@@ -155,3 +176,142 @@ def mamba2_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
     y = y * F.silu(z.float()).to(x.dtype)
     y = rms_norm(y, p["norm"], cfg.norm_eps)
     return apply_base_op("ssm_out", y, p["w_out"], "bse,ed->bsd")
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM matrix memory; normalizer via v-augmentation)
+# ---------------------------------------------------------------------------
+
+
+def mlstm_dims(cfg: ArchConfig) -> Tuple[int, int, int]:
+    """(inner width, heads, head width)."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    nh = cfg.num_heads
+    return d_in, nh, d_in // nh
+
+
+def mlstm_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    d_in, nh, _ = mlstm_dims(cfg)
+    return {
+        "w_up": ParamSpec((d, 2 * d_in)),
+        "w_q": ParamSpec((d_in, d_in)),
+        "w_k": ParamSpec((d_in, d_in)),
+        "w_v": ParamSpec((d_in, d_in)),
+        "w_gates": ParamSpec((d_in, 2 * nh), scale=0.01),
+        "gate_bias": ParamSpec((2 * nh,), init="zeros"),
+        "norm": ParamSpec((d_in,), init="ones"),
+        "w_down": ParamSpec((d_in, d)),
+    }
+
+
+def mlstm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
+                reset: Optional[torch.Tensor] = None,
+                state: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """One mLSTM block over x [B, S, d]: the chunked scan over the row,
+    cut where ``reset`` [B, S] > 0; or, with the block's decode ``state``
+    ({"h"} [B, H, hd, hd + 1] f32, updated in place), one token a row."""
+    B, S, _ = x.shape
+    d_in, nh, hd = mlstm_dims(cfg)
+    up = apply_base_op("ssm_in", x, p["w_up"], "bsd,de->bse")
+    xin, z = torch.chunk(up, 2, dim=-1)
+    q = apply_base_op("attn_q", xin, p["w_q"], "bse,ef->bsf").reshape(B, S, nh, hd)
+    k = apply_base_op("attn_k", xin, p["w_k"], "bse,ef->bsf").reshape(B, S, nh, hd)
+    k = k.float() / math.sqrt(hd)  # f32, as the JAX package's bf16 / np.sqrt(hd)
+    v = apply_base_op("attn_v", xin, p["w_v"], "bse,ef->bsf").reshape(B, S, nh, hd)
+    gates = torch.einsum("bse,eg->bsg", xin, p["w_gates"]) + p["gate_bias"]
+    f_pre, i_pre = torch.chunk(gates.float(), 2, dim=-1)  # [B, S, nh]
+    log_decay = F.logsigmoid(f_pre)
+    log_input = F.logsigmoid(i_pre)
+    # the normalizer state rides along as an extra ones-column of v
+    v_aug = torch.cat([v, torch.ones((B, S, nh, 1), dtype=v.dtype, device=v.device)], dim=-1)
+    if state is None:
+        y_aug, _ = kops.mamba_scan(q, k, v_aug, log_decay, log_input, chunk=cfg.ssm_chunk,
+                                   reset=reset)
+    else:
+        y_aug, h_new = gla_decode_step(q, k, v_aug, log_decay, log_input, state["h"])
+        state["h"].copy_(h_new)
+    y, nrm = y_aug[..., :hd], y_aug[..., hd:]
+    y = y.float() / torch.clamp(torch.abs(nrm.float()), min=1.0)
+    y = y.reshape(B, S, d_in).to(x.dtype)
+    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    y = y * F.silu(z.float()).to(x.dtype)
+    return apply_base_op("ssm_out", y, p["w_down"], "bse,ed->bsd")
+
+
+def mlstm_init_state(cfg: ArchConfig, batch: int, device) -> Dict[str, torch.Tensor]:
+    """One mLSTM block's zero decode state: ``h`` [B, H, hd, hd + 1] f32."""
+    _, nh, hd = mlstm_dims(cfg)
+    return {"h": torch.zeros((batch, nh, hd, hd + 1), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (scalar memory, strict recurrence)
+# ---------------------------------------------------------------------------
+
+
+SLSTM_STATE = ("c", "n", "m", "h")
+
+
+def slstm_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d = cfg.d_model
+    nh = cfg.num_heads
+    hd = d // nh
+    return {
+        "w_in": ParamSpec((d, 4 * d)),
+        "r": ParamSpec((nh, hd, 4 * hd), scale=0.01),
+        "norm": ParamSpec((d,), init="ones"),
+        "w_out": ParamSpec((d, d)),
+    }
+
+
+def slstm_apply(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig,
+                state: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    """One sLSTM block over x [B, S, d]: the recurrence over S from zeros,
+    or from the block's decode ``state`` (``SLSTM_STATE``, each [B, H, hd]
+    f32, updated in place).  No reset: the state runs across a packed row's
+    segments, as in the JAX package."""
+    ctx = active_context()
+    if ctx is not None and ctx.has("ssm_out"):
+        raise ValueError(
+            "an ssm_out adapter cannot run on an sLSTM block: the site is declared at the "
+            f"mLSTM's width ({cfg.ssm_expand * cfg.d_model}, {cfg.d_model}) and the sLSTM's "
+            f"w_out is ({cfg.d_model}, {cfg.d_model}) (the JAX package fails there too); "
+            "target ssm_in, attn_q, attn_k or attn_v on the ssm family")
+    B, S, d = x.shape
+    nh = cfg.num_heads
+    hd = d // nh
+    pre = apply_base_op("ssm_in", x, p["w_in"], "bsd,de->bse")
+    pre = pre.reshape(B, S, nh, 4 * hd).float()
+    if state is None:
+        c, n, m, h = (torch.zeros((B, nh, hd), dtype=torch.float32, device=x.device)
+                      for _ in SLSTM_STATE)
+    else:
+        c, n, m, h = (state[k] for k in SLSTM_STATE)
+    r = p["r"].float()
+    ys = []
+    for t in range(S):
+        rec = torch.einsum("bhd,hde->bhe", h, r)
+        zt, it, ft, ot = torch.split(pre[:, t] + rec, hd, dim=-1)
+        m_new = torch.maximum(ft + m, it)
+        i_p = torch.exp(it - m_new)
+        f_p = torch.exp(ft + m - m_new)
+        c = f_p * c + i_p * torch.tanh(zt)
+        n = f_p * n + i_p
+        h = torch.sigmoid(ot) * c / torch.clamp(n, min=1e-6)
+        m = m_new
+        ys.append(h)
+    if state is not None:
+        for k, t in zip(SLSTM_STATE, (c, n, m, h)):
+            state[k].copy_(t)
+    y = torch.stack(ys, dim=1).reshape(B, S, d).to(x.dtype)
+    y = rms_norm(y, p["norm"], cfg.norm_eps)
+    return apply_base_op("ssm_out", y, p["w_out"], "bsd,de->bse")
+
+
+def slstm_init_state(cfg: ArchConfig, batch: int, device) -> Dict[str, torch.Tensor]:
+    """One sLSTM block's zero decode state: ``c``, ``n``, ``m``, ``h``
+    [B, H, d / H] f32."""
+    nh = cfg.num_heads
+    shape = (batch, nh, cfg.d_model // nh)
+    return {k: torch.zeros(shape, dtype=torch.float32, device=device) for k in SLSTM_STATE}

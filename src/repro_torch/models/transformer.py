@@ -1,5 +1,5 @@
-"""Backbone assembly for the dense, vlm, audio, MoE and hybrid families
-(port of ``repro.models.transformer``).
+"""Backbone assembly for the dense, vlm, audio, MoE, hybrid and ``ssm``
+families (port of ``repro.models.transformer``).
 
 Parameters are nested dicts of tensors laid out like the JAX package's tree:
 layers stacked on axis 0 (``layers.attn.w_q`` is ``[L, d, H, dh]``), so the
@@ -21,6 +21,15 @@ through ``decode_step`` (each Mamba2 block's recurrent state and conv
 window, one KV cache per application of the shared block); ``prefill``
 refuses it, as the JAX package's does, so a hybrid prompt is fed through
 ``decode_step`` a token at a time.
+
+The ``ssm`` family (xlstm-1.3b) runs super-blocks of ``slstm_period - 1``
+mLSTM blocks (``blocks.mlstm``, stacked ``[n_super, per, ...]``) and one
+sLSTM block (``blocks.slstm``, ``[n_super, ...]``), each behind an RMSNorm
+in a residual; its adapter tree has the groups ``mlstm`` and ``slstm``.
+``forward`` passes ``batch["reset"]`` to the mLSTM blocks only (the JAX
+``_run_xlstm``).  It decodes through ``decode_step`` (each block's
+recurrent state, no KV cache); ``prefill`` refuses it, as the JAX
+package's does.
 
 The dense family takes the gated (SwiGLU) MLP or the plain GELU one
 (``gated_mlp=False``, starcoder2), and q/k/v/o biases where the config has
@@ -108,14 +117,14 @@ def _slice_layer(tree: Any, i: int) -> Any:
 
 
 class Model:
-    """Dense, vlm, audio, MoE or hybrid backbone on one device
+    """Dense, vlm, audio, MoE, hybrid or ``ssm`` backbone on one device
     (``device="cuda"`` by default; raises without CUDA unless the caller
     passes ``device="cpu"``)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        if cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid"):
+        if cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
-                f"repro_torch runs dense, vlm, audio, MoE and hybrid backbones; "
+                f"repro_torch runs dense, vlm, audio, MoE, hybrid and ssm backbones; "
                 f"{cfg.name} ({cfg.family}) is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -147,6 +156,13 @@ class Model:
         }
         if cfg.family in ("dense", "vlm", "moe"):
             spec["layers"] = _stack_specs(layer, cfg.num_layers)
+            return spec
+        if cfg.family == "ssm":
+            n_super, per = cfg.num_layers // cfg.slstm_period, cfg.slstm_period - 1
+            mlstm_layer = {"ln": _norm_spec(d, False), "mlstm": ssm.mlstm_spec(cfg)}
+            slstm_layer = {"ln": _norm_spec(d, False), "slstm": ssm.slstm_spec(cfg)}
+            spec["blocks"] = {"mlstm": _stack_specs(_stack_specs(mlstm_layer, per), n_super),
+                              "slstm": _stack_specs(slstm_layer, n_super)}
             return spec
         if audio:
             enc_layer = {"ln1": _norm_spec(d, True), "attn": attn.attention_spec(cfg),
@@ -217,7 +233,8 @@ class Model:
         losses: the MoE family's ``moe_load_balance`` and ``moe_max_frac``,
         each summed over the layers (none in the other families).  The
         hybrid family reads the
-        segment starts ``batch["reset"]`` [B, S] too, and collects no k/v."""
+        segment starts ``batch["reset"]`` [B, S] too, and collects no k/v;
+        so does the ``ssm`` family, whose mLSTM blocks alone read them."""
         cfg = self.cfg
         x = embed_apply(params["embed"], batch["tokens"])
         kw = dict(positions=batch.get("positions"), segment_ids=batch.get("segment_ids"))
@@ -225,6 +242,8 @@ class Model:
         kv = None
         if cfg.family == "hybrid":
             x = self._run_hybrid(params, x, adapters, ctx_factory, reset=batch.get("reset"), **kw)
+        elif cfg.family == "ssm":
+            x = self._run_xlstm(params, x, adapters, ctx_factory, reset=batch.get("reset"))
         elif cfg.family == "audio":
             if collect_kv:
                 raise NotImplementedError("the audio family collects no k/v (it has no prefill)")
@@ -308,6 +327,40 @@ class Model:
                                   shared, ad_shared, ctx_factory, **kw)
         return x
 
+    # ---- xlstm ----
+
+    def _xlstm_blocks(self, params, adapters):
+        """Per super-block: its mLSTM blocks' parameters (stacked [per, ...])
+        and adapter slices, its sLSTM block's and its adapter slice."""
+        cfg = self.cfg
+        blocks = params["blocks"]
+        ad_m = adapters.get("mlstm") if isinstance(adapters, dict) else None
+        ad_s = adapters.get("slstm") if isinstance(adapters, dict) else None
+        for i in range(cfg.num_layers // cfg.slstm_period):
+            yield (_slice_layer(blocks["mlstm"], i),
+                   _slice_layer(ad_m, i) if ad_m is not None else None,
+                   _slice_layer(blocks["slstm"], i),
+                   _slice_layer(ad_s, i) if ad_s is not None else None)
+
+    def _run_xlstm(self, params, x, adapters, ctx_factory, *, reset):
+        """The super-blocks in order (the JAX ``_run_xlstm``, unrolled):
+        ``reset`` goes to the mLSTM blocks only."""
+        cfg = self.cfg
+
+        def scope(ad):
+            return adapter_scope(ctx_factory(ad) if ctx_factory and ad is not None else None)
+
+        for mb, adm, sb, ads in self._xlstm_blocks(params, adapters):
+            for j in range(cfg.slstm_period - 1):
+                lp = _slice_layer(mb, j)
+                with scope(_slice_layer(adm, j) if adm is not None else None):
+                    h = _apply_norm(lp["ln"], x, cfg.norm_eps)
+                    x = x + ssm.mlstm_apply(lp["mlstm"], h, cfg, reset=reset)
+            with scope(ads):
+                h = _apply_norm(sb["ln"], x, cfg.norm_eps)
+                x = x + ssm.slstm_apply(sb["slstm"], h, cfg)
+        return x
+
     # ---- audio (whisper) ----
 
     def _encode_audio(self, params, audio_embed: torch.Tensor) -> torch.Tensor:
@@ -387,9 +440,21 @@ class Model:
         The audio family adds the fixed cross caches ``cross_k`` /
         ``cross_v`` [L, B, Sa, Hkv, dh]: each decoder layer's ``_cross_kv``
         of the encoder's output over ``audio_embed`` [B, Sa, d] (with
-        ``params``), or zeros of ``max_source_positions`` rows without it."""
+        ``params``), or zeros of ``max_source_positions`` rows without it.
+        The ``ssm`` family has no cache: ``pos``, ``lo``, and each block's
+        state, ``mlstm`` (``ssm.mlstm_init_state``, stacked [n_super, per,
+        ...]) and ``slstm`` ([n_super, ...]), all f32."""
         cfg = self.cfg
         dev = self.device
+        if cfg.family == "ssm":
+            n_super, per = cfg.num_layers // cfg.slstm_period, cfg.slstm_period - 1
+            return {
+                "pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                "lo": torch.full((batch,), prefix_reserve, dtype=torch.int32, device=dev),
+                "mlstm": {k: v.expand((n_super, per) + v.shape).contiguous()
+                          for k, v in ssm.mlstm_init_state(cfg, batch, dev).items()},
+                "slstm": {k: v.expand((n_super,) + v.shape).contiguous()
+                          for k, v in ssm.slstm_init_state(cfg, batch, dev).items()}}
         hybrid = cfg.family == "hybrid"
         n_cache = cfg.num_layers // cfg.hybrid_period if hybrid else cfg.num_layers
         hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim()
@@ -474,12 +539,33 @@ class Model:
         embedding and runs each decoder layer's cross-attention over its
         fixed cross cache: the whole of it (``lo`` 0, ``len`` its rows),
         q rotated at the cache's row count as in the JAX package (whose
-        cross cache has no ``t``)."""
+        cross cache has no ``t``).  The ``ssm`` family runs each mLSTM
+        block's recurrent step and each sLSTM block's on their states
+        (updated in place)."""
         cfg = self.cfg
         pos = state["pos"]
         x = embed_apply(params["embed"], tokens)
-        kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
         new_state = dict(state, pos=pos + 1)
+
+        def scope(ad):
+            return adapter_scope(ctx_factory(ad) if ctx_factory and ad is not None else None)
+
+        if cfg.family == "ssm":
+            ml, sl = state["mlstm"], state["slstm"]
+            for i, (mb, adm, sb, ads) in enumerate(self._xlstm_blocks(params, adapters)):
+                for j in range(cfg.slstm_period - 1):
+                    lp = _slice_layer(mb, j)
+                    with scope(_slice_layer(adm, j) if adm is not None else None):
+                        h = _apply_norm(lp["ln"], x, cfg.norm_eps)
+                        x = x + ssm.mlstm_apply(lp["mlstm"], h, cfg,
+                                                state={"h": ml["h"][i, j]})
+                with scope(ads):
+                    h = _apply_norm(sb["ln"], x, cfg.norm_eps)
+                    x = x + ssm.slstm_apply(sb["slstm"], h, cfg,
+                                            state={k: v[i] for k, v in sl.items()})
+            x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
+            return self._logits(params, x), new_state
+        kc_all, vc_all = state["kv"]["k"], state["kv"]["v"]
         B = tokens.shape[0]
         mrope = pos.reshape(1, -1, 1).expand(3, B, 1).to(torch.int32) if cfg.mrope else None
         cross = None
@@ -496,9 +582,6 @@ class Model:
         def cache(i):
             return {"k": kc_all[i], "v": vc_all[i], "len": prefix_reserve + pos, "t": pos,
                     "lo": state["lo"]}
-
-        def scope(ad):
-            return adapter_scope(ctx_factory(ad) if ctx_factory and ad is not None else None)
 
         if cfg.family == "hybrid":
             mamba = dict(state["mamba"])

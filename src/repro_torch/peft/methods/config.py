@@ -1,5 +1,5 @@
 """Per-task adapter hyperparameters and the BaseOp dim inventory (port of
-``repro.peft.methods.config``, dense, vlm, audio, MoE and hybrid families)."""
+``repro.peft.methods.config``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -34,19 +34,25 @@ def supports_attention_prefix(cfg: ArchConfig) -> bool:
 
 
 def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
-    """(d_in, d_out) of every adapter-capable BaseOp of a dense, vlm, audio,
-    MoE or hybrid backbone: attention q/k/v/o (on audio the decoder's self-
-    and cross-attention share them); the gated MLP (gate / up / down) or
-    the plain one (fc1 / fc2), or in the MoE family
-    the shared experts' MLP (its routed experts are direct products, no
-    BaseOp); and in the hybrid family the Mamba2 in-projection (to [z, x,
-    B, C, dt]) and out-projection."""
-    if cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid"):
-        raise NotImplementedError(f"the port runs the dense, vlm, audio, MoE and hybrid "
-                                  f"families, not {cfg.family}")
-    d = cfg.d_model
+    """(d_in, d_out) of every adapter-capable BaseOp of a backbone:
+    attention q/k/v/o (on audio the decoder's self- and cross-attention
+    share them); the gated MLP (gate / up / down) or the plain one (fc1 /
+    fc2), or in the MoE family the shared experts' MLP (its routed experts
+    are direct products, no BaseOp); in the hybrid family the Mamba2
+    in-projection (to [z, x, B, C, dt]) and out-projection; in the ``ssm``
+    family the mLSTM's q / k / v on the inner width d_in = ssm_expand * d,
+    its up-projection ``ssm_in`` (d, 2 d_in) and down-projection
+    ``ssm_out`` (d_in, d) (and, as in the JAX package, the MLP's sites where
+    a config has a d_ff: xlstm-1.3b has none, its ``smoke_config`` has).
+    The sLSTM block's projections share those two
+    names: its w_in (d, 4 d) matches ``ssm_in``, its w_out (d, d) does not
+    match ``ssm_out`` (the JAX package's declaration; see
+    ``repro_torch.models.ssm.slstm_apply``)."""
+    d, d_in = cfg.d_model, cfg.ssm_expand * cfg.d_model
     dims: Dict[str, Tuple[int, int]] = {}
-    if cfg.attention != "none":
+    if cfg.family == "ssm":
+        dims.update({"attn_q": (d_in, d_in), "attn_k": (d_in, d_in), "attn_v": (d_in, d_in)})
+    elif cfg.attention != "none":
         qd, kvd = cfg.q_dim, cfg.kv_dim
         dims.update({"attn_q": (d, qd), "attn_k": (d, kvd), "attn_v": (d, kvd),
                      "attn_o": (qd, d)})
@@ -61,7 +67,8 @@ def base_op_dims(cfg: ArchConfig) -> Dict[str, Tuple[int, int]]:
     elif cfg.d_ff:  # the plain GELU MLP (starcoder2, whisper)
         dims.update({"mlp_fc1": (d, cfg.d_ff), "mlp_fc2": (cfg.d_ff, d)})
     if cfg.family == "hybrid":
-        d_in = cfg.ssm_expand * d
         nh = d_in // cfg.ssm_head_dim
         dims.update({"ssm_in": (d, 2 * d_in + 2 * cfg.ssm_state + nh), "ssm_out": (d_in, d)})
+    if cfg.family == "ssm":
+        dims.update({"ssm_in": (d, 2 * d_in), "ssm_out": (d_in, d)})
     return dims

@@ -1,11 +1,12 @@
 """Multi-task adapter state + the spatially fused Dispatch/Aggregate rule
-(port of ``repro.peft.multitask``, dense, vlm, audio, MoE and hybrid families).
+(port of ``repro.peft.multitask``).
 
 ``TaskSegments`` is the static row -> task map of a fused (hTask) batch and
 reduces per-token losses to per-task means.  ``MultiTaskAdapters`` builds
 one stacked parameter tree per PEFT kind (``{kind: {site: {leaf: [L,
 capacity, ...]}}}``, the JAX package's layout; the hybrid family has two
-such groups, ``{"mamba": ..., "shared_attn": ...}``), so the model slices
+such groups, ``{"mamba": ..., "shared_attn": ...}``, the ``ssm`` family
+``{"mlstm": ..., "slstm": ...}``), so the model slices
 adapters per layer beside the backbone weights.  A kind's stack may hold
 more slots than live tasks (``kind_capacity``) and each task owns an
 explicit slot (``task_slot``): unused slots hold fresh-init values that no
@@ -156,10 +157,18 @@ class MultiTaskAdapters:
         stacked over the layers (dense, vlm, MoE; on audio over the decoder's
         layers, the encoder carrying none), or the hybrid family's two groups,
         ``mamba`` stacked ``[n_super, per, ...]`` over the Mamba2 sites and
-        ``shared_attn`` unstacked over the rest."""
+        ``shared_attn`` unstacked over the rest, or the ``ssm`` family's
+        ``mlstm`` stacked ``[n_super, per, ...]`` over every site and
+        ``slstm`` ``[n_super, ...]`` over ``ssm_in`` / ``ssm_out``."""
         cfg = self.cfg
         if cfg.family in ("dense", "vlm", "moe", "audio"):
             return self._stack(self._per_layer_spec(), cfg.num_layers)
+        if cfg.family == "ssm":
+            n_super = cfg.num_layers // cfg.slstm_period
+            return {
+                "mlstm": self._stack(self._per_layer_spec(), n_super, cfg.slstm_period - 1),
+                "slstm": self._stack(self._per_layer_spec({"ssm_in", "ssm_out"}), n_super),
+            }
         n_super = cfg.num_layers // cfg.hybrid_period
         ssm_targets = {"ssm_in", "ssm_out"}
         return {

@@ -110,7 +110,9 @@ def _tasks(make, config_cls):
 # ---------------------------------------------------------------------------
 
 B_, S_, H_, D_, Q_ = 2, 64, 2, 8, 16  # n = 4 chunks
-SCAN_CASES = ("resets_h0", "no_reset_h0", "no_reset")
+# xlstm_resets_h0: resets_h0 with the mLSTM's shape, dv = dk + 1 (the
+# normalizer column of v)
+SCAN_CASES = ("resets_h0", "no_reset_h0", "no_reset", "xlstm_resets_h0")
 
 
 def _scan_inputs(case):
@@ -118,18 +120,20 @@ def _scan_inputs(case):
     them (``test_kernel_grads.py``: k and the state cotangent scaled by 0.3,
     h0 by 0.5, Mamba-like gates), from a numpy seed."""
     rs = np.random.RandomState(5)
+    dv = D_ + 1 if case.startswith("xlstm_") else D_
+    case = case.removeprefix("xlstm_")
 
     def softplus(x):
         return np.log1p(np.exp(x))
 
     q = rs.randn(B_, S_, H_, D_).astype(np.float32)
     k = (rs.randn(B_, S_, H_, D_) * 0.3).astype(np.float32)
-    v = rs.randn(B_, S_, H_, D_).astype(np.float32)
+    v = rs.randn(B_, S_, H_, dv).astype(np.float32)
     la = (-softplus(rs.randn(B_, S_, H_))).astype(np.float32)
     li = np.log(softplus(rs.randn(B_, S_, H_)) + 1e-3).astype(np.float32)
-    h0 = (rs.randn(B_, H_, D_, D_) * 0.5).astype(np.float32)
-    w = rs.randn(B_, S_, H_, D_).astype(np.float32)
-    w2 = (rs.randn(B_, H_, D_, D_) * 0.3).astype(np.float32)
+    h0 = (rs.randn(B_, H_, D_, dv) * 0.5).astype(np.float32)
+    w = rs.randn(B_, S_, H_, dv).astype(np.float32)
+    w2 = (rs.randn(B_, H_, D_, dv) * 0.3).astype(np.float32)
     reset = None
     if case == "resets_h0":
         # chunk starts (16, 32), inside chunks (5, 21, 40, 63), position 0
@@ -183,7 +187,7 @@ def test_mamba_scan_plain_matches_jax(case, ref):
     arrays, reset, w, w2 = _scan_inputs(case)
     fn = _jax_scan(ref, reset)
     h0_given = arrays[5] is not None
-    jarr = [jnp.asarray(a) if a is not None else jnp.zeros((B_, H_, D_, D_), jnp.float32)
+    jarr = [jnp.asarray(a) if a is not None else jnp.zeros(w2.shape, jnp.float32)
             for a in arrays]
 
     def jloss(*xs):
@@ -250,12 +254,103 @@ def test_mamba_scan_backward_kernels_plain_match_autograd(case):
         np.testing.assert_allclose(y2.numpy(), y1[:, c * Q_:(c + 1) * Q_].numpy(), **F32)
 
 
+def _tiled_inputs(dk, dv, h0=True):
+    """A two-chunk scan at (dk, dv) with resets and a non-zero h0, f32."""
+    rs = np.random.RandomState(11)
+    B, S, H = 2, 32, 2
+    q = torch.from_numpy(rs.randn(B, S, H, dk).astype(np.float32))
+    k = torch.from_numpy((rs.randn(B, S, H, dk) * 0.3).astype(np.float32))
+    v = torch.from_numpy(rs.randn(B, S, H, dv).astype(np.float32))
+    la = torch.from_numpy((-np.log1p(np.exp(rs.randn(B, S, H)))).astype(np.float32))
+    li = torch.from_numpy((rs.randn(B, S, H) * 0.3).astype(np.float32))
+    r = torch.zeros((B, S), dtype=torch.int32)
+    r[0, [0, 7, 16]] = 1
+    r[1, 21] = 1
+    la = torch.where(r[:, :, None] > 0, torch.zeros_like(la), la)
+    h0_ = torch.from_numpy((rs.randn(B, H, dk, dv) * 0.5).astype(np.float32)) if h0 \
+        else torch.zeros((B, H, dk, dv))
+    return q, k, v, la, li, r, h0_
+
+
+def test_tiled_scan_decomposition_equals_the_plain_scan():
+    """What the tiled forward kernel computes, in plain PyTorch at (dk, dv)
+    = (128, 129): v and h0 padded with zero columns to 192 = 3 x 64, one
+    scan per (64-wide dk tile, 64-wide dv tile) from that tile of h0, the
+    f32 y of each dk tile summed over the dk tiles in order, the tiles'
+    final states side by side; y and the final state within f32 rounding
+    (1e-5 of the largest |value|) of ``mamba_scan_plain`` over the whole
+    state, the padded columns exactly 0."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    T = ms.TILE
+    q, k, v, la, li, r, h0 = _tiled_inputs(128, 129)
+    y_ref, h_ref = ms.mamba_scan_plain(q, k, v, la, li, r, h0, 16)
+    vp = torch.nn.functional.pad(v, (0, 192 - 129))
+    h0p = torch.nn.functional.pad(h0, (0, 192 - 129))
+    y = torch.zeros(vp.shape)
+    h = torch.zeros(h0p.shape)
+    for kd in range(128 // T):
+        ks = slice(kd * T, (kd + 1) * T)
+        for vd in range(192 // T):
+            vs = slice(vd * T, (vd + 1) * T)
+            y_t, h_t = ms.mamba_scan_plain(q[..., ks], k[..., ks], vp[..., vs], la, li, r,
+                                           h0p[:, :, ks, vs].contiguous(), 16)
+            y[..., vs] += y_t  # f32 (q is f32): the tile sum's order, kd = 0, 1
+            h[:, :, ks, vs] = h_t
+    assert torch.count_nonzero(y[..., 129:]) == 0 and torch.count_nonzero(h[..., 129:]) == 0
+    for name, got, want in (("y", y[..., :129], y_ref), ("h", h[..., :129], h_ref)):
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), (name, err)
+
+
+@pytest.mark.parametrize("dims", [(64, 65), (32, 33)])
+def test_tile_padded_equals_the_unpadded_scan_bit_for_bit(dims):
+    """``ops.tile_padded`` (what ``ops.mamba_scan`` wraps the tiled kernel in
+    on the card) on the plain version: dv (and dk, below 64) padded with
+    zero columns to multiples of 64 and y and the final state sliced back
+    give the unpadded scan's bits, in f32 and in bf16."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    q, k, v, la, li, r, h0 = _tiled_inputs(*dims)
+    for dt in (torch.float32, torch.bfloat16):
+        a = [t.to(dt) for t in (q, k, v)]
+        y1, h1 = ms.mamba_scan_plain(*a, la, li, r, h0, 16)
+        y2, h2 = ops.tile_padded(ms.mamba_scan_plain, *a, la, li, r, h0, 16)
+        assert y2.shape == y1.shape and h2.shape == h1.shape
+        assert torch.equal(y1, y2) and torch.equal(h1, h2), dt
+
+
+def test_mamba_scan_refuses_a_gradient_off_64_on_the_card(monkeypatch):
+    """On the card ``ops.mamba_scan`` takes the tiled forward at any (dk, dv)
+    but (64, 64), and raises, naming the missing backward, when a gradient
+    is to be taken there: nothing falls back to the plain version.  (The
+    card's branch is taken here on CPU tensors; it raises before any
+    launch.)"""
+    from repro_torch.kernels import mamba_scan as ms
+
+    def no_launch(*a, **kw):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(ops, "_use_kernel", lambda t, part: part not in ops._plain)
+    monkeypatch.setattr(ms, "mamba_scan_tiled_cuda", no_launch)
+    q, k, v, la, li, r, _ = _tiled_inputs(64, 65, h0=False)
+    q = q.to(torch.bfloat16).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="backward"):
+        ops.mamba_scan(q, k.to(torch.bfloat16), v.to(torch.bfloat16), la, li, chunk=16,
+                       reset=r)
+    with torch.no_grad(), pytest.raises(AssertionError, match="launched"):
+        ops.mamba_scan(q, k.to(torch.bfloat16), v.to(torch.bfloat16), la, li, chunk=16,
+                       reset=r)
+
+
 @pytest.mark.parametrize("kernel", ["mamba_scan_fwd", "mamba_scan_bwd_state",
-                                    "mamba_scan_bwd_chunk"])
+                                    "mamba_scan_bwd_chunk", "mamba_scan_fwd_tiled"])
 def test_mamba_scan_smem_bytes_follow_the_cuda_source(kernel):
     """``smem_bytes`` (which chip_smoke holds the card's own report,
     ``occupancy``, to) against the C source: the constants its formula
-    assumes are the source's; the three kernels share one layout of 98,464
+    assumes are the source's; the four kernels (the tiled forward at a
+    large state among them: the (64, 64) forward's body on one 64 x 64
+    tile, kind 3 of ``mamba_scan_occupancy``) share one layout of 98,464
     bytes at any chunk, so two blocks share an H100 SM (233,472 bytes, 1 KB
     reserved a block), and the state backward's f32 output stages fit in
     the room of the state's three bf16 terms.  Bad arguments are refused
@@ -271,6 +366,8 @@ def test_mamba_scan_smem_bytes_follow_the_cuda_source(kernel):
         "D": "64", "MMA_THREADS": "128", "TR": "64", "DP": "D + 8", "STAGES": "3",
         "QMAX": "256", "MAX_ITEMS": "32"}
     assert "TP" not in consts and "SB" not in consts  # the CUDA-core kernel's tiles are gone
+    assert ms.TILE == int(consts["D"]) and ms._KINDS[kernel] <= 3
+    assert "kind < 0 || kind > 3" in src and "mamba_scan_fwd_tiled_kernel" in src
     assert "static_assert(4 * 16 * (D + 8) * sizeof(float) <= kSplitBytes" in src
     assert 4 * 16 * (64 + 8) * 4 <= 3 * 64 * 72 * 2
     got = {Q: ms.smem_bytes(kernel, Q) for Q in (1, 40, 64, 65, 256)}

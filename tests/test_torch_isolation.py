@@ -89,7 +89,7 @@ def test_registry_lists_only_ported_configs():
 
     assert ARCH_NAMES == ("llama3.2-3b", "smollm-360m", "zamba2-2.7b", "deepseek-moe-16b",
                           "qwen3-moe-235b-a22b", "starcoder2-7b", "yi-34b", "qwen2-vl-7b",
-                          "whisper-large-v3")
+                          "whisper-large-v3", "xlstm-1.3b")
     assert get_config("llama3.2-3b").num_layers == 28
     assert get_config("smollm-360m").num_layers == 32
     assert get_config("zamba2-2.7b").num_layers == 54
@@ -99,5 +99,6 @@ def test_registry_lists_only_ported_configs():
     assert get_config("yi-34b").num_layers == 60
     assert get_config("qwen2-vl-7b").mrope
     assert get_config("whisper-large-v3").num_encoder_layers == 32
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("xlstm-1.3b")
+    assert get_config("xlstm-1.3b").slstm_period == 8
+    with pytest.raises(KeyError, match="unknown configuration"):
+        get_config("xlstm-7b")
