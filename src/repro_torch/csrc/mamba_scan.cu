@@ -116,6 +116,24 @@
 // each run).  Every tile recomputes its chunk's decays and the q . k scores
 // of its 64 columns, so the work is dv / 64 times the scores and dk / 64
 // times the P v products of one pass over the whole state.
+//
+// The tiled backward takes the same tiles.  The state backward's update
+// G <- cdec G + sum_i ec_i q_i (x) dy_i is an outer product of q's dk columns
+// and dy's dv columns, so tile (kd, vd) of G is the (64, 64) state backward
+// of q's columns kd and dy's columns vd from that tile of dhf, exactly, with
+// no sum across blocks (`bwd_state_body<true>`; dy is padded to dv like v).
+// The chunk backward is bilinear like the forward: p = dy . v sums over dv
+// and s = q . k over dk, so tile (kd, vd) of a chunk gives the share of dv
+// tile vd in dq and dk (their columns kd) and the share of dk tile kd in dv
+// (its columns vd), from its tiles of H_in and G_exit.  One block per (tile,
+// b, h, chunk) runs the chunk backward's body on its strides
+// (`bwd_chunk_body<true>`) and writes those shares in f32: dq and dk to
+// plane vd of [dv / 64][B, S, H, dk] scratches, dv to plane kd of a
+// [dk / 64][B, S, H, dv] one.  `mamba_scan_bwd_tile_sum_kernel` then sums
+// each row's planes in order (vd = 0, 1, ... for dq and dk, kd = 0, 1, ...
+// for dv), rounds once to bf16 and forms dcum = q . dq - k . dk and dli =
+// k . dk from the f32 sums over the whole dk (no atomics: the same bits
+// each run).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -149,8 +167,11 @@ struct Args {
   float* dcum;         // [B, S, H]
   float* dli;
   float* ypart;        // tiled forward: partial y [dk / 64][B, S, H, dv] f32
+  float* dqpart;       // tiled chunk bwd: partial dq [dv / 64][B, S, H, dk] f32
+  float* dkpart;       // tiled chunk bwd: partial dk [dv / 64][B, S, H, dk] f32
+  float* dvpart;       // tiled chunk bwd: partial dv [dk / 64][B, S, H, dv] f32
   int S, H, Q, n;
-  int kdim, vdim;      // tiled forward: the state's dk, dv (multiples of 64); else 64
+  int kdim, vdim;      // tiled kernels: the state's dk, dv (multiples of 64); else 64
   int want_dh0;        // state bwd: dh0 is wanted (else the first chunk's products are skipped)
 };
 
@@ -520,7 +541,8 @@ __device__ void warp_cumsum(const Args& a, int b, int t0, int h, float* cum) {
 
 // A chunk's set-up, ending with a barrier: the vectors over its QMAX rows
 // (two per thread), the ring's work list and, when `state` is not null, the
-// f32 state [D][D] there as three bf16 terms; returns whether any value of
+// f32 state [D][D] there (STRIDED: rows `srow` apart, a tile of a larger
+// state) as three bf16 terms; returns whether any value of
 // that state is not 0 (a state of zeros adds nothing, and its products are
 // skipped).  The reset counts' inclusive
 // sums seg come from a shuffle scan (the lanes' runs, then the warps in
@@ -529,8 +551,9 @@ __device__ void warp_cumsum(const Args& a, int b, int t0, int h, float* cum) {
 // split the state.  Then gain, ec and w once
 // per row.  Rows at or past Q read la = 0 and no reset, so they carry
 // cum_last and seg_last; their gain, ec and w are 0.
+template <bool STRIDED = false>
 __device__ bool chunk_prologue(const Args& a, int b, int t0, int h, const Smem& s, int nt,
-                               bool dkv, const float* state) {
+                               bool dkv, const float* state, size_t srow = D) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, Q = a.Q;
   float li[2] = {0.f, 0.f};
   int rc[2] = {0, 0};
@@ -562,7 +585,9 @@ __device__ bool chunk_prologue(const Args& a, int b, int t0, int h, const Smem& 
     if (tid == 32) fill_items(s, nt, dkv);
     if (state != nullptr)
       for (int i = tid - 32; i < D * D / 2; i += MMA_THREADS - 32) {
-        const float2 x = reinterpret_cast<const float2*>(state)[i];
+        const float2 x = STRIDED
+                             ? *reinterpret_cast<const float2*>(state + (2 * i / D) * srow + 2 * i % D)
+                             : reinterpret_cast<const float2*>(state)[i];
         nonzero |= x.x != 0.f || x.y != 0.f;
         split_pair(s.split, i, x);
       }
@@ -883,26 +908,51 @@ __global__ void mamba_scan_tile_sum_kernel(const float* __restrict__ part, bf16*
   *reinterpret_cast<uint2*>(y + i) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
 }
 
+
 // ---- chunk backward ----------------------------------------------------------
 
-__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// The chunk backward of one (b, h) and chunk.  TILED: the block computes
+// tile (kd, vd) of a [dk, dv] state (blockIdx.x = kd * dv / 64 + vd,
+// blockIdx.y = b * H + h, blockIdx.z = the chunk): the (64, 64) body on q
+// and k's columns kd * 64 .. + 63, v and dy's columns vd * 64 .. + 63 and
+// those tiles of H_in and G_exit.  Its dq and dk (columns kd) are the share
+// of dv tile vd, its dv (columns vd) the share of dk tile kd; they leave in
+// f32 to plane vd of `dqpart` / `dkpart` and plane kd of `dvpart`, and
+// `mamba_scan_bwd_tile_sum_kernel` sums the planes and forms dcum and dli.
+// Otherwise dk = dv = 64: dq, dk and dv leave as bf16, dcum and dli are
+// formed here.
+template <bool TILED>
+__device__ __forceinline__ void bwd_chunk_body(const Args& a, unsigned char* smem_raw) {
   const Smem s = carve(smem_raw);
-  const int bh = blockIdx.x, c = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  int bh = blockIdx.x, c = blockIdx.y, kd = 0, vd = 0;
+  if (TILED) {
+    bh = blockIdx.y;
+    c = blockIdx.z;
+    kd = blockIdx.x / (a.vdim / D);
+    vd = blockIdx.x % (a.vdim / D);
+  }
+  const int b = bh / a.H, h = bh % a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const int Q = a.Q, nt = (Q + TR - 1) / TR, t0 = c * Q;
-  const size_t stride = static_cast<size_t>(a.H) * D;
-  const size_t base = row_off(a, b, t0, h) * D;
-  const size_t soff = (static_cast<size_t>(bh) * a.n + c) * D * D;
+  const size_t stride = static_cast<size_t>(a.H) * (TILED ? a.kdim : D);  // q, k rows
+  const size_t vstride = TILED ? static_cast<size_t>(a.H) * a.vdim : stride;  // v, dy rows
+  const size_t base = row_off(a, b, t0, h) * (TILED ? a.kdim : D) + (TILED ? kd * D : 0);
+  const size_t vbase = TILED ? row_off(a, b, t0, h) * a.vdim + vd * D : base;
+  const size_t srow = TILED ? a.vdim : D;  // a state's rows
+  const size_t soff =
+      (static_cast<size_t>(bh) * a.n + c) * (TILED ? static_cast<size_t>(a.kdim) * a.vdim : D * D) +
+      (TILED ? static_cast<size_t>(kd) * D * a.vdim + vd * D : 0);  // the tile of H_in / G_exit
+  // one [B, S, H, dk] (or dv) plane of the tiled partials
+  const size_t plane = static_cast<size_t>(gridDim.y) * a.S;
 
-  // each dq round's dy and q fragments are loaded a round ahead, the first
-  // round's while the set-up runs
+  // each dq round's dy (and, untiled, q) fragments are loaded a round
+  // ahead, the first round's while the set-up runs
   uint32_t dyn[4][4], qn[4][4];
-  load_a_rows(dyn, a.dy + base, stride, (nt - 1) * TR + warp * 16, Q);
-  load_a_rows(qn, a.q + base, stride, (nt - 1) * TR + warp * 16, Q);
-  const bool hin_live = chunk_prologue(a, b, t0, h, s, nt, true, a.hin + soff);
-  const Ring ring{s, a.k + base, a.v + base, a.q + base, a.dy + base, stride, Q,
-                  s.items[MAX_ITEMS]};
+  load_a_rows(dyn, a.dy + vbase, vstride, (nt - 1) * TR + warp * 16, Q);
+  if (!TILED) load_a_rows(qn, a.q + base, stride, (nt - 1) * TR + warp * 16, Q);
+  const bool hin_live = chunk_prologue<TILED>(a, b, t0, h, s, nt, true, a.hin + soff, srow);
+  const RingT<TILED> ring{s, a.k + base, a.v + vbase, a.q + base, a.dy + vbase, stride, Q,
+                          s.items[MAX_ITEMS], TILED ? vstride : 0};
   ring.start();
   const int last = s.seg[Q - 1];
   bf16* stage = s.stage + warp * 16 * DP;
@@ -914,10 +964,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Ar
     const int i0 = qt * TR + warp * 16;
     uint32_t dyf[4][4], qf[4][4];
     take(dyf, dyn);
-    take(qf, qn);
+    if (!TILED) take(qf, qn);
     if (qt > 0) {
-      load_a_rows(dyn, a.dy + base, stride, i0 - TR, Q);
-      load_a_rows(qn, a.q + base, stride, i0 - TR, Q);
+      load_a_rows(dyn, a.dy + vbase, vstride, i0 - TR, Q);
+      if (!TILED) load_a_rows(qn, a.q + base, stride, i0 - TR, Q);
     }
     // the last round also brings G_exit into registers; its split replaces
     // H_in's once every warp has read H_in (past the round's first barrier)
@@ -925,8 +975,12 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Ar
     float2 gpre[GP];
     if (qt == 0)
 #pragma unroll
-      for (int i = 0; i < GP; ++i)
-        gpre[i] = reinterpret_cast<const float2*>(a.gexit + soff)[threadIdx.x + i * MMA_THREADS];
+      for (int i = 0; i < GP; ++i) {
+        const int p = threadIdx.x + i * MMA_THREADS;  // the element pair (2p / D, 2p % D)
+        gpre[i] = TILED
+                      ? *reinterpret_cast<const float2*>(a.gexit + soff + (2 * p / D) * srow + 2 * p % D)
+                      : reinterpret_cast<const float2*>(a.gexit + soff)[p];
+      }
     float cum_r[2];
     int seg_r[2];
 #pragma unroll
@@ -979,13 +1033,17 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Ar
         slab_apply(dq, pa, kt_s + sb * 16 * DP);  // P k_j
       }
     }
-    float qdq[2];
-    row_dots(qf, dq, qdq);
-    if (t4 == 0) {
-      s.qdq[i0 + g] = qdq[0];
-      s.qdq[i0 + g + 8] = qdq[1];
+    if (TILED) {  // plane vd of the partial dq
+      store_rows_f32(dq, a.dqpart + vd * plane * a.kdim + base, stride, i0, Q);
+    } else {
+      float qdq[2];
+      row_dots(qf, dq, qdq);
+      if (t4 == 0) {
+        s.qdq[i0 + g] = qdq[0];
+        s.qdq[i0 + g + 8] = qdq[1];
+      }
+      store_rows(dq, stage, a.dq + base, stride, i0, Q);
     }
-    store_rows(dq, stage, a.dq + base, stride, i0, Q);
   }
 
   // (G_exit's split and every warp's q . dq rows are written) a zero G_exit
@@ -996,7 +1054,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Ar
   for (int kt = 0; kt < nt; ++kt) {
     const int j0 = kt * TR + warp * 16;
     uint32_t vf[4][4], kf[4][4];
-    load_a_rows(vf, a.v + base, stride, j0, Q);
+    load_a_rows(vf, a.v + vbase, vstride, j0, Q);
     load_a_rows(kf, a.k + base, stride, j0, Q);
     float cum_r[2], gain_r[2];
     int seg_r[2];
@@ -1057,23 +1115,110 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Ar
         slab_apply(dv, pa, dyt_s + sb * 16 * DP);  // P2^T dy_i
       }
     }
-    float kdk[2];
-    row_dots(kf, dk, kdk);
-    if (t4 == 0) {
+    if (TILED) {  // plane vd of the partial dk, plane kd of the partial dv
+      store_rows_f32(dk, a.dkpart + vd * plane * a.kdim + base, stride, j0, Q);
+      store_rows_f32(dv, a.dvpart + kd * plane * a.vdim + vbase, vstride, j0, Q);
+    } else {
+      float kdk[2];
+      row_dots(kf, dk, kdk);
+      if (t4 == 0) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = j0 + g + 8 * i;
-        if (row < Q) {
-          const size_t ro = row_off(a, b, t0 + row, h);
-          a.dli[ro] = kdk[i];
-          a.dcum[ro] = s.qdq[row] - kdk[i];
+        for (int i = 0; i < 2; ++i) {
+          const int row = j0 + g + 8 * i;
+          if (row < Q) {
+            const size_t ro = row_off(a, b, t0 + row, h);
+            a.dli[ro] = kdk[i];
+            a.dcum[ro] = s.qdq[row] - kdk[i];
+          }
         }
       }
+      store_rows(dk, stage, a.dk + base, stride, j0, Q);
+      store_rows(dv, stage, a.dv + base, stride, j0, Q);
     }
-    store_rows(dk, stage, a.dk + base, stride, j0, Q);
-    store_rows(dv, stage, a.dv + base, stride, j0, Q);
   }
   cp_async_wait<0>();  // (only empty groups are left)
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_chunk_body<false>(a, smem_raw);
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_tiled_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_chunk_body<true>(a, smem_raw);
+}
+
+constexpr int SUM_THREADS = 256;  // the tiled chunk backward's sum: a block a row
+
+// The tiled chunk backward's second launch, one block per row (b, t, h):
+// dq and dk as the sums of their dv / 64 partial planes (vd = 0, 1, ... in
+// turn) and dv of its dk / 64 planes (kd = 0, 1, ...), each rounded once to
+// bf16; dli = k . dk and dcum = q . dq - dli from the f32 sums over the whole
+// dk: each thread's four-column groups in order, then the lanes by a shuffle
+// tree, then the warps in order (a fixed order: the same bits each run).
+__global__ void __launch_bounds__(SUM_THREADS) mamba_scan_bwd_tile_sum_kernel(Args a) {
+  __shared__ float part[2][SUM_THREADS / 32];
+  const size_t row = blockIdx.x, rows = gridDim.x;
+  const int nk = a.kdim / D, nv = a.vdim / D, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t pk = rows * a.kdim, pv = rows * a.vdim;  // one plane
+  float qdq = 0.f, kdk = 0.f;
+  for (int i = threadIdx.x * 4; i < a.kdim; i += SUM_THREADS * 4) {
+    const size_t o = row * a.kdim + i;
+    float4 dq = *reinterpret_cast<const float4*>(a.dqpart + o);
+    float4 dk = *reinterpret_cast<const float4*>(a.dkpart + o);
+    for (int vd = 1; vd < nv; ++vd) {
+      const float4 x = *reinterpret_cast<const float4*>(a.dqpart + vd * pk + o);
+      const float4 y = *reinterpret_cast<const float4*>(a.dkpart + vd * pk + o);
+      dq.x += x.x;
+      dq.y += x.y;
+      dq.z += x.z;
+      dq.w += x.w;
+      dk.x += y.x;
+      dk.y += y.y;
+      dk.z += y.z;
+      dk.w += y.w;
+    }
+    const uint2 qr = *reinterpret_cast<const uint2*>(a.q + o);
+    const uint2 kr = *reinterpret_cast<const uint2*>(a.k + o);
+    const float2 q0 = bf16x2_to_float2(qr.x), q1 = bf16x2_to_float2(qr.y);
+    const float2 k0 = bf16x2_to_float2(kr.x), k1 = bf16x2_to_float2(kr.y);
+    qdq += ((q0.x * dq.x + q0.y * dq.y) + q1.x * dq.z) + q1.y * dq.w;
+    kdk += ((k0.x * dk.x + k0.y * dk.y) + k1.x * dk.z) + k1.y * dk.w;
+    *reinterpret_cast<uint2*>(a.dq + o) = make_uint2(pack_bf16(dq.x, dq.y), pack_bf16(dq.z, dq.w));
+    *reinterpret_cast<uint2*>(a.dk + o) = make_uint2(pack_bf16(dk.x, dk.y), pack_bf16(dk.z, dk.w));
+  }
+  for (int i = threadIdx.x * 4; i < a.vdim; i += SUM_THREADS * 4) {
+    const size_t o = row * a.vdim + i;
+    float4 dv = *reinterpret_cast<const float4*>(a.dvpart + o);
+    for (int kd = 1; kd < nk; ++kd) {
+      const float4 x = *reinterpret_cast<const float4*>(a.dvpart + kd * pv + o);
+      dv.x += x.x;
+      dv.y += x.y;
+      dv.z += x.z;
+      dv.w += x.w;
+    }
+    *reinterpret_cast<uint2*>(a.dv + o) = make_uint2(pack_bf16(dv.x, dv.y), pack_bf16(dv.z, dv.w));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    qdq += __shfl_xor_sync(0xffffffffu, qdq, off);
+    kdk += __shfl_xor_sync(0xffffffffu, kdk, off);
+  }
+  if (lane == 0) {
+    part[0][warp] = qdq;
+    part[1][warp] = kdk;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sq = 0.f, sk = 0.f;
+    for (int w = 0; w < SUM_THREADS / 32; ++w) {
+      sq += part[0][w];
+      sk += part[1][w];
+    }
+    a.dli[row] = sk;
+    a.dcum[row] = sq - sk;
+  }
 }
 
 // ---- state backward -------------------------------------------------------------
@@ -1101,10 +1246,11 @@ __device__ int chunk_first_reset(const Args& a, int b, int t0, const Smem& s, bo
   return fr;
 }
 
-// A warp's 16 rows x 64 of an f32 [D][D] state (C fragments) to dst through
-// its own [16][D + 8] f32 stage, 16-byte stores of whole rows
+// A warp's 16 rows x 64 of an f32 [D][D] state (C fragments) to dst (its
+// rows `drow` apart) through its own [16][D + 8] f32 stage, 16-byte stores
+// of whole rows
 __device__ __forceinline__ void store_state_rows(const float (&acc)[8][4], float* stage,
-                                                 float* dst) {
+                                                 float* dst, size_t drow) {
   constexpr int SP = D + 8;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   __syncwarp();  // the stage's previous rows have left
@@ -1118,7 +1264,7 @@ __device__ __forceinline__ void store_state_rows(const float (&acc)[8][4], float
 #pragma unroll
   for (int i = lane; i < 16 * D / 4; i += 32) {
     const int r = i / (D / 4), c = i % (D / 4);
-    *reinterpret_cast<float4*>(dst + r * D + c * 4) =
+    *reinterpret_cast<float4*>(dst + r * drow + c * 4) =
         *reinterpret_cast<const float4*>(stage + r * SP + c * 4);
   }
 }
@@ -1133,33 +1279,51 @@ __device__ __forceinline__ void store_state_rows(const float (&acc)[8][4], float
 // and the ring loads only tiles that start before it: on a packed training
 // batch, whose rows open with a reset, no q or dy is read at all.  Without
 // want_dh0 the first chunk's products, which feed only dh0, are skipped.
-__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+// TILED: the block carries tile (kd, vd) of a [dk, dv] G (blockIdx.x = kd *
+// dv / 64 + vd, blockIdx.y = b * H + h) from that tile of dhf, on q's
+// columns kd * 64 .. + 63 and dy's columns vd * 64 .. + 63: the update is an
+// outer product, so the tile is exact on its own, and gexit and dh0 are
+// written tile by tile.
+template <bool TILED>
+__device__ __forceinline__ void bwd_state_body(const Args& a, unsigned char* smem_raw) {
   const Smem s = carve(smem_raw);
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  int bh = blockIdx.x, kd = 0, vd = 0;
+  if (TILED) {
+    bh = blockIdx.y;
+    kd = blockIdx.x / (a.vdim / D);
+    vd = blockIdx.x % (a.vdim / D);
+  }
+  const int b = bh / a.H, h = bh % a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const int Q = a.Q;
-  const size_t stride = static_cast<size_t>(a.H) * D;
+  const size_t stride = static_cast<size_t>(a.H) * (TILED ? a.kdim : D);  // q rows
+  const size_t ystride = TILED ? static_cast<size_t>(a.H) * a.vdim : stride;  // dy rows
+  const size_t srow = TILED ? a.vdim : D;  // a state's rows
+  const size_t sstate = TILED ? static_cast<size_t>(a.kdim) * a.vdim : D * D;  // one (b, h) state
+  const size_t soff = TILED ? static_cast<size_t>(kd) * D * a.vdim + vd * D : 0;  // the tile's
   const int d0 = warp * 16;
   // the state split's room, unused here, is each warp's f32 output stage
   float* stage = reinterpret_cast<float*>(s.split) + warp * 16 * (D + 8);
 
   float gs[8][4];  // G [d0 + g (+ 8)][nt * 8 + 2 t4 (+ 1)]
   {
-    const float* src = a.dhf + static_cast<size_t>(bh) * D * D;
+    const float* src = a.dhf + static_cast<size_t>(bh) * sstate + soff;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float2 x =
-            *reinterpret_cast<const float2*>(src + (d0 + g + 8 * i) * D + nt * 8 + 2 * t4);
+            *reinterpret_cast<const float2*>(src + (d0 + g + 8 * i) * srow + nt * 8 + 2 * t4);
         gs[nt][2 * i] = x.x;
         gs[nt][2 * i + 1] = x.y;
       }
   }
   int fr = chunk_first_reset(a, b, (a.n - 1) * Q, s, a.n > 1 || a.want_dh0);
-  const size_t last = row_off(a, b, (a.n - 1) * Q, h) * D;
-  Ring ring{s, a.q + last, a.dy + last, nullptr, nullptr, stride, Q, s.items[MAX_ITEMS]};
+  // a chunk's first row of q (its dk columns) and of dy (its dv columns)
+  const size_t qlast = row_off(a, b, (a.n - 1) * Q, h) * (TILED ? a.kdim : D) + (TILED ? kd * D : 0);
+  const size_t ylast = TILED ? row_off(a, b, (a.n - 1) * Q, h) * a.vdim + vd * D : qlast;
+  RingT<TILED> ring{s,      a.q + qlast, a.dy + ylast,        nullptr,
+                    nullptr, stride,     Q,            s.items[MAX_ITEMS], ystride};
   ring.start();
 
   for (int c = a.n - 1; c >= 0; --c) {
@@ -1176,7 +1340,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_kernel(Ar
       if (fr == Q) cdec = expf(s.cum[Q - 1]);
       __syncthreads();
     }
-    store_state_rows(gs, stage, a.gexit + ((static_cast<size_t>(bh) * a.n + c) * D + d0) * D);
+    store_state_rows(gs, stage,
+                     a.gexit + (static_cast<size_t>(bh) * a.n + c) * sstate + soff + d0 * srow,
+                     srow);
 
     float upd[8][4];  // sum_i (ec_i q_i[d]) dy_i[e] over the chunk, this warp's rows d
     zero(upd);
@@ -1208,8 +1374,9 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_kernel(Ar
       // the next chunk's tiles start landing while this one's update runs
       __syncthreads();  // every warp is done with the ring and the vectors
       fr = chunk_first_reset(a, b, t0 - Q, s, c > 1 || a.want_dh0);
-      ring.x0 = a.q + row_off(a, b, t0 - Q, h) * D;
-      ring.x1 = a.dy + row_off(a, b, t0 - Q, h) * D;
+      const size_t qrow = row_off(a, b, t0 - Q, h) * (TILED ? a.kdim : D) + (TILED ? kd * D : 0);
+      ring.x0 = a.q + qrow;
+      ring.x1 = a.dy + (TILED ? row_off(a, b, t0 - Q, h) * a.vdim + vd * D : qrow);
       ring.n = s.items[MAX_ITEMS];
       ring.start();
     }
@@ -1221,18 +1388,32 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_kernel(Ar
           gs[nt][e] = __fadd_rn(__fmul_rn(cdec, gs[nt][e]), upd[nt][e]);
   }
   if (a.want_dh0)
-    store_state_rows(gs, stage, a.dh0 + (static_cast<size_t>(bh) * D + d0) * D);
+    store_state_rows(gs, stage, a.dh0 + static_cast<size_t>(bh) * sstate + soff + d0 * srow, srow);
 }
 
-enum class Kind { kFwd, kBwdState, kBwdChunk, kFwdTiled };
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_state_body<false>(a, smem_raw);
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_tiled_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bwd_state_body<true>(a, smem_raw);
+}
+
+enum class Kind { kFwd, kBwdState, kBwdChunk, kFwdTiled, kBwdStateTiled, kBwdChunkTiled };
 
 // the kernel of a kind, its dynamic shared memory (one layout for the
-// four) and block size; the attributes it launches with are set
+// six) and block size; the attributes it launches with are set
 cudaError_t prepare(Kind kind, void (**fn)(Args), size_t* smem, int* threads) {
-  *fn = kind == Kind::kFwd        ? mamba_scan_fwd_kernel
-        : kind == Kind::kBwdState ? mamba_scan_bwd_state_kernel
-        : kind == Kind::kBwdChunk ? mamba_scan_bwd_chunk_kernel
-                                  : mamba_scan_fwd_tiled_kernel;
+  switch (kind) {
+    case Kind::kFwd: *fn = mamba_scan_fwd_kernel; break;
+    case Kind::kBwdState: *fn = mamba_scan_bwd_state_kernel; break;
+    case Kind::kBwdChunk: *fn = mamba_scan_bwd_chunk_kernel; break;
+    case Kind::kFwdTiled: *fn = mamba_scan_fwd_tiled_kernel; break;
+    case Kind::kBwdStateTiled: *fn = mamba_scan_bwd_state_tiled_kernel; break;
+    default: *fn = mamba_scan_bwd_chunk_tiled_kernel;
+  }
   *smem = kMmaSmem;
   *threads = MMA_THREADS;
   cudaError_t err = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1259,27 +1440,37 @@ int launch(Kind kind, Args a, int B, int dk, int dv, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tiled forward: one block per (64 x 64 tile of the state, b, h), then
-// the sum of the partial planes over the dk tiles
-int launch_tiled(Args a, int B, void* stream) {
+// A tiled kernel: one block per (64 x 64 tile of the state, b, h) (and
+// chunk, for the chunk backward); then the forward's sum of the partial y
+// over the dk tiles, or the chunk backward's sum of the partial dq, dk, dv
+constexpr long long kMaxRows = 2147483647;
+
+int launch_tiled(Kind kind, Args a, int B, void* stream) {
   if (B <= 0 || a.S <= 0 || a.H <= 0 || a.kdim <= 0 || a.vdim <= 0 || a.kdim % D || a.vdim % D ||
-      a.Q <= 0 || a.Q > QMAX || a.S % a.Q != 0 || B * a.H > 65535)
+      a.Q <= 0 || a.Q > QMAX || a.S % a.Q != 0 || B * a.H > 65535 || a.S / a.Q > 65535 ||
+      static_cast<long long>(B) * a.S * a.H > kMaxRows)
     return static_cast<int>(cudaErrorInvalidValue);
   a.n = a.S / a.Q;
   void (*fn)(Args);
   size_t smem;
   int threads;
-  cudaError_t err = prepare(Kind::kFwdTiled, &fn, &smem, &threads);
+  cudaError_t err = prepare(kind, &fn, &smem, &threads);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fn<<<dim3((a.kdim / D) * (a.vdim / D), B * a.H), threads, smem, st>>>(a);
+  fn<<<dim3((a.kdim / D) * (a.vdim / D), B * a.H, kind == Kind::kBwdChunkTiled ? a.n : 1), threads,
+       smem, st>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t plane = static_cast<size_t>(B) * a.S * a.H * a.vdim;
-  const int sum_threads = 256;
-  const size_t blocks = (plane / 4 + sum_threads - 1) / sum_threads;
-  mamba_scan_tile_sum_kernel<<<static_cast<unsigned>(blocks), sum_threads, 0, st>>>(
-      a.ypart, a.y, plane, a.kdim / D);
+  const size_t rows = static_cast<size_t>(B) * a.S * a.H;
+  if (kind == Kind::kFwdTiled) {
+    const size_t plane = rows * a.vdim;
+    const int sum_threads = 256;
+    const size_t blocks = (plane / 4 + sum_threads - 1) / sum_threads;
+    mamba_scan_tile_sum_kernel<<<static_cast<unsigned>(blocks), sum_threads, 0, st>>>(
+        a.ypart, a.y, plane, a.kdim / D);
+  } else if (kind == Kind::kBwdChunkTiled) {
+    mamba_scan_bwd_tile_sum_kernel<<<static_cast<unsigned>(rows), SUM_THREADS, 0, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1289,6 +1480,43 @@ Args make_args(int S, int H, int Q) {
   a.H = H;
   a.Q = Q;
   a.kdim = a.vdim = D;
+  return a;
+}
+
+// the state backward's arguments
+Args state_args(const void* q, const void* la, const void* r, const void* dy, const void* dhf,
+                void* gexit, void* dh0, int S, int H, int Q, int want_dh0) {
+  Args a = make_args(S, H, Q);
+  a.q = static_cast<const bf16*>(q);
+  a.la = static_cast<const float*>(la);
+  a.r = static_cast<const int*>(r);
+  a.dy = static_cast<const bf16*>(dy);
+  a.dhf = static_cast<const float*>(dhf);
+  a.gexit = static_cast<float*>(gexit);
+  a.dh0 = static_cast<float*>(dh0);
+  a.want_dh0 = want_dh0 != 0;
+  return a;
+}
+
+// the chunk backward's arguments
+Args chunk_args(const void* q, const void* k, const void* v, const void* la, const void* li,
+                const void* r, const void* dy, const void* hin, const void* gexit, void* dq,
+                void* dk, void* dv, void* dcum, void* dli, int S, int H, int Q) {
+  Args a = make_args(S, H, Q);
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.la = static_cast<const float*>(la);
+  a.li = static_cast<const float*>(li);
+  a.r = static_cast<const int*>(r);
+  a.dy = static_cast<const bf16*>(dy);
+  a.hin = const_cast<float*>(static_cast<const float*>(hin));
+  a.gexit = const_cast<float*>(static_cast<const float*>(gexit));
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.dcum = static_cast<float*>(dcum);
+  a.dli = static_cast<float*>(dli);
   return a;
 }
 
@@ -1340,7 +1568,7 @@ extern "C" int mamba_scan_fwd_tiled(const void* q, const void* k, const void* v,
   a.hin = static_cast<float*>(hin);
   a.kdim = dk;
   a.vdim = dv;
-  return launch_tiled(a, B, stream);
+  return launch_tiled(Kind::kFwdTiled, a, B, stream);
 }
 
 // q [B, S, H, 64] bf16, la [B, S, H] f32, r or null, dy [B, S, H, 64] bf16,
@@ -1351,17 +1579,24 @@ extern "C" int mamba_scan_bwd_state(const void* q, const void* la, const void* r
                                     const void* dy, const void* dhf, void* gexit, void* dh0,
                                     int B, int S, int H, int dk, int dv, int Q, int want_dh0,
                                     void* stream) {
-  Args a = make_args(S, H, Q);
-  a.q = static_cast<const bf16*>(q);
-  a.la = static_cast<const float*>(la);
-  a.r = static_cast<const int*>(r);
-  a.dy = static_cast<const bf16*>(dy);
-  a.dhf = static_cast<const float*>(dhf);
-  a.gexit = static_cast<float*>(gexit);
-  a.dh0 = static_cast<float*>(dh0);
-  a.want_dh0 = want_dh0 != 0;
-  if (a.want_dh0 && dh0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch(Kind::kBwdState, a, B, dk, dv, stream);
+  if (want_dh0 && dh0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(Kind::kBwdState, state_args(q, la, r, dy, dhf, gexit, dh0, S, H, Q, want_dh0), B,
+                dk, dv, stream);
+}
+
+// The state backward at a [dk, dv] state of 64 x 64 tiles (dk, dv multiples
+// of 64): q [B, S, H, dk], dy [B, S, H, dv] bf16, la, r as above, dhf
+// [B, H, dk, dv] f32 -> gexit [B * H, S / Q, dk, dv] f32 and, when
+// want_dh0, dh0 [B, H, dk, dv] f32.  One launch, a block per tile.
+extern "C" int mamba_scan_bwd_state_tiled(const void* q, const void* la, const void* r,
+                                          const void* dy, const void* dhf, void* gexit,
+                                          void* dh0, int B, int S, int H, int dk, int dv, int Q,
+                                          int want_dh0, void* stream) {
+  if (want_dh0 && dh0 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Args a = state_args(q, la, r, dy, dhf, gexit, dh0, S, H, Q, want_dh0);
+  a.kdim = dk;
+  a.vdim = dv;
+  return launch_tiled(Kind::kBwdStateTiled, a, B, stream);
 }
 
 // The forward's inputs, dy, hin and gexit -> dq, dk, dv [B, S, H, 64] bf16 and
@@ -1371,30 +1606,37 @@ extern "C" int mamba_scan_bwd_chunk(const void* q, const void* k, const void* v,
                                     const void* hin, const void* gexit, void* dq, void* dk,
                                     void* dv, void* dcum, void* dli, int B, int S, int H,
                                     int dkdim, int dvdim, int Q, void* stream) {
-  Args a = make_args(S, H, Q);
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.la = static_cast<const float*>(la);
-  a.li = static_cast<const float*>(li);
-  a.r = static_cast<const int*>(r);
-  a.dy = static_cast<const bf16*>(dy);
-  a.hin = const_cast<float*>(static_cast<const float*>(hin));
-  a.gexit = const_cast<float*>(static_cast<const float*>(gexit));
-  a.dq = static_cast<bf16*>(dq);
-  a.dk = static_cast<bf16*>(dk);
-  a.dv = static_cast<bf16*>(dv);
-  a.dcum = static_cast<float*>(dcum);
-  a.dli = static_cast<float*>(dli);
-  return launch(Kind::kBwdChunk, a, B, dkdim, dvdim, stream);
+  return launch(Kind::kBwdChunk,
+                chunk_args(q, k, v, la, li, r, dy, hin, gexit, dq, dk, dv, dcum, dli, S, H, Q), B,
+                dkdim, dvdim, stream);
 }
 
-// kind 0 forward, 1 state backward, 2 chunk backward, 3 tiled forward, at
-// chunk length Q: the dynamic shared memory of a block and how many blocks
-// an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the
-// launch's attributes set).
+// The chunk backward at a [dk, dv] state of 64 x 64 tiles: the arguments of
+// mamba_scan_bwd_chunk at (dk, dv) (dy like v), and the f32 scratches
+// dqpart, dkpart [dv / 64, B, S, H, dk] and dvpart [dk / 64, B, S, H, dv].
+// Two launches on the stream: the tiles, then the sums and dcum, dli.
+extern "C" int mamba_scan_bwd_chunk_tiled(const void* q, const void* k, const void* v,
+                                          const void* la, const void* li, const void* r,
+                                          const void* dy, const void* hin, const void* gexit,
+                                          void* dq, void* dk, void* dv, void* dcum, void* dli,
+                                          void* dqpart, void* dkpart, void* dvpart, int B, int S,
+                                          int H, int dkdim, int dvdim, int Q, void* stream) {
+  Args a = chunk_args(q, k, v, la, li, r, dy, hin, gexit, dq, dk, dv, dcum, dli, S, H, Q);
+  a.dqpart = static_cast<float*>(dqpart);
+  a.dkpart = static_cast<float*>(dkpart);
+  a.dvpart = static_cast<float*>(dvpart);
+  a.kdim = dkdim;
+  a.vdim = dvdim;
+  return launch_tiled(Kind::kBwdChunkTiled, a, B, stream);
+}
+
+// kind 0 forward, 1 state backward, 2 chunk backward, 3 tiled forward, 4
+// tiled state backward, 5 tiled chunk backward, at chunk length Q: the
+// dynamic shared memory of a block and how many blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the launch's
+// attributes set).
 extern "C" int mamba_scan_occupancy(int kind, int Q, int* smem_bytes, int* blocks_per_sm) {
-  if (kind < 0 || kind > 3 || Q <= 0 || Q > QMAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (kind < 0 || kind > 5 || Q <= 0 || Q > QMAX) return static_cast<int>(cudaErrorInvalidValue);
   void (*fn)(Args);
   size_t smem;
   int threads;

@@ -31,12 +31,17 @@ reverse cumsum of the kernel's per-position rows, plus the final-state term
 kernels, as the JAX package takes it outside its Pallas kernels.
 
 The three kernels are built for (dk, dv) = (64, 64) (zamba2's heads).  A
-larger state (xlstm's mLSTM: (1024, 1025)) runs the forward only, through
-:func:`mamba_scan_tiled_cuda`: one block per 64 x 64 tile of the state, each
-the (64, 64) forward on its columns of q / k and v, then a fixed-order sum
-of the tiles' partial y over dk (the Pallas kernel's
-``VMEM((dk, dv), f32)`` scratch takes any size; the backward kernels at
-that size are not ported yet).
+larger state (xlstm's mLSTM: (1024, 1025), padded by ``ops.tile_padded``
+to (1024, 1088)), which the Pallas kernels hold in a ``VMEM((dk, dv),
+f32)`` scratch of any size, runs their tiled versions, one block per 64 x
+64 tile of the state: :func:`mamba_scan_tiled_cuda` (the (64, 64) forward
+on its columns of q / k and v, then a fixed-order sum of the tiles' partial
+y over dk), :func:`mamba_scan_bwd_state_tiled_cuda` (the (64, 64) state
+backward on its tile of G: the update is an outer product, so each tile is
+exact alone) and :func:`mamba_scan_bwd_chunk_tiled_cuda` (the (64, 64)
+chunk backward on its tiles of H_in and G_exit, then a fixed-order sum of
+the partial dq and dk over dv and of dv over dk, with dcum and dli from
+the f32 sums).  :class:`MambaScanFunction` takes either set by the shape.
 """
 from __future__ import annotations
 
@@ -48,12 +53,14 @@ import torch
 from repro_torch.kernels import _build
 
 # launches of the CUDA kernels (plain calls are not counted); a
-# ``mamba_scan_tiled`` call is two launches on its stream (the tiles, their sum)
+# ``mamba_scan_tiled`` or ``mamba_scan_bwd_chunk_tiled`` call is two launches on
+# its stream (the tiles, their sum)
 launch_counts = {"mamba_scan": 0, "mamba_scan_bwd_state": 0, "mamba_scan_bwd_chunk": 0,
-                 "mamba_scan_tiled": 0}
+                 "mamba_scan_tiled": 0, "mamba_scan_bwd_state_tiled": 0,
+                 "mamba_scan_bwd_chunk_tiled": 0}
 
 _QMAX = 256          # largest chunk the kernels take
-_DIMS = ((64, 64),)  # (dk, dv) of the three kernels; the tiled forward takes multiples of
+_DIMS = ((64, 64),)  # (dk, dv) of the three kernels; the tiled ones take multiples of
 TILE = 64            # TILE x TILE tiles of the state
 
 
@@ -240,13 +247,14 @@ def mamba_scan_backward_plain(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int
 
 # the C source's kernel kinds (``mamba_scan_occupancy``)
 _KINDS = {"mamba_scan_fwd": 0, "mamba_scan_bwd_state": 1, "mamba_scan_bwd_chunk": 2,
-          "mamba_scan_fwd_tiled": 3}
+          "mamba_scan_fwd_tiled": 3, "mamba_scan_bwd_state_tiled": 4,
+          "mamba_scan_bwd_chunk_tiled": 5}
 
 
 def smem_bytes(kernel: str, chunk: int) -> int:
     """Dynamic shared memory of one block of ``kernel`` (a key of
     ``_KINDS``) at chunk length ``chunk``, as the C source sizes it.  The
-    four kernels share one fixed layout: a ring of three stages of two
+    six kernels share one fixed layout: a ring of three stages of two
     64 x 72 bf16 tiles, the state's three bf16 terms (3 x 64 x 72; the
     state backward's f32 output stage, 4 x 16 x 72, in their room), a
     16 x 72 stage for each of 4 warps, six per-row vectors of 256 and 40
@@ -274,7 +282,7 @@ def occupancy(kernel: str, chunk: int) -> dict:
 def _check(q, k, v, la, li, r, chunk, state=None, tiled=False):
     """Raise on what the kernels do not take; ``state`` is an f32
     [B, H, dk, dv] operand (h0 or dhf) when the kernel reads one; ``tiled``:
-    the tiled forward's (dk, dv), multiples of ``TILE``."""
+    the tiled kernels' (dk, dv), multiples of ``TILE``."""
     if not q.is_cuda:
         raise ValueError("mamba_scan_cuda takes CUDA tensors")
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3]:
@@ -369,27 +377,67 @@ def mamba_scan_tiled_cuda(q, k, v, la, li, r, h0, chunk: int, save_states: bool 
     return (y, hout, hin) if save_states else (y, hout)
 
 
+def _state_args(q, la, r, dy, dhf, chunk, want_dh0, tiled):
+    """The state backward's checks and outputs, and its C arguments."""
+    B, S, H, dk = q.shape
+    dv = dy.shape[-1]
+    _check(q, q, dy, la, la, r, chunk, dhf, tiled=tiled)
+    n = S // chunk
+    gexit = torch.empty((B * H, n, dk, dv), dtype=torch.float32, device=q.device)
+    dh0 = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device) \
+        if want_dh0 else None
+    args = (q.data_ptr(), la.data_ptr(), _rptr(r), dy.data_ptr(), dhf.data_ptr(),
+            gexit.data_ptr(), dh0.data_ptr() if want_dh0 else None, B, S, H, dk, dv, chunk,
+            int(want_dh0), _stream(q))
+    return gexit, dh0, args
+
+
 def mamba_scan_bwd_state_cuda(q, la, r, dy, dhf, chunk: int, want_dh0: bool = True):
     """The reverse adjoint-state kernel: ``(gexit [B*H, n, dk, dv], dh0
     [B, H, dk, dv])``, both f32, from q, la, r, the output gradient dy (q's
     type) and the final-state gradient dhf (f32).  Without ``want_dh0``
     dh0 is None and the first chunk's products, which feed only it, are
     skipped."""
-    B, S, H, dk = q.shape
-    dv = dy.shape[-1]
-    _check(q, q, dy, la, la, r, chunk, dhf)
-    n = S // chunk
-    gexit = torch.empty((B * H, n, dk, dv), dtype=torch.float32, device=q.device)
-    dh0 = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device) \
-        if want_dh0 else None
+    gexit, dh0, args = _state_args(q, la, r, dy, dhf, chunk, want_dh0, False)
     fn = _build.function("mamba_scan", "mamba_scan_bwd_state",
                          [_build.P] * 7 + [_build.I] * 7 + [_build.P])
-    err = fn(q.data_ptr(), la.data_ptr(), _rptr(r), dy.data_ptr(), dhf.data_ptr(),
-             gexit.data_ptr(), dh0.data_ptr() if want_dh0 else None, B, S, H, dk, dv, chunk,
-             int(want_dh0), _stream(q))
-    _build.check("mamba_scan", err)
+    _build.check("mamba_scan", fn(*args))
     launch_counts["mamba_scan_bwd_state"] += 1
     return gexit, dh0
+
+
+def mamba_scan_bwd_state_tiled_cuda(q, la, r, dy, dhf, chunk: int, want_dh0: bool = True):
+    """:func:`mamba_scan_bwd_state_cuda` at a large state, dk and dv
+    multiples of ``TILE`` (dy padded like v): one launch, a block per
+    (``TILE`` x ``TILE`` tile of G, batch row, head) running the (64, 64)
+    kernel's chunk loop on its dk columns of q and dv columns of dy from its
+    tile of dhf; each tile of gexit and dh0 is written by its own block."""
+    gexit, dh0, args = _state_args(q, la, r, dy, dhf, chunk, want_dh0, True)
+    fn = _build.function("mamba_scan", "mamba_scan_bwd_state_tiled",
+                         [_build.P] * 7 + [_build.I] * 7 + [_build.P])
+    _build.check("mamba_scan", fn(*args))
+    launch_counts["mamba_scan_bwd_state_tiled"] += 1
+    return gexit, dh0
+
+
+def _chunk_outputs(q, k, v, la, li, r, dy, hin, gexit, chunk, tiled):
+    """The chunk backward's checks and outputs (dq, dk, dv, dcum, dli)."""
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    _check(q, k, v, la, li, r, chunk, tiled=tiled)
+    n = S // chunk
+    for name, t in (("hin", hin), ("gexit", gexit)):
+        if t.dtype != torch.float32 or t.shape != (B * H, n, dk, dv) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"mamba_scan backward: {name} must be contiguous f32 "
+                             f"[{B * H}, {n}, {dk}, {dv}]")
+    if dy.shape != v.shape or dy.dtype != q.dtype or not dy.is_contiguous() \
+            or dy.data_ptr() % 16:
+        raise ValueError("mamba_scan backward: dy must be contiguous and 16-byte aligned like v "
+                         "in q's type")
+    dcum = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), dcum, \
+        torch.empty_like(dcum)
 
 
 def mamba_scan_bwd_chunk_cuda(q, k, v, la, li, r, dy, hin, gexit, chunk: int):
@@ -397,48 +445,74 @@ def mamba_scan_bwd_chunk_cuda(q, k, v, la, li, r, dy, hin, gexit, chunk: int):
     dq/dk/dv in q's type and the per-position rows dcum = q.dq - k.dk and
     dli = k.dk [B, S, H] f32, from the forward's inputs, dy, the saved entry
     states ``hin`` and the chunk-exit adjoints ``gexit``."""
+    outs = _chunk_outputs(q, k, v, la, li, r, dy, hin, gexit, chunk, False)
     B, S, H, dk = q.shape
-    dv = v.shape[-1]
-    _check(q, k, v, la, li, r, chunk)
-    n = S // chunk
-    for name, t in (("hin", hin), ("gexit", gexit)):
-        if t.dtype != torch.float32 or t.shape != (B * H, n, dk, dv) \
-                or not t.is_contiguous() or t.device != q.device:
-            raise ValueError(f"mamba_scan backward: {name} must be contiguous f32 "
-                             f"[{B * H}, {n}, {dk}, {dv}]")
-    if dy.shape != v.shape or dy.dtype != q.dtype or not dy.is_contiguous():
-        raise ValueError("mamba_scan backward: dy must be contiguous like v in q's type")
-    dq, dkk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dcum = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
-    dli = torch.empty_like(dcum)
     fn = _build.function("mamba_scan", "mamba_scan_bwd_chunk",
                          [_build.P] * 14 + [_build.I] * 6 + [_build.P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), li.data_ptr(),
-             _rptr(r), dy.data_ptr(), hin.data_ptr(), gexit.data_ptr(), dq.data_ptr(),
-             dkk.data_ptr(), dvv.data_ptr(), dcum.data_ptr(), dli.data_ptr(),
-             B, S, H, dk, dv, chunk, _stream(q))
+             _rptr(r), dy.data_ptr(), hin.data_ptr(), gexit.data_ptr(),
+             *(t.data_ptr() for t in outs), B, S, H, dk, v.shape[-1], chunk, _stream(q))
     _build.check("mamba_scan", err)
     launch_counts["mamba_scan_bwd_chunk"] += 1
-    return dq, dkk, dvv, dcum, dli
+    return outs
+
+
+def mamba_scan_bwd_chunk_tiled_cuda(q, k, v, la, li, r, dy, hin, gexit, chunk: int):
+    """:func:`mamba_scan_bwd_chunk_cuda` at a large state, dk and dv
+    multiples of ``TILE`` (v and dy padded to dv).  Two launches: one block
+    per (``TILE`` x ``TILE`` tile of the state, batch row, head, chunk) runs
+    the (64, 64) kernel on its dk columns of q / k, dv columns of v / dy and
+    tiles of H_in and G_exit, writing its f32 shares of dq and dk to plane vd
+    of [dv / TILE, B, S, H, dk] scratches and of dv to plane kd of a
+    [dk / TILE, B, S, H, dv] one; the second kernel sums each row's planes in
+    order, rounds once to q's type and forms dcum and dli from the f32 sums
+    over the whole dk."""
+    outs = _chunk_outputs(q, k, v, la, li, r, dy, hin, gexit, chunk, True)
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dqpart = torch.empty((dv // TILE, B, S, H, dk), **f32)
+    dkpart = torch.empty((dv // TILE, B, S, H, dk), **f32)
+    dvpart = torch.empty((dk // TILE, B, S, H, dv), **f32)
+    fn = _build.function("mamba_scan", "mamba_scan_bwd_chunk_tiled",
+                         [_build.P] * 17 + [_build.I] * 6 + [_build.P])
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), li.data_ptr(),
+             _rptr(r), dy.data_ptr(), hin.data_ptr(), gexit.data_ptr(),
+             *(t.data_ptr() for t in outs), dqpart.data_ptr(), dkpart.data_ptr(),
+             dvpart.data_ptr(), B, S, H, dk, dv, chunk, _stream(q))
+    _build.check("mamba_scan", err)
+    launch_counts["mamba_scan_bwd_chunk_tiled"] += 1
+    return outs
+
+
+def _tiled(q, v) -> bool:
+    return (q.shape[-1], v.shape[-1]) not in _DIMS
 
 
 def mamba_scan_backward_cuda(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int,
                              want_dh0: bool = True):
-    """The backward on the two kernels (``dla`` in PyTorch)."""
-    return _backward(mamba_scan_bwd_state_cuda, mamba_scan_bwd_chunk_cuda, q, k, v, la, li, r,
-                     hin, hfin, dy, dhf, chunk, want_dh0)
+    """The backward on the two kernels (``dla`` in PyTorch): the (64, 64)
+    ones, or their tiled versions at any other (dk, dv).  The kernels are
+    looked up here, at each call."""
+    fns = (mamba_scan_bwd_state_tiled_cuda, mamba_scan_bwd_chunk_tiled_cuda) if _tiled(q, v) \
+        else (mamba_scan_bwd_state_cuda, mamba_scan_bwd_chunk_cuda)
+    return _backward(*fns, q, k, v, la, li, r, hin, hfin, dy, dhf, chunk, want_dh0)
 
 
 class MambaScanFunction(torch.autograd.Function):
     """The forward (saving the chunk entry states) and the two backward
     kernels as one differentiable op over (q, k, v, la, li, h0); the reset
-    rows get no gradient.  ``dy`` is cast to q's type and ``dh`` to f32
-    before the kernels, as the Pallas vjp does.  Where h0 takes no gradient
-    (training's zero state) the state kernel skips dh0."""
+    rows get no gradient.  At (dk, dv) = (64, 64) the three kernels, at any
+    other multiples of ``TILE`` their tiled versions (``ops.tile_padded``
+    pads xlstm's dv = 1025 to 1088 around this op, and autograd's pad and
+    slice carry the gradients across).  ``dy`` is cast to q's type and ``dh``
+    to f32 before the kernels, as the Pallas vjp does.  Where h0 takes no
+    gradient (training's zero state) the state kernel skips dh0."""
 
     @staticmethod
     def forward(ctx, q, k, v, la, li, r, h0, chunk):
-        y, h, hin = mamba_scan_cuda(q, k, v, la, li, r, h0, chunk, save_states=True)
+        fwd = mamba_scan_tiled_cuda if _tiled(q, v) else mamba_scan_cuda
+        y, h, hin = fwd(q, k, v, la, li, r, h0, chunk, save_states=True)
         ctx.save_for_backward(q, k, v, la, li, r, hin, h)
         ctx.chunk = chunk
         return y, h

@@ -284,12 +284,15 @@ def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 def tile_padded(scan, q, k, v, la, li, r, h0, chunk: int):
-    """``scan`` (the tiled kernel, or a plain version) over q / k and v
-    padded with zero columns to multiples of ``mamba_scan.TILE`` (xlstm's
-    dv = 1025 to 1088) and h0 with zero rows and columns, then y and the
-    final state sliced back to (dk, dv).  Exact: a zero column of v gives
-    zero columns of y and of the state, and a zero column of q / k adds
-    nothing to a score and keeps its state row at zero."""
+    """``scan`` (the tiled kernel, the autograd Function over the tiled
+    kernels, or a plain version) over q / k and v padded with zero columns
+    to multiples of ``mamba_scan.TILE`` (xlstm's dv = 1025 to 1088) and h0
+    with zero rows and columns, then y and the final state sliced back to
+    (dk, dv).  Exact: a zero column of v gives zero columns of y and of the
+    state, and a zero column of q / k adds nothing to a score and keeps its
+    state row at zero.  Under autograd the slice's backward pads dy and the
+    final state's gradient with zero columns, and the pad's backward slices
+    the padded operands' gradients back."""
     dk, dv = q.shape[-1], v.shape[-1]
     pk, pv = -dk % _ms.TILE, -dv % _ms.TILE
     if pk:
@@ -313,9 +316,10 @@ def mamba_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: tor
     ``log_decay`` gradient is 0 (``mamba_scan.py:446-449`` of the JAX
     package).  On the card (dk, dv) = (64, 64) runs the three kernels (the
     forward, or with a gradient to take the autograd Function); any other
-    (dk, dv) runs the tiled forward through :func:`tile_padded` and has no
-    backward kernels yet: a gradient raises.  The plain version takes q / k
-    / v in any types (mLSTM hands it an f32 k, as the JAX package does)."""
+    (dk, dv) runs their tiled versions through :func:`tile_padded` (the
+    tiled forward, or with a gradient the autograd Function, whose pad and
+    slice autograd carries across).  The plain version takes q / k / v in
+    any types (mLSTM hands it an f32 k, as the JAX package does)."""
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     Q = min(chunk, S)
@@ -336,13 +340,8 @@ def mamba_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, log_decay: tor
         r = r.contiguous() if r is not None else None
         grad = _needs_grad(q, k, v, la, li, h0)
         if (dk, dv) not in _ms._DIMS:
-            if grad:
-                raise NotImplementedError(
-                    f"mamba_scan: no backward kernels at (dk, dv) = {(dk, dv)}: the state and "
-                    f"chunk backward kernels are built for {_ms._DIMS} only (their tiled "
-                    f"versions, for xlstm's (1024, 1025), are not ported yet)")
-            return tile_padded(_ms.mamba_scan_tiled_cuda, q, k, v, la.contiguous(),
-                               li.contiguous(), r, h0, Q)
+            scan = _ms.MambaScanFunction.apply if grad else _ms.mamba_scan_tiled_cuda
+            return tile_padded(scan, q, k, v, la.contiguous(), li.contiguous(), r, h0, Q)
         args = (aligned(q), aligned(k), aligned(v), la.contiguous(), li.contiguous(), r,
                 h0.contiguous(), Q)
         if grad:

@@ -11,6 +11,14 @@ attention+MLP block) against the JAX package, on the CPU.
   with weights carried across by ``repro_torch.convert`` (f32).  Both sides
   use ``attn_q_block = 128`` (ROADMAP Queue 3: the tiers' tile rules agree
   there).
+* The tiled kernels' arithmetic in plain PyTorch at (dk, dv) = (128, 129)
+  (64 x 64 tiles, dv padded with zero columns): the forward and the state
+  and chunk backward, each against the plain version over the whole state
+  within 1e-5; ``ops.tile_padded``; the card branch of ``ops.mamba_scan``
+  (forced on CPU tensors, the tiled entry points replaced by recording
+  plain stand-ins) routing a gradient at (64, 65) through the tiled op,
+  equal to autograd of the unpadded plain scan, and raising when a tiled
+  kernel fails.
 * The planner and the cost model's Eq. 5 at full size, ``convert`` of hybrid
   trees, the CLI, the refusals, and two reference quirks the port follows.
 """
@@ -320,37 +328,158 @@ def test_tile_padded_equals_the_unpadded_scan_bit_for_bit(dims):
         assert torch.equal(y1, y2) and torch.equal(h1, h2), dt
 
 
-def test_mamba_scan_refuses_a_gradient_off_64_on_the_card(monkeypatch):
-    """On the card ``ops.mamba_scan`` takes the tiled forward at any (dk, dv)
-    but (64, 64), and raises, naming the missing backward, when a gradient
-    is to be taken there: nothing falls back to the plain version.  (The
-    card's branch is taken here on CPU tensors; it raises before any
-    launch.)"""
+@pytest.mark.parametrize("want_dh0", [True, False])
+def test_tiled_backward_decomposition_equals_the_plain_backward(want_dh0):
+    """What the tiled backward kernels compute, in plain PyTorch at (dk, dv)
+    = (128, 129), dv padded with zero columns to 192 = 3 x 64 (v, dy, the
+    final state's gradient, the saved states): the state backward per
+    (64-wide dk tile, 64-wide dv tile) from that tile of dhf, alone (its
+    update is an outer product); the chunk backward per tile from its tiles
+    of hin and gexit, dq and dk summed over the dv tiles in order, dv over
+    the dk tiles, then dcum and dli from the f32 sums over the whole dk and
+    dla as ``_backward`` takes it.  Every output within f32 rounding (1e-5 of
+    the largest |value|) of ``mamba_scan_backward_plain`` over the whole
+    state, two chunks with resets and a non-zero h0 and dhf; the padded
+    columns exactly 0."""
     from repro_torch.kernels import mamba_scan as ms
 
-    def no_launch(*a, **kw):
-        raise AssertionError("launched")
+    T, Q, pad = ms.TILE, 16, 192 - 129
+    q, k, v, la, li, r, h0 = _tiled_inputs(128, 129)
+    rs = np.random.RandomState(12)
+    dy = torch.from_numpy(rs.randn(*v.shape).astype(np.float32))
+    dhf = torch.from_numpy((rs.randn(*h0.shape) * 0.3).astype(np.float32))
+    y, h, hin = ms.mamba_scan_plain(q, k, v, la, li, r, h0, Q, save_states=True)
+    ref = ms.mamba_scan_backward_plain(q, k, v, la, li, r, hin, h, dy, dhf, Q, want_dh0)
+    vp, dyp, dhfp, hinp, hp = (torch.nn.functional.pad(t, (0, pad))
+                               for t in (v, dy, dhf, hin, h))
+    gexit = torch.zeros(hinp.shape)
+    dh0 = torch.zeros(dhfp.shape) if want_dh0 else None
+    dq, dk, dv = torch.zeros(q.shape), torch.zeros(k.shape), torch.zeros(vp.shape)
+    tiles = [(slice(kd * T, (kd + 1) * T), slice(vd * T, (vd + 1) * T))
+             for kd in range(128 // T) for vd in range(192 // T)]  # kd-major: dv tiles in order
+    for ks, vs in tiles:
+        g_t, d_t = ms.mamba_scan_bwd_state_plain(q[..., ks], la, r, dyp[..., vs],
+                                                 dhfp[:, :, ks, vs].contiguous(), Q, want_dh0)
+        gexit[:, :, ks, vs] = g_t
+        if want_dh0:
+            dh0[:, :, ks, vs] = d_t
+    for vd in range(192 // T):  # dq and dk: the dv tiles in order, vd = 0, 1, 2
+        for ks, vs in tiles[vd::192 // T]:
+            dq_t, dk_t, _, _, _ = ms.mamba_scan_bwd_chunk_plain(
+                q[..., ks], k[..., ks], vp[..., vs], la, li, r, dyp[..., vs],
+                hinp[:, :, ks, vs].contiguous(), gexit[:, :, ks, vs].contiguous(), Q)
+            dq[..., ks] += dq_t
+            dk[..., ks] += dk_t
+    for ks, vs in tiles:  # dv: the dk tiles in order, kd = 0, 1
+        dv[..., vs] += ms.mamba_scan_bwd_chunk_plain(
+            q[..., ks], k[..., ks], vp[..., vs], la, li, r, dyp[..., vs],
+            hinp[:, :, ks, vs].contiguous(), gexit[:, :, ks, vs].contiguous(), Q)[2]
+    dli = (k * dk).sum(-1)
+    dcum = (q * dq).sum(-1) - dli
+    dcum[:, -1, :] += torch.einsum("bhkv,bhkv->bh", dhfp, hp)
+    dla = ms.seg_rev_cumsum(dcum, r)
+    zero = [dv[..., 129:], gexit[..., 129:]] + ([dh0[..., 129:]] if want_dh0 else [])
+    assert all(torch.count_nonzero(t) == 0 for t in zero)
+    got = (dq, dk, dv[..., :129], dla, dli, dh0[..., :129] if want_dh0 else None)
+    for name, g1, g2 in zip(("dq", "dk", "dv", "dla", "dli", "dh0"), got, ref):
+        if name == "dh0" and not want_dh0:
+            assert g1 is None and g2 is None
+            continue
+        err = (g1 - g2).abs().max().item()
+        assert err <= 1e-5 * g2.abs().max().item(), (name, err)
+
+
+def _tiled_stand_ins(monkeypatch, calls, state=None):
+    """The card's branch of ``ops.mamba_scan`` on CPU tensors: the tiled
+    CUDA entry points replaced by stand-ins that record their call and run
+    the plain version (``state`` replaces the state backward's), the
+    (64, 64) ones by a refusal."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    def record(name, plain):
+        def fn(*a, **kw):
+            calls.append(name)
+            return plain(*a, **kw)
+        return fn
+
+    def refuse(*a, **kw):
+        raise AssertionError("a (64, 64) kernel ran")
 
     monkeypatch.setattr(ops, "_use_kernel", lambda t, part: part not in ops._plain)
-    monkeypatch.setattr(ms, "mamba_scan_tiled_cuda", no_launch)
+    monkeypatch.setattr(ms, "mamba_scan_tiled_cuda", record("fwd", ms.mamba_scan_plain))
+    monkeypatch.setattr(ms, "mamba_scan_bwd_state_tiled_cuda",
+                        state or record("state", ms.mamba_scan_bwd_state_plain))
+    monkeypatch.setattr(ms, "mamba_scan_bwd_chunk_tiled_cuda",
+                        record("chunk", ms.mamba_scan_bwd_chunk_plain))
+    for name in ("mamba_scan_cuda", "mamba_scan_bwd_state_cuda", "mamba_scan_bwd_chunk_cuda"):
+        monkeypatch.setattr(ms, name, refuse)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_gradient_off_64_runs_the_tiled_op_on_the_card(monkeypatch, with_h0):
+    """On the card ``ops.mamba_scan`` takes a gradient at any (dk, dv) but
+    (64, 64) through ``MambaScanFunction`` on the tiled kernels, wrapped in
+    ``tile_padded``: at (64, 65) (dv padded to 128) one tiled forward saving
+    the states, one tiled state backward and one tiled chunk backward, no
+    (64, 64) kernel and no plain fallback; y, the final state and the
+    gradients of q, k, v, the gates (and h0, when given: dh0 wanted) equal
+    autograd of the unpadded plain scan (``ops.mamba_scan`` on the CPU)
+    within 1e-5 of the largest |value|.  Without a gradient only the tiled
+    forward runs.  (The card's branch is taken here on CPU tensors, the
+    tiled entry points replaced by recording plain stand-ins.)"""
+    q, k, v, la, li, r, h0 = _tiled_inputs(64, 65)
+    rs = np.random.RandomState(13)
+    w = torch.from_numpy(rs.randn(*v.shape).astype(np.float32))
+    w2 = torch.from_numpy((rs.randn(*h0.shape) * 0.3).astype(np.float32))
+
+    def run():
+        ts = [t.clone().requires_grad_(True) for t in (q, k, v, la, li, h0)]
+        y, h = ops.mamba_scan(*ts[:5], chunk=16, reset=r, h0=ts[5] if with_h0 else None)
+        grads = torch.autograd.grad((y * w).sum() + (h * w2).sum(),
+                                    ts if with_h0 else ts[:5])
+        return [y.detach(), h.detach(), *grads]
+
+    want = run()
+    calls = []
+    _tiled_stand_ins(monkeypatch, calls)
+    got = run()
+    assert calls == ["fwd", "state", "chunk"]
+    names = ("y", "h", "dq", "dk", "dv", "dla", "dli", "dh0")
+    for name, g1, g2 in zip(names, got, want):
+        assert g1.shape == g2.shape, name
+        err = (g1 - g2).abs().max().item()
+        assert err <= 1e-5 * g2.abs().max().item(), (name, err)
+    calls.clear()
+    with torch.no_grad():
+        y, h = ops.mamba_scan(q, k, v, la, li, chunk=16, reset=r)
+    assert calls == ["fwd"] and y.shape == v.shape
+
+
+def test_mamba_scan_tiled_backward_failure_raises(monkeypatch):
+    """A tiled backward kernel that fails raises out of the backward:
+    nothing falls back to the plain version."""
+    def fail(*a, **kw):
+        raise RuntimeError("mamba_scan: launch failed")
+
+    calls = []
+    _tiled_stand_ins(monkeypatch, calls, state=fail)
     q, k, v, la, li, r, _ = _tiled_inputs(64, 65, h0=False)
-    q = q.to(torch.bfloat16).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        ops.mamba_scan(q, k.to(torch.bfloat16), v.to(torch.bfloat16), la, li, chunk=16,
-                       reset=r)
-    with torch.no_grad(), pytest.raises(AssertionError, match="launched"):
-        ops.mamba_scan(q, k.to(torch.bfloat16), v.to(torch.bfloat16), la, li, chunk=16,
-                       reset=r)
+    q = q.clone().requires_grad_(True)
+    y, _ = ops.mamba_scan(q, k, v, la, li, chunk=16, reset=r)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        y.sum().backward()
+    assert calls == ["fwd"] and q.grad is None
 
 
 @pytest.mark.parametrize("kernel", ["mamba_scan_fwd", "mamba_scan_bwd_state",
-                                    "mamba_scan_bwd_chunk", "mamba_scan_fwd_tiled"])
+                                    "mamba_scan_bwd_chunk", "mamba_scan_fwd_tiled",
+                                    "mamba_scan_bwd_state_tiled", "mamba_scan_bwd_chunk_tiled"])
 def test_mamba_scan_smem_bytes_follow_the_cuda_source(kernel):
     """``smem_bytes`` (which chip_smoke holds the card's own report,
     ``occupancy``, to) against the C source: the constants its formula
-    assumes are the source's; the four kernels (the tiled forward at a
-    large state among them: the (64, 64) forward's body on one 64 x 64
-    tile, kind 3 of ``mamba_scan_occupancy``) share one layout of 98,464
+    assumes are the source's; the six kernels (the tiled ones at a large
+    state among them: the (64, 64) bodies on one 64 x 64 tile, kinds 3-5
+    of ``mamba_scan_occupancy``) share one layout of 98,464
     bytes at any chunk, so two blocks share an H100 SM (233,472 bytes, 1 KB
     reserved a block), and the state backward's f32 output stages fit in
     the room of the state's three bf16 terms.  Bad arguments are refused
@@ -366,8 +495,8 @@ def test_mamba_scan_smem_bytes_follow_the_cuda_source(kernel):
         "D": "64", "MMA_THREADS": "128", "TR": "64", "DP": "D + 8", "STAGES": "3",
         "QMAX": "256", "MAX_ITEMS": "32"}
     assert "TP" not in consts and "SB" not in consts  # the CUDA-core kernel's tiles are gone
-    assert ms.TILE == int(consts["D"]) and ms._KINDS[kernel] <= 3
-    assert "kind < 0 || kind > 3" in src and "mamba_scan_fwd_tiled_kernel" in src
+    assert ms.TILE == int(consts["D"]) and ms._KINDS[kernel] <= 5
+    assert "kind < 0 || kind > 5" in src and kernel + "_kernel" in src
     assert "static_assert(4 * 16 * (D + 8) * sizeof(float) <= kSplitBytes" in src
     assert 4 * 16 * (64 + 8) * 4 <= 3 * 64 * 72 * 2
     got = {Q: ms.smem_bytes(kernel, Q) for Q in (1, 40, 64, 65, 256)}

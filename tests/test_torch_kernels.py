@@ -45,7 +45,8 @@ def _counters_stay_zero():
         "grouped_lora": 0, "grouped_lora_bwd": 0, "packed_attention": 0,
         "packed_attention_dq": 0, "packed_attention_dkv": 0, "decode_attention": 0,
         "quant_matmul": 0, "mamba_scan": 0, "mamba_scan_bwd_state": 0,
-        "mamba_scan_bwd_chunk": 0, "mamba_scan_tiled": 0}
+        "mamba_scan_bwd_chunk": 0, "mamba_scan_tiled": 0, "mamba_scan_bwd_state_tiled": 0,
+        "mamba_scan_bwd_chunk_tiled": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,10 @@ the mLSTM's dk = 32, dv = 33).
   state's layout equal to JAX's, and decode against the forward as
   ``tests/test_decode_parity.py`` holds the JAX package (f32 within 2e-4;
   bf16 softmax within 0.08, argmax agreeing on more than 85%).
+* Two ``PEFTEngine.run_iteration``s (LoRA 8 / 16, Adapter 4 and IA3
+  tenants on ``ssm_in``, ``attn_q``, ``attn_v``) against the JAX engine:
+  per-task losses, adapters and both AdamW moments within rtol = atol =
+  1e-5, both adapter groups (``mlstm``, ``slstm``) trained.
 * The plan and Eq. 5 at full size, ``convert`` of xlstm trees,
   ``param_count`` and the reference quirks the
   port follows: the formula's 1,011,550,208 parameters against the tree's
@@ -518,3 +522,109 @@ def test_xlstm_prefill_and_service_keep_refusing(xl):
     svc = MuxTuneService(xl["cfg_t"], ParallelismSpec(), device="cpu")
     assert svc.submit_request("t", RequestSpec([3, 5], max_new_tokens=2)).reason == \
         "family_unsupported"
+
+
+# ---------------------------------------------------------------------------
+# Training: two run_iterations against the JAX engine
+# ---------------------------------------------------------------------------
+
+TRAIN_TENANTS = (("sst2", "lora", 8), ("qa", "lora", 16), ("rte", "adapter", 4),
+                 ("sst2", "ia3", 8))
+TRAIN_FILLED = ("b", "up", "s")  # LoRA B, Adapter up and IA3 s start at 0
+
+
+def _train_tasks(make, config_cls):
+    return [make(f"task{i}-{ds}", ds, 2, config_cls(kind, rank=rank, targets=TARGETS), seed=i)
+            for i, (ds, kind, rank) in enumerate(TRAIN_TENANTS)]
+
+
+def _fill_zero_leaves(tree, rs):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            _fill_zero_leaves(v, rs)
+        elif k in TRAIN_FILLED:
+            tree[k] = (rs.randn(*v.shape) * 0.05).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def engines():
+    """Both packages' PEFTEngine on the smoke xlstm: LoRA 8 / 16, Adapter 4
+    and IA3 tenants on ssm_in, attn_q and attn_v, one backbone and adapter
+    state (f32, the zero-started leaves filled), one plan, loaders over the
+    same synthetic corpora; the JAX engine on its xla tier."""
+    from repro.core import ExecutionPlanner as JaxPlanner
+    from repro.core import ParallelismSpec as JaxParallelism
+    from repro.core import PEFTEngine as JaxEngine
+    from repro.core import cost_model as jax_cost_model
+    from repro.data import HTaskLoader as JaxLoader
+    from repro.data import make_task as jax_make_task
+    from repro.train.optimizer import adamw_init as jax_adamw_init
+    from repro_torch.core import ExecutionPlanner, HardwareProfile, PEFTEngine
+    from repro_torch.data import HTaskLoader, make_task
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = jax_smoke_config(ARCH)
+    jt = _train_tasks(jax_make_task, JaxAdapterConfig)
+    jplan = JaxPlanner(cfg, JaxParallelism(num_stages=1)).plan(jt, n_micro=1)
+    jgen = JaxGenerator(cfg, seed=0)
+    jgen.register_tasks(jt)
+    bb_np = _np_tree(jgen.init_backbone())
+    ad_np = _np_tree(jgen.registered.adapter_params)
+    _fill_zero_leaves(ad_np, np.random.RandomState(1))
+    jgen.backbone_params = jax.tree.map(jnp.asarray, bb_np)
+    jgen.registered.adapter_params = jax.tree.map(jnp.asarray, ad_np)
+    jgen.registered.opt_state = jax_adamw_init(jgen.registered.adapter_params)
+    jeng = JaxEngine(jgen, jplan, lr=1e-3)
+
+    cfg_t = smoke_config(ARCH)
+    pt = _train_tasks(make_task, AdapterConfig)
+    hw = HardwareProfile(peak_flops=jax_cost_model.PEAK_FLOPS, hbm_bw=jax_cost_model.HBM_BW,
+                         ici_bw=jax_cost_model.ICI_BW)
+    pplan = ExecutionPlanner(cfg_t, ParallelismSpec(num_stages=1), hw=hw,
+                             memory_budget=jax_cost_model.HBM_BYTES).plan(pt, n_micro=1)
+    gen = ModelGenerator(cfg_t, device="cpu")
+    reg = gen.register_tasks(pt)
+    gen.backbone_params = backbone_from_numpy(bb_np, cfg_t, "cpu", torch.float32)
+    reg.adapter_params = adapters_from_numpy(ad_np, reg.mta, "cpu")
+    reg.opt_state = adamw_init(reg.adapter_params)
+    peng = PEFTEngine(gen, pplan, lr=1e-3, device="cpu")
+    jl = {i: JaxLoader(jt, jplan.alignment[i], cfg.vocab_size) for i in range(len(jplan.htasks))}
+    pl = {i: HTaskLoader(pt, pplan.alignment[i], cfg.vocab_size)
+          for i in range(len(pplan.htasks))}
+    return jeng, jl, peng, pl
+
+
+def _flat_np(tree):
+    return {k: v.detach().float().numpy() if torch.is_tensor(v) else np.asarray(v, np.float32)
+            for k, v in _flat(tree).items()}
+
+
+def test_run_iteration_matches_jax(engines):
+    """Two ``PEFTEngine.run_iteration``s (forward, backward through the
+    mLSTM's chunked scan and the sLSTM's recurrence, member-masked AdamW)
+    against the JAX engine's: per-task losses, adapter parameters and both
+    AdamW moments within rtol = atol = 1e-5 after each; both adapter groups
+    (``mlstm``, ``slstm``) train."""
+    jeng, jl, peng, pl = engines
+    start = {k: v.copy() for k, v in _flat_np(peng.reg.adapter_params).items()}
+    for it in range(2):
+        jm = jeng.run_iteration(jl)
+        pm = peng.run_iteration(pl)
+        np.testing.assert_allclose(pm.per_task_loss, jm.per_task_loss, rtol=1e-5, atol=1e-5,
+                                   err_msg=f"iteration {it}")
+        np.testing.assert_allclose(pm.loss, jm.loss, rtol=1e-5, atol=1e-5)
+        assert (pm.tokens, pm.effective_tokens) == (jm.tokens, jm.effective_tokens)
+        for name, jtree, ptree in (
+                ("params", jeng.reg.adapter_params, peng.reg.adapter_params),
+                ("m", jeng.reg.opt_state.m, peng.reg.opt_state.m),
+                ("v", jeng.reg.opt_state.v, peng.reg.opt_state.v)):
+            jf, pf = _flat_np(jtree), _flat_np(ptree)
+            assert sorted(jf) == sorted(pf)
+            assert {p[0] for p in pf} == {"mlstm", "slstm"}
+            for path in jf:
+                np.testing.assert_allclose(pf[path], jf[path], rtol=1e-5, atol=1e-5,
+                                           err_msg=f"iteration {it} {name} {path}")
+    end = _flat_np(peng.reg.adapter_params)
+    for group in ("mlstm", "slstm"):
+        moved = max(float(np.abs(end[p] - start[p]).max()) for p in end if p[0] == group)
+        assert moved > 0, group

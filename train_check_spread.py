@@ -21,7 +21,10 @@ on q, v, fc1 and fc2, ``chip_smoke.starcoder2_plan``), ``qwen2vl``
 down, ``chip_smoke.qwen2vl_plan``) or ``whisper`` (whisper-large-v3, the
 tenants on the decoder's q, v, fc1 and fc2: a ``chip_smoke.WhisperTrainer``
 whose batches, frames included, come from the seed, trained through
-``launch.steps.build_train_step`` as chip_smoke's ``train_whisper`` does).  One JSON line per
+``launch.steps.build_train_step`` as chip_smoke's ``train_whisper`` does)
+or ``xlstm`` (xlstm-1.3b, the tenants on the mLSTM's ssm_in, q and v and
+the sLSTM's ssm_in, ``chip_smoke.xlstm_plan``; its mLSTM scans run the
+tiled kernels at (1024, 1025)).  One JSON line per
 seed with its distances (each the worst leaf's, as a share of that leaf's
 largest f32 |g|):
 
@@ -36,15 +39,19 @@ largest f32 |g|):
   path runs: the kernel path with that family's plain version swapped in
   alone (``ops.force_plain([family])``; packed attention also by
   direction);
-* ``audit_vs_plain``: the kernel path again, every grouped-LoRA and
-  packed-attention kernel call held to its plain version on the same
-  operands (``audit``: per kernel the calls, the worst error as a share of
+* ``audit_vs_plain``: the kernel path again, every grouped-LoRA,
+  packed-attention and tiled mamba_scan kernel call (forward, state and
+  chunk backward) held to its plain version on the same operands
+  (``audit``: per kernel output the calls, the worst error as a share of
   the plain output's largest magnitude, the tolerance chip_smoke holds it
   to, how many calls exceed it, and the worst call's index; packed
   attention's dq, dk and dv also against the plain backward that reads D
   from the kernel's stored o, ``<name>_stored_o``);
 
-then a summary line: per distance the sorted values over the seeds, and
+each seed's line also has every run's per-task losses' largest relative
+distance from the plain run's (``loss_rel``); then a summary
+line: per distance the sorted values over the seeds, the worst loss
+distance of each run, and
 per second plain path its worst (``S`` for ``plain_stored_o``,
 ``S_reordered`` for ``plain_reordered``, ``S_scale_first`` for
 ``plain_scale_first``) and ``S_prime``, the worst of them all.
@@ -70,12 +77,12 @@ import types
 
 @contextlib.contextmanager
 def audited(torch, c, records):
-    """Each grouped-LoRA and packed-attention kernel call, as it runs, held
-    to its plain version (autograd of it for a backward) on the same
-    operands: a record per call and output, ``(kernel, error as a share of
-    the plain output's largest magnitude, tolerance)``.  The kernels'
-    results are returned unchanged."""
-    from repro_torch.kernels import grouped_lora as gl
+    """Each packed-attention kernel call, as it runs, held to its plain
+    version (autograd of it for a backward) on the same operands, and each
+    grouped-LoRA and tiled mamba_scan kernel call likewise
+    (``chip_smoke.audited_calls``): a record per call and output,
+    ``(kernel, error as a share of the plain output's largest magnitude,
+    tolerance)``.  The kernels' results are returned unchanged."""
     from repro_torch.kernels import packed_attention as pa
 
     def rel(out, ref):
@@ -88,8 +95,7 @@ def audited(torch, c, records):
             return torch.autograd.grad(plain(*ts, *rest), ts, g)
 
     orig = {"fwd": pa.packed_attention_cuda, "dq": pa.packed_attention_dq_cuda,
-            "dkv": pa.packed_attention_dkv_cuda, "gl": gl.grouped_lora_cuda,
-            "gl_bwd": gl.grouped_lora_bwd_cuda}
+            "dkv": pa.packed_attention_dkv_cuda}
 
     def attn_fwd(q, k, v, *rest, **kw):
         out = orig["fwd"](q, k, v, *rest, **kw)
@@ -114,43 +120,15 @@ def audited(torch, c, records):
             return out
         return fn
 
-    def lora_fwd(x, a, b, rt, scale, **kw):
-        out = orig["gl"](x, a, b, rt, scale, **kw)
-        y = out[0] if isinstance(out, tuple) else out
-        records.append(("grouped_lora", rel(y, gl.grouped_lora_plain(x, a, b, rt, scale)),
-                        c.KERNEL_TOL))
-        return out
-
-    def lora_bwd(x, a, b, rt, scale, h, g):
-        out = orig["gl_bwd"](x, a, b, rt, scale, h, g)
-        refs = vjp(gl.grouped_lora_plain, (x, a, b), (rt, scale), g)
-        for n_, t, r_ in zip(("dx", "da", "db"), out, refs):
-            records.append((f"grouped_lora_bwd_{n_}", rel(t, r_), c.GRAD_TOL["grouped_lora_bwd"]))
-        return out
-
     pa.packed_attention_cuda = attn_fwd
     pa.packed_attention_dq_cuda = attn_bwd("dq", ("dq",))
     pa.packed_attention_dkv_cuda = attn_bwd("dkv", ("dk", "dv"))
-    gl.grouped_lora_cuda, gl.grouped_lora_bwd_cuda = lora_fwd, lora_bwd
     try:
-        yield
+        with c.audited_calls(torch, records):
+            yield
     finally:
         pa.packed_attention_cuda, pa.packed_attention_dq_cuda = orig["fwd"], orig["dq"]
         pa.packed_attention_dkv_cuda = orig["dkv"]
-        gl.grouped_lora_cuda, gl.grouped_lora_bwd_cuda = orig["gl"], orig["gl_bwd"]
-
-
-def audit_summary(records):
-    """Per kernel output: calls, worst error, tolerance, calls over it and
-    the worst call's index among that output's calls."""
-    out = {}
-    for kernel, err, tol in records:
-        e = out.setdefault(kernel, {"calls": 0, "max": 0.0, "tol": tol, "over": 0, "worst": 0})
-        if err > e["max"]:
-            e["max"], e["worst"] = err, e["calls"]
-        e["over"] += err > tol
-        e["calls"] += 1
-    return out
 
 
 def main() -> int:
@@ -158,7 +136,7 @@ def main() -> int:
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     path = sys.argv[3] if len(sys.argv) > 3 else "train"
     paths = ("train", "methods", "moe", "zamba", "zamba_int8", "starcoder2", "qwen2vl",
-             "whisper")
+             "whisper", "xlstm")
     if path not in paths:
         raise SystemExit(f"train_check_spread: unknown path {path!r} ({', '.join(paths)})")
     methods = path == "methods"
@@ -187,12 +165,14 @@ def main() -> int:
                             "moe": c.moe_plan, "zamba": c.zamba_plan,
                             "zamba_int8": lambda: c.zamba_plan("int8"),
                             "starcoder2": c.starcoder2_plan,
-                            "qwen2vl": c.qwen2vl_plan}[path]()
+                            "qwen2vl": c.qwen2vl_plan, "xlstm": c.xlstm_plan}[path]()
     int8 = cfg.backbone_dtype == "int8"
-    # the families this path runs (decode attention runs in no training step)
+    # the families this path runs (decode attention runs in no training step,
+    # packed attention in none of the ssm family's)
     families = [f for f in ops.FAMILIES if f != "decode_attention"
                 and (f != "quant_matmul" or int8)
-                and (f != "mamba_scan" or cfg.family == "hybrid")]
+                and (f != "mamba_scan" or cfg.family in ("hybrid", "ssm"))
+                and not (f.startswith("packed_attention") and cfg.family == "ssm")]
     rows = []
     for seed in range(n):
         if path == "whisper":
@@ -225,7 +205,8 @@ def main() -> int:
         worst = line["grad_err_rel_to_leaf_max"]
         rows.append({"seed": seed, "ok": ok, **{k: v["max"] for k, v in worst.items()},
                      "leaf": {k: v["leaf"] for k, v in worst.items()},
-                     "audit": audit_summary(records),
+                     "loss_rel": line["loss_rel_vs_plain"],
+                     "audit": c.audit_summary(records),
                      **({"routing_flips": line["routing_flips"]} if path == "moe" else {})})
         print(json.dumps(rows[-1]), flush=True)
         del engine, gen, loaders
@@ -238,6 +219,8 @@ def main() -> int:
     print(json.dumps({"root": root, "path": path, "seeds": n,
                       "failed": sum(not r["ok"] for r in rows), "tol": line["grad_tol"],
                       **{k: sorted(r[k] for r in rows) for k in dists},
+                      "loss_rel": {m: max(r["loss_rel"][m] for r in rows)
+                                   for m in rows[0]["loss_rel"]},
                       **worst, "S_prime": max(worst.values()),
                       "seconds": time.time() - t0}), flush=True)
     return 0
