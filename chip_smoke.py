@@ -674,19 +674,50 @@ def _profile_kernels(torch, body, n: int):
             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def kernel_device_ms(torch, timer, fn, key: str, n: int = 5):
-    """Device time per call of the kernels whose names hold ``key``, from
-    the profiler, L2 flushed before each call.  Where a kernel takes less
-    time than the host needs to launch it, the CUDA-event time of a call
+def launch_device_ms(torch, timer, fn, key: str, n: int = 5) -> dict:
+    """Device time per call of each kernel whose name holds ``key``, by the
+    kernel's own name (a call of several launches, each apart), from the
+    profiler, L2 flushed before each call.  Where a kernel takes less time
+    than the host needs to launch it, the CUDA-event time of a call
     (``Timer``) counts the device's wait for the launch; this does not.  The
     profiler now and then reports no kernel at all: up to three tries, else
-    None."""
+    {}."""
+    import re
+
     for _ in range(3):
-        us = sum(t for name, t in _profile_kernels(
-            torch, lambda: (timer.flush.zero_(), fn()), n).items() if key in name)
-        if us > 0:
-            return us / 1e3 / n
-    return None
+        out = {}
+        for name, us in _profile_kernels(torch, lambda: (timer.flush.zero_(), fn()), n).items():
+            if key in name and us > 0:
+                m = re.search(r"[A-Za-z_]\w*_kernel", name)
+                short = m.group(0) if m else name[:60]
+                out[short] = out.get(short, 0.0) + us / 1e3 / n
+        if out:
+            return out
+    return {}
+
+
+def kernel_device_ms(torch, timer, fn, key: str, n: int = 5):
+    """The device time per call of the kernels whose names hold ``key``
+    (``launch_device_ms`` summed), or None where the profiler reports none."""
+    by_name = launch_device_ms(torch, timer, fn, key, n)
+    return sum(by_name.values()) if by_name else None
+
+
+def call_memory(torch, fn) -> dict:
+    """Device memory of one call of ``fn``: its peak above what was
+    allocated before it (``peak_bytes``, its outputs included), the bytes of
+    the tensors it returns (``output_bytes``) and the difference, the call's
+    scratch (``scratch_bytes``)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    nbytes = sum(t.numel() * t.element_size() for t in outs if t is not None)
+    del out, outs
+    return {"peak_bytes": peak, "output_bytes": nbytes, "scratch_bytes": peak - nbytes}
 
 
 def library_device_ms(torch, timer, fn, n: int = 5):
@@ -937,11 +968,14 @@ SASS_EXPECT = (("quant_matmul", "qmm_wgmma_kernel", "HGMMA"),
                ("packed_attention", "packed_attention_dq_kernel", "HMMA"),
                ("packed_attention", "packed_attention_dkv_kernel", "HMMA"),
                ("mamba_scan", "mamba_scan_fwd_kernel", "HMMA"),
-               ("mamba_scan", "mamba_scan_fwd_tiled_kernel", "HMMA"),
                ("mamba_scan", "mamba_scan_bwd_state_kernel", "HMMA"),
                ("mamba_scan", "mamba_scan_bwd_chunk_kernel", "HMMA"),
                ("mamba_scan", "mamba_scan_bwd_state_tiled_kernel", "HMMA"),
-               ("mamba_scan", "mamba_scan_bwd_chunk_tiled_kernel", "HMMA"))
+               ("mamba_scan", "mamba_scan_scores_kernel", "HGMMA"),
+               ("mamba_scan", "mamba_scan_states_kernel", "HMMA"),
+               ("mamba_scan", "mamba_scan_outputs_kernel", "HMMA"),
+               ("mamba_scan", "mamba_scan_bwd_scores_kernel", "HGMMA"),
+               ("mamba_scan", "mamba_scan_bwd_outputs_kernel", "HMMA"))
 
 
 def sass_phase() -> None:
@@ -2404,6 +2438,21 @@ def _xlstm_bwd_work(torch, B, S, H, Q, dk, dv, r, h0_zero, dhf_zero, want_dh0):
                           + 4.0 * dk * rows)}
 
 
+def _scan_resources(ms, ptxas, kinds) -> dict:
+    """Each tiled-scan kernel of ``kinds`` (keys of ``ms._KINDS``): its
+    registers and spills (``ptxas``, which fails on a spill), its dynamic
+    shared memory and blocks per SM at a chunk of 256."""
+    out = {}
+    for kind in kinds:
+        kernel = kind + "_kernel"
+        rep = next(e for name, e in ptxas.items() if kernel in name)
+        if rep["spill_stores"] + rep["spill_loads"]:
+            raise AssertionError(f"{kernel} spills: {rep}")
+        out[kernel] = {key: rep[key] for key in ("registers", "spill_stores", "spill_loads")}
+        out[kernel].update(ms.occupancy(kind, 256))
+    return out
+
+
 def _xlstm_train_kernels(torch, timer, g, ptxas):
     """The tiled state and chunk backward kernels at xlstm-1.3b's (1024,
     1025) state, v, dy and the states padded with zero columns to 1088 as
@@ -2421,7 +2470,9 @@ def _xlstm_train_kernels(torch, timer, g, ptxas):
     dli (f32) within F32_TOL; the padded columns of dv, gexit and dh0
     exactly 0; each kernel twice for the same bits; no spill (``ptxas``).
     Each case's line has ms, device ms, the bound by bytes and by
-    operations (``_xlstm_bwd_work``) and the plain ms.  Entries
+    operations (``_xlstm_bwd_work``) and the plain ms; the chunk
+    backward's also each launch's device ms (scores, outputs, rows:
+    ``launch_device_ms``) and its scratch (``memory``).  Entries
     ``mamba_scan_bwd_state_tiled_xlstm`` and
     ``mamba_scan_bwd_chunk_tiled_xlstm`` (the path case, the others as
     variants, the worst error over the three)."""
@@ -2430,15 +2481,8 @@ def _xlstm_train_kernels(torch, timer, g, ptxas):
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ops
 
-    resources = {}
-    for kernel in ("mamba_scan_bwd_state_tiled_kernel", "mamba_scan_bwd_chunk_tiled_kernel",
-                   "mamba_scan_bwd_tile_sum_kernel"):
-        rep = next(e for name, e in ptxas.items() if kernel in name)
-        if rep["spill_stores"] + rep["spill_loads"]:
-            raise AssertionError(f"{kernel} spills: {rep}")
-        resources[kernel] = {key: rep[key] for key in ("registers", "spill_stores", "spill_loads")}
-    for kind in ("mamba_scan_bwd_state_tiled", "mamba_scan_bwd_chunk_tiled"):
-        resources[kind + "_kernel"].update(ms.occupancy(kind, 256))
+    resources = _scan_resources(ms, ptxas, ("mamba_scan_bwd_state_tiled", "mamba_scan_bwd_scores",
+                                            "mamba_scan_bwd_outputs", "mamba_scan_bwd_rows"))
     cfg, _, plan = xlstm_plan()
     ht = plan.htasks[0]
     H, dk, dv = XLSTM_HEADS, XLSTM_DK, XLSTM_DK + 1
@@ -2527,14 +2571,16 @@ def _xlstm_train_kernels(torch, timer, g, ptxas):
                 ("chunk", lambda: ms.mamba_scan_bwd_chunk_tiled_cuda(*ch_args),
                  lambda: ms.mamba_scan_bwd_chunk_plain(*ch_args), "mamba_scan_bwd_")):
             bms, by = bound_ms(*work["bwd_" + key])
+            launches = launch_device_ms(torch, timer, fn, dev_key, 3)
             res = {"shape": shape, "ms": timer(fn, runs=5, warmup=1),
-                   "device_ms": kernel_device_ms(torch, timer, fn, dev_key, 3),
+                   "device_ms": sum(launches.values()) if launches else None,
                    "plain_ms": timer(plain, runs=3, warmup=1),
                    "bound_ms": bms, "bound_by": by, "library_ms": None,
                    "bytes_bound_ms": work["bwd_" + key][0] / HBM_BYTES_PER_S * 1e3,
                    "operations_bound_ms": work["bwd_" + key][1] / BF16_FLOP_PER_S * 1e3}
             if key == "chunk":
-                res["tile_sum_device_ms"] = kernel_device_ms(torch, timer, fn, "bwd_tile_sum", 3)
+                res["launch_device_ms"] = launches
+                res["memory"] = call_memory(torch, fn)
             out[key][case] = res
             line["bwd_" + key] = {k_: v_ for k_, v_ in res.items() if k_ != "shape"}
         case_err = {"state": max(err["gexit"], err.get("dh0", 0.0), auto.get("dh0", 0.0)),
@@ -2566,8 +2612,10 @@ def xlstm_kernel_phase(torch, timer):
     h0, the final state and the entry states wanted) and serve_xlstm's
     forward (8 rows of 95, one chunk of 95: partial 64-row tiles).  y within
     KERNEL_TOL of its largest magnitude, the final and entry states within
-    F32_TOL; each case run twice for the same bits; the tiled kernel and the
-    tile sum may not spill.  Then grouped LoRA at M = 8 on the tenants'
+    F32_TOL; each case run twice for the same bits; no tiled forward kernel
+    (scores, states, outputs) may spill.  Each case's line has the call's
+    device ms, each launch's (``launch_device_ms``) and its scratch
+    (``memory``).  Then grouped LoRA at M = 8 on the tenants'
     sites (ssm_in 2048 -> 8192, attn_q / attn_v 4096 -> 4096).  Then the
     tiled state and chunk backward (``_xlstm_train_kernels``).  Entries
     ``mamba_scan_tiled_xlstm`` (the serve forward) with the others as
@@ -2584,13 +2632,8 @@ def xlstm_kernel_phase(torch, timer):
              "serve_forward": (8, Sd, Sd, 0.0, True)}
     results = {}
     ptxas = {e["kernel"]: e for e in _build.ptxas_report() if e["source"] == "mamba_scan.cu"}
-    resources = {}
-    for kernel in ("mamba_scan_fwd_tiled_kernel", "mamba_scan_tile_sum_kernel"):
-        rep = next(e for name, e in ptxas.items() if kernel in name)
-        if rep["spill_stores"] + rep["spill_loads"]:
-            raise AssertionError(f"{kernel} spills: {rep}")
-        resources[kernel] = {key: rep[key] for key in ("registers", "spill_stores", "spill_loads")}
-    resources["mamba_scan_fwd_tiled_kernel"].update(ms.occupancy("mamba_scan_fwd_tiled", 256))
+    resources = _scan_resources(ms, ptxas, ("mamba_scan_scores", "mamba_scan_states",
+                                            "mamba_scan_outputs"))
     with torch.no_grad():
         for case, (B, S, Q, resets, h0_zero) in cases.items():
             where = f"mamba_scan tiled {case} B={B} S={S} H={H} dk={dk} dv={dv} Q={Q}"
@@ -2613,15 +2656,16 @@ def xlstm_kernel_phase(torch, timer):
             del y2, h2, hin_ref
             work = _xlstm_scan_work(torch, B, S, H, Q, dk, dv, r, h0_zero)
             bms, by = bound_ms(*work)
+            launches = launch_device_ms(torch, timer, lambda: ms.mamba_scan_tiled_cuda(*args),
+                                        "mamba_scan_", 3)
             res = {"shape": f"B={B}, S={S}, H={H}, (dk, dv) = ({dk}, {dv}) padded to "
                             f"({dk}, {vp.shape[-1]}), Q={Q}, reset rows "
                             f"{0 if r is None else int(r.sum().item())}, h0 "
                             f"{'0' if h0_zero else 'random'}",
                    "ms": timer(lambda: ms.mamba_scan_tiled_cuda(*args), runs=5, warmup=1),
-                   "device_ms": kernel_device_ms(
-                       torch, timer, lambda: ms.mamba_scan_tiled_cuda(*args), "mamba_scan_", 3),
-                   "tile_sum_device_ms": kernel_device_ms(
-                       torch, timer, lambda: ms.mamba_scan_tiled_cuda(*args), "tile_sum", 3),
+                   "launch_device_ms": launches,
+                   "device_ms": sum(launches.values()) if launches else None,
+                   "memory": call_memory(torch, lambda: ms.mamba_scan_tiled_cuda(*args)),
                    "plain_ms": timer(lambda: ms.mamba_scan_plain(q, k, v, la, li, r, h0, Q),
                                      runs=3, warmup=1),
                    "bound_ms": bms, "bound_by": by, "library_ms": None,
@@ -6105,9 +6149,10 @@ def serve_xlstm_phase(torch):
     other second plain path, changes decode attention only, which this
     path does not run: it is the plain path bit for bit, so it is not
     rerun); ``Model.forward`` over the same tokens on the kernels: 21
-    ``ops.mamba_scan`` calls, each one ``mamba_scan_tiled`` call (two CUDA
-    launches: the 16 x 17 tiles of the padded [1024, 1088] state a (row,
-    head), then their sum), and 66 grouped LoRA, nothing else; its
+    ``ops.mamba_scan`` calls, each one ``mamba_scan_tiled`` call (three CUDA
+    launches: the chunk's scores, the 16 x 17 tiles of the padded [1024,
+    1088] state a (row, head), y by column tile), and 66 grouped LoRA,
+    nothing else; its
     distance from the kernels' decode within twice the plain path's.  On
     random weights this model carries a difference of one bf16 unit to
     the logits' size over its blocks (the plain paths' spread is of that
@@ -6294,8 +6339,8 @@ def serve_xlstm_phase(torch):
 # second, which ended first without it (395 s against 413).  The last
 # group needs the card to itself (deepseek-moe-16b's 60 GB of training,
 # yi-34b's 79 GB, qwen2-vl-7b's 15.2 GB backbone beside its training
-# activations, xlstm-1.3b's 16.5 GB of saved mLSTM states and its tiled
-# chunk backward's 2.35 GB of partial sums a call), and runs alone after them.
+# activations, xlstm-1.3b's 16.5 GB of saved mLSTM states beside 60 GB of
+# training), and runs alone after them.
 PATHS_BESIDE = (
     ("serve", "serve_int8", "train", "train_methods", "train_int8", "train_zamba",
      "train_zamba_int8", "train_whisper"),

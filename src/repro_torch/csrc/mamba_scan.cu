@@ -102,38 +102,59 @@
 // (chunk, b, h) and carries nothing.  All three share one shared-memory
 // layout.
 //
-// The tiled forward (`mamba_scan_fwd_tiled_kernel`) takes a state of any
-// [dk, dv] in 64 x 64 tiles (xlstm's mLSTM: dk = 1024, dv = 1025 padded to
-// 1088 by the caller, 4.2 MB a (row, head), far past an SM's shared memory).
-// The scan is bilinear in (q, k) over dk and acts on v column by column, so
-// tile (kd, vd)'s share of it is the (64, 64) scan of q and k's columns
-// kd * 64 .. + 63 and v's columns vd * 64 .. + 63 from that tile of h0: it
-// carries that tile, and its share of y's columns vd is an f32 partial.  One
-// block per (tile, b, h) runs the forward's body unchanged but for the
-// strides (`fwd_body<true>`); the partials go to plane kd of a scratch
-// [dk / 64][B, S, H, dv], and `mamba_scan_tile_sum_kernel` sums the planes
-// in order kd = 0, 1, ... and rounds once to bf16 (no atomics: the same bits
-// each run).  Every tile recomputes its chunk's decays and the q . k scores
-// of its 64 columns, so the work is dv / 64 times the scores and dk / 64
-// times the P v products of one pass over the whole state.
+// The tiled scan takes a state of any [dk, dv] in 64 x 64 tiles (xlstm's
+// mLSTM: dk = 1024, dv = 1025 padded to 1088 by the caller, 4.2 MB a (row,
+// head), far past an SM's shared memory).  It follows the Pallas bodies'
+// order, which form each chunk's scores once over the whole state width,
+// and cuts only what does not fit: the state and the outputs' columns.
+// The scores do not involve the state at all (Q x Q a chunk, 256 KB in f32).
+//   forward, three launches: `mamba_scan_scores_kernel` (s~ = dec (x) q k^T,
+//     a block per 64 x 64 tile of a chunk's scores with a live pair, over the
+//     whole dk: wgmma m64n64k16, q's rows from device memory into registers,
+//     k's through a cp.async ring of four tiles in the 128-byte swizzle; each
+//     64-deep slice into a fresh accumulator, then added in f32);
+//     `mamba_scan_states_kernel` (a block per 64 x 64 tile of the state and
+//     (b, h) carries that tile over the chunks alone -- the update is an outer
+//     product, so the tile is exact -- writing the entry states, a flag per
+//     tile that is not all 0, and the final state; no y);
+//     `mamba_scan_outputs_kernel` (a block per (64-wide column tile of y,
+//     b, h, chunk, 64-row tile): y = ec (x) (q H_in) + s~ v, the state term
+//     over the whole dk, skipping tiles flagged 0, rounded once to bf16).
+//   chunk backward, three launches: `mamba_scan_bwd_scores_kernel` (s~ and
+//     p~ = dec (x) dy v^T over the whole dv, as above; its last blocks flag
+//     the tiles of H_in and G_exit, a 64-row band each, the one read of those
+//     states where they are 0 -- in training, both);
+//     `mamba_scan_bwd_outputs_kernel` (a block per (64-wide column tile, b,
+//     h, chunk, row tile): dq = ec (x) (dy H_in^T) + p~ k and dk = w (x)
+//     (v G_exit^T) + p~^T q for a dk
+//     tile, sharing its q and k columns and reading p~ once by rows and once
+//     by columns; dv = w (x) (k G_exit) + s~^T dy for a dv tile; the rows'
+//     q . dq and k . dk over the tile's 64 columns from the f32 values);
+//     `mamba_scan_bwd_rows_kernel` (dcum and dli from those shares, summed
+//     over the dk tiles in order).
+// No f32 partial of an output leaves a block: each output is rounded to bf16
+// once, where it is complete.  The scores enter the products as three bf16
+// terms (`split3`), as the bodies' P does.  Every sum runs in a fixed order
+// (no atomics): two runs give the same bits.
 //
-// The tiled backward takes the same tiles.  The state backward's update
+// What bounds them on the H100: the function reads q, k, v, dy, hin and
+// gexit once (the states are 4.5 MB a (row, head, chunk) in f32, most of the
+// backward's bytes at the training shape) and is bound by bytes; the scores'
+// products (about 2 Q^2 (dk + dv) / 2 a chunk and head) and the outputs'
+// (three bf16 terms of the scores against 64 columns, Q^2 / 2 pairs a column
+// tile) sit well under 295 operations a byte.  So the design makes one pass
+// of each: a chunk's scores once (not once a state tile), the states read
+// once where they are 0 (the flags), and each output complete in one block
+// (no f32 partial of it written and summed back: at the training shape such
+// planes would be 2.35 GB a backward call).  What stays above the bound:
+// the forward's state update, whose w k factor enters as three bf16 terms,
+// tile by tile.
+//
+// The tiled state backward takes the same tiles.  Its update
 // G <- cdec G + sum_i ec_i q_i (x) dy_i is an outer product of q's dk columns
 // and dy's dv columns, so tile (kd, vd) of G is the (64, 64) state backward
 // of q's columns kd and dy's columns vd from that tile of dhf, exactly, with
 // no sum across blocks (`bwd_state_body<true>`; dy is padded to dv like v).
-// The chunk backward is bilinear like the forward: p = dy . v sums over dv
-// and s = q . k over dk, so tile (kd, vd) of a chunk gives the share of dv
-// tile vd in dq and dk (their columns kd) and the share of dk tile kd in dv
-// (its columns vd), from its tiles of H_in and G_exit.  One block per (tile,
-// b, h, chunk) runs the chunk backward's body on its strides
-// (`bwd_chunk_body<true>`) and writes those shares in f32: dq and dk to
-// plane vd of [dv / 64][B, S, H, dk] scratches, dv to plane kd of a
-// [dk / 64][B, S, H, dv] one.  `mamba_scan_bwd_tile_sum_kernel` then sums
-// each row's planes in order (vd = 0, 1, ... for dq and dk, kd = 0, 1, ...
-// for dv), rounds once to bf16 and forms dcum = q . dq - k . dk and dli =
-// k . dk from the f32 sums over the whole dk (no atomics: the same bits
-// each run).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -166,13 +187,14 @@ struct Args {
   bf16* dv;
   float* dcum;         // [B, S, H]
   float* dli;
-  float* ypart;        // tiled forward: partial y [dk / 64][B, S, H, dv] f32
-  float* dqpart;       // tiled chunk bwd: partial dq [dv / 64][B, S, H, dk] f32
-  float* dkpart;       // tiled chunk bwd: partial dk [dv / 64][B, S, H, dk] f32
-  float* dvpart;       // tiled chunk bwd: partial dv [dk / 64][B, S, H, dv] f32
+  float* scores;       // tiled: the chunks' decay-masked scores [planes][B * H, n, Qp, Qp] f32
+  int* flags;          // tiled: a state's 64 x 64 tiles not all 0 [planes][B * H, n, dk/64, dv/64]
+  float* rowq;         // tiled chunk bwd: q . dq per 64-column tile [dk / 64][B, S, H] f32
+  float* rowk;         // tiled chunk bwd: k . dk per 64-column tile [dk / 64][B, S, H] f32
   int S, H, Q, n;
   int kdim, vdim;      // tiled kernels: the state's dk, dv (multiples of 64); else 64
   int want_dh0;        // state bwd: dh0 is wanted (else the first chunk's products are skipped)
+  int B;
 };
 
 __device__ __forceinline__ size_t row_off(const Args& a, int b, int t, int h) {
@@ -541,8 +563,7 @@ __device__ void warp_cumsum(const Args& a, int b, int t0, int h, float* cum) {
 
 // A chunk's set-up, ending with a barrier: the vectors over its QMAX rows
 // (two per thread), the ring's work list and, when `state` is not null, the
-// f32 state [D][D] there (STRIDED: rows `srow` apart, a tile of a larger
-// state) as three bf16 terms; returns whether any value of
+// f32 state [D][D] there as three bf16 terms; returns whether any value of
 // that state is not 0 (a state of zeros adds nothing, and its products are
 // skipped).  The reset counts' inclusive
 // sums seg come from a shuffle scan (the lanes' runs, then the warps in
@@ -551,9 +572,8 @@ __device__ void warp_cumsum(const Args& a, int b, int t0, int h, float* cum) {
 // split the state.  Then gain, ec and w once
 // per row.  Rows at or past Q read la = 0 and no reset, so they carry
 // cum_last and seg_last; their gain, ec and w are 0.
-template <bool STRIDED = false>
 __device__ bool chunk_prologue(const Args& a, int b, int t0, int h, const Smem& s, int nt,
-                               bool dkv, const float* state, size_t srow = D) {
+                               bool dkv, const float* state) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, Q = a.Q;
   float li[2] = {0.f, 0.f};
   int rc[2] = {0, 0};
@@ -585,9 +605,7 @@ __device__ bool chunk_prologue(const Args& a, int b, int t0, int h, const Smem& 
     if (tid == 32) fill_items(s, nt, dkv);
     if (state != nullptr)
       for (int i = tid - 32; i < D * D / 2; i += MMA_THREADS - 32) {
-        const float2 x = STRIDED
-                             ? *reinterpret_cast<const float2*>(state + (2 * i / D) * srow + 2 * i % D)
-                             : reinterpret_cast<const float2*>(state)[i];
+        const float2 x = reinterpret_cast<const float2*>(state)[i];
         nonzero |= x.x != 0.f || x.y != 0.f;
         split_pair(s.split, i, x);
       }
@@ -674,49 +692,16 @@ __device__ __forceinline__ int slab_kind(const int* seg, int i0, int j0) {
 
 // ---- forward ---------------------------------------------------------------
 
-// f32 accumulators of a warp's 16 rows x 64 straight to rows r0 .. r0 + 15
-// of dst (row r at dst + r * stride), 8-byte stores, rows at or past Q
-// dropped (the tiled forward's partial y)
-__device__ __forceinline__ void store_rows_f32(const float (&acc)[8][4], float* dst,
-                                               size_t stride, int r0, int Q) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + g + 8 * i;
-    if (row >= Q) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<float2*>(dst + row * stride + nt * 8 + 2 * t4) =
-          make_float2(acc[nt][2 * i], acc[nt][2 * i + 1]);
-  }
-}
-
-// The forward of one (b, h) over its chunks.  TILED: the block computes one
-// 64 x 64 tile (kd, vd) of a [dk, dv] state (blockIdx.x = kd * dv / 64 + vd,
-// blockIdx.y = b * H + h): the scan over q, k's columns kd * 64 .. + 63 and
-// v's columns vd * 64 .. + 63 from that tile of h0, which is the exact
-// share of that tile in the whole scan (the scan is bilinear in (q, k) over
-// dk and acts on v column by column); its y, the share of those dk columns
-// in y's columns vd, goes out in f32 to plane kd of `ypart`, which
-// `mamba_scan_tile_sum_kernel` sums over kd.  Otherwise dk = dv = 64 and y
-// leaves as bf16.
-template <bool TILED>
+// The forward of one (b, h) over its chunks (dk = dv = 64).
 __device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw) {
   const Smem s = carve(smem_raw);
-  int bh = blockIdx.x, kd = 0, vd = 0;
-  if (TILED) {
-    bh = blockIdx.y;
-    kd = blockIdx.x / (a.vdim / D);
-    vd = blockIdx.x % (a.vdim / D);
-  }
+  const int bh = blockIdx.x;
   const int b = bh / a.H, h = bh % a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const int Q = a.Q, nt = (Q + TR - 1) / TR;
-  const size_t stride = static_cast<size_t>(a.H) * (TILED ? a.kdim : D);  // q, k rows
-  const size_t vstride = TILED ? static_cast<size_t>(a.H) * a.vdim : stride;  // v, y rows
-  const size_t srow = TILED ? a.vdim : D;  // a state's rows
-  const size_t sstate = TILED ? static_cast<size_t>(a.kdim) * a.vdim : D * D;  // one (b, h) state
-  const size_t soff = TILED ? static_cast<size_t>(kd) * D * a.vdim + vd * D : 0;  // the tile's
+  const size_t stride = static_cast<size_t>(a.H) * D;  // q, k, v, y rows
+  const size_t srow = D;  // a state's rows
+  const size_t sstate = D * D;  // one (b, h) state
   const int d0 = warp * 16;  // this warp's rows of the state
 
   // H [d0 + g (+ 8)][nt * 8 + 2 t4 (+ 1)], this warp's rows of the carried
@@ -724,7 +709,7 @@ __device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw)
   // its three bf16 terms in shared memory, whose sum is H exactly
   float hs[8][4];
   {
-    const float* src = a.h0 + static_cast<size_t>(bh) * sstate + soff;
+    const float* src = a.h0 + static_cast<size_t>(bh) * sstate;
 #pragma unroll
     for (int nt8 = 0; nt8 < 8; ++nt8)
 #pragma unroll
@@ -738,8 +723,7 @@ __device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw)
 
   for (int c = 0; c < a.n; ++c) {
     const int t0 = c * Q;
-    const size_t base = row_off(a, b, t0, h) * (TILED ? a.kdim : D) + (TILED ? kd * D : 0);
-    const size_t vbase = TILED ? row_off(a, b, t0, h) * a.vdim + vd * D : base;
+    const size_t base = row_off(a, b, t0, h) * D;
     __syncthreads();  // the previous chunk's vectors, split and stage are no longer read
     // each round's q fragments are loaded a round ahead, the first round's
     // while the set-up runs
@@ -748,7 +732,7 @@ __device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw)
     chunk_prologue(a, b, t0, h, s, nt, false, nullptr);
     // this chunk's entry state: the backward's residual, and its three terms
     float* hin =
-        a.hin != nullptr ? a.hin + (static_cast<size_t>(bh) * a.n + c) * sstate + soff : nullptr;
+        a.hin != nullptr ? a.hin + (static_cast<size_t>(bh) * a.n + c) * sstate : nullptr;
     bool nonzero = false;
 #pragma unroll
     for (int nt8 = 0; nt8 < 8; ++nt8)
@@ -767,8 +751,8 @@ __device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw)
       }
     // (the split is written) a state of zeros adds nothing to y
     const bool h_live = __syncthreads_or(nonzero);
-    const RingT<TILED> ring{s,       a.k + base, a.v + vbase,         nullptr,
-                            nullptr, stride,     Q,           s.items[MAX_ITEMS], vstride};
+    const Ring ring{s, a.k + base, a.v + base, nullptr, nullptr, stride, Q, s.items[MAX_ITEMS],
+                    stride};
     ring.start();
     const int last = s.seg[Q - 1];
     float upd[8][4];  // sum_j w_j k_j (x) v_j over the chunk, this warp's rows d
@@ -849,11 +833,7 @@ __device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw)
           }
         }
       }
-      if (TILED)  // plane kd of the partial y, [dk / 64][B * H * S * dv]
-        store_rows_f32(y, a.ypart + kd * (static_cast<size_t>(gridDim.y) * a.S * a.vdim) + vbase,
-                       vstride, i0, Q);
-      else
-        store_rows(y, s.stage + warp * 16 * DP, a.y + base, stride, i0, Q);
+      store_rows(y, s.stage + warp * 16 * DP, a.y + base, stride, i0, Q);
     }
     cp_async_wait<0>();  // (only empty groups are left)
     const float cdec = last == 0 ? expf(s.cum[Q - 1]) : 0.f;
@@ -870,7 +850,7 @@ __device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw)
         hs[nt8][2 * i + 1] = cdec * ((x[0].y + x[1].y) + x[2].y) + upd[nt8][2 * i + 1];
       }
   }
-  float* hout = a.hout + static_cast<size_t>(bh) * sstate + soff;
+  float* hout = a.hout + static_cast<size_t>(bh) * sstate;
 #pragma unroll
   for (int nt8 = 0; nt8 < 8; ++nt8)
 #pragma unroll
@@ -881,78 +861,31 @@ __device__ __forceinline__ void fwd_body(const Args& a, unsigned char* smem_raw)
 
 __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  fwd_body<false>(a, smem_raw);
+  fwd_body(a, smem_raw);
 }
-
-__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_fwd_tiled_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  fwd_body<true>(a, smem_raw);
-}
-
-// y = the sum of the tiled forward's dk / 64 partial planes, kd = 0, 1, ...
-// in turn (a fixed order: two runs give the same bits), rounded once to
-// bf16; four values a thread (`plane`, the values of one plane, is a
-// multiple of 64)
-__global__ void mamba_scan_tile_sum_kernel(const float* __restrict__ part, bf16* __restrict__ y,
-                                           size_t plane, int nk) {
-  const size_t i = (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
-  if (i >= plane) return;
-  float4 acc = *reinterpret_cast<const float4*>(part + i);
-  for (int kd = 1; kd < nk; ++kd) {
-    const float4 x = *reinterpret_cast<const float4*>(part + kd * plane + i);
-    acc.x += x.x;
-    acc.y += x.y;
-    acc.z += x.z;
-    acc.w += x.w;
-  }
-  *reinterpret_cast<uint2*>(y + i) = make_uint2(pack_bf16(acc.x, acc.y), pack_bf16(acc.z, acc.w));
-}
-
 
 // ---- chunk backward ----------------------------------------------------------
 
-// The chunk backward of one (b, h) and chunk.  TILED: the block computes
-// tile (kd, vd) of a [dk, dv] state (blockIdx.x = kd * dv / 64 + vd,
-// blockIdx.y = b * H + h, blockIdx.z = the chunk): the (64, 64) body on q
-// and k's columns kd * 64 .. + 63, v and dy's columns vd * 64 .. + 63 and
-// those tiles of H_in and G_exit.  Its dq and dk (columns kd) are the share
-// of dv tile vd, its dv (columns vd) the share of dk tile kd; they leave in
-// f32 to plane vd of `dqpart` / `dkpart` and plane kd of `dvpart`, and
-// `mamba_scan_bwd_tile_sum_kernel` sums the planes and forms dcum and dli.
-// Otherwise dk = dv = 64: dq, dk and dv leave as bf16, dcum and dli are
-// formed here.
-template <bool TILED>
+// The chunk backward of one (b, h) and chunk (dk = dv = 64): dq, dk and dv
+// leave as bf16, dcum and dli are formed here.
 __device__ __forceinline__ void bwd_chunk_body(const Args& a, unsigned char* smem_raw) {
   const Smem s = carve(smem_raw);
-  int bh = blockIdx.x, c = blockIdx.y, kd = 0, vd = 0;
-  if (TILED) {
-    bh = blockIdx.y;
-    c = blockIdx.z;
-    kd = blockIdx.x / (a.vdim / D);
-    vd = blockIdx.x % (a.vdim / D);
-  }
+  const int bh = blockIdx.x, c = blockIdx.y;
   const int b = bh / a.H, h = bh % a.H;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const int Q = a.Q, nt = (Q + TR - 1) / TR, t0 = c * Q;
-  const size_t stride = static_cast<size_t>(a.H) * (TILED ? a.kdim : D);  // q, k rows
-  const size_t vstride = TILED ? static_cast<size_t>(a.H) * a.vdim : stride;  // v, dy rows
-  const size_t base = row_off(a, b, t0, h) * (TILED ? a.kdim : D) + (TILED ? kd * D : 0);
-  const size_t vbase = TILED ? row_off(a, b, t0, h) * a.vdim + vd * D : base;
-  const size_t srow = TILED ? a.vdim : D;  // a state's rows
-  const size_t soff =
-      (static_cast<size_t>(bh) * a.n + c) * (TILED ? static_cast<size_t>(a.kdim) * a.vdim : D * D) +
-      (TILED ? static_cast<size_t>(kd) * D * a.vdim + vd * D : 0);  // the tile of H_in / G_exit
-  // one [B, S, H, dk] (or dv) plane of the tiled partials
-  const size_t plane = static_cast<size_t>(gridDim.y) * a.S;
+  const size_t stride = static_cast<size_t>(a.H) * D;  // q, k, v, dy rows
+  const size_t base = row_off(a, b, t0, h) * D;
+  const size_t soff = (static_cast<size_t>(bh) * a.n + c) * (D * D);  // H_in / G_exit
 
-  // each dq round's dy (and, untiled, q) fragments are loaded a round
-  // ahead, the first round's while the set-up runs
+  // each dq round's dy and q fragments are loaded a round ahead, the first
+  // round's while the set-up runs
   uint32_t dyn[4][4], qn[4][4];
-  load_a_rows(dyn, a.dy + vbase, vstride, (nt - 1) * TR + warp * 16, Q);
-  if (!TILED) load_a_rows(qn, a.q + base, stride, (nt - 1) * TR + warp * 16, Q);
-  const bool hin_live = chunk_prologue<TILED>(a, b, t0, h, s, nt, true, a.hin + soff, srow);
-  const RingT<TILED> ring{s, a.k + base, a.v + vbase, a.q + base, a.dy + vbase, stride, Q,
-                          s.items[MAX_ITEMS], TILED ? vstride : 0};
+  load_a_rows(dyn, a.dy + base, stride, (nt - 1) * TR + warp * 16, Q);
+  load_a_rows(qn, a.q + base, stride, (nt - 1) * TR + warp * 16, Q);
+  const bool hin_live = chunk_prologue(a, b, t0, h, s, nt, true, a.hin + soff);
+  const Ring ring{s, a.k + base, a.v + base, a.q + base, a.dy + base, stride, Q,
+                  s.items[MAX_ITEMS], 0};
   ring.start();
   const int last = s.seg[Q - 1];
   bf16* stage = s.stage + warp * 16 * DP;
@@ -964,10 +897,10 @@ __device__ __forceinline__ void bwd_chunk_body(const Args& a, unsigned char* sme
     const int i0 = qt * TR + warp * 16;
     uint32_t dyf[4][4], qf[4][4];
     take(dyf, dyn);
-    if (!TILED) take(qf, qn);
+    take(qf, qn);
     if (qt > 0) {
-      load_a_rows(dyn, a.dy + vbase, vstride, i0 - TR, Q);
-      if (!TILED) load_a_rows(qn, a.q + base, stride, i0 - TR, Q);
+      load_a_rows(dyn, a.dy + base, stride, i0 - TR, Q);
+      load_a_rows(qn, a.q + base, stride, i0 - TR, Q);
     }
     // the last round also brings G_exit into registers; its split replaces
     // H_in's once every warp has read H_in (past the round's first barrier)
@@ -977,9 +910,7 @@ __device__ __forceinline__ void bwd_chunk_body(const Args& a, unsigned char* sme
 #pragma unroll
       for (int i = 0; i < GP; ++i) {
         const int p = threadIdx.x + i * MMA_THREADS;  // the element pair (2p / D, 2p % D)
-        gpre[i] = TILED
-                      ? *reinterpret_cast<const float2*>(a.gexit + soff + (2 * p / D) * srow + 2 * p % D)
-                      : reinterpret_cast<const float2*>(a.gexit + soff)[p];
+        gpre[i] = reinterpret_cast<const float2*>(a.gexit + soff)[p];
       }
     float cum_r[2];
     int seg_r[2];
@@ -1033,17 +964,13 @@ __device__ __forceinline__ void bwd_chunk_body(const Args& a, unsigned char* sme
         slab_apply(dq, pa, kt_s + sb * 16 * DP);  // P k_j
       }
     }
-    if (TILED) {  // plane vd of the partial dq
-      store_rows_f32(dq, a.dqpart + vd * plane * a.kdim + base, stride, i0, Q);
-    } else {
-      float qdq[2];
-      row_dots(qf, dq, qdq);
-      if (t4 == 0) {
-        s.qdq[i0 + g] = qdq[0];
-        s.qdq[i0 + g + 8] = qdq[1];
-      }
-      store_rows(dq, stage, a.dq + base, stride, i0, Q);
+    float qdq[2];
+    row_dots(qf, dq, qdq);
+    if (t4 == 0) {
+      s.qdq[i0 + g] = qdq[0];
+      s.qdq[i0 + g + 8] = qdq[1];
     }
+    store_rows(dq, stage, a.dq + base, stride, i0, Q);
   }
 
   // (G_exit's split and every warp's q . dq rows are written) a zero G_exit
@@ -1054,7 +981,7 @@ __device__ __forceinline__ void bwd_chunk_body(const Args& a, unsigned char* sme
   for (int kt = 0; kt < nt; ++kt) {
     const int j0 = kt * TR + warp * 16;
     uint32_t vf[4][4], kf[4][4];
-    load_a_rows(vf, a.v + vbase, vstride, j0, Q);
+    load_a_rows(vf, a.v + base, stride, j0, Q);
     load_a_rows(kf, a.k + base, stride, j0, Q);
     float cum_r[2], gain_r[2];
     int seg_r[2];
@@ -1115,110 +1042,28 @@ __device__ __forceinline__ void bwd_chunk_body(const Args& a, unsigned char* sme
         slab_apply(dv, pa, dyt_s + sb * 16 * DP);  // P2^T dy_i
       }
     }
-    if (TILED) {  // plane vd of the partial dk, plane kd of the partial dv
-      store_rows_f32(dk, a.dkpart + vd * plane * a.kdim + base, stride, j0, Q);
-      store_rows_f32(dv, a.dvpart + kd * plane * a.vdim + vbase, vstride, j0, Q);
-    } else {
-      float kdk[2];
-      row_dots(kf, dk, kdk);
-      if (t4 == 0) {
+    float kdk[2];
+    row_dots(kf, dk, kdk);
+    if (t4 == 0) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int row = j0 + g + 8 * i;
-          if (row < Q) {
-            const size_t ro = row_off(a, b, t0 + row, h);
-            a.dli[ro] = kdk[i];
-            a.dcum[ro] = s.qdq[row] - kdk[i];
-          }
+      for (int i = 0; i < 2; ++i) {
+        const int row = j0 + g + 8 * i;
+        if (row < Q) {
+          const size_t ro = row_off(a, b, t0 + row, h);
+          a.dli[ro] = kdk[i];
+          a.dcum[ro] = s.qdq[row] - kdk[i];
         }
       }
-      store_rows(dk, stage, a.dk + base, stride, j0, Q);
-      store_rows(dv, stage, a.dv + base, stride, j0, Q);
     }
+    store_rows(dk, stage, a.dk + base, stride, j0, Q);
+    store_rows(dv, stage, a.dv + base, stride, j0, Q);
   }
   cp_async_wait<0>();  // (only empty groups are left)
 }
 
 __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_chunk_body<false>(a, smem_raw);
-}
-
-__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_chunk_tiled_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bwd_chunk_body<true>(a, smem_raw);
-}
-
-constexpr int SUM_THREADS = 256;  // the tiled chunk backward's sum: a block a row
-
-// The tiled chunk backward's second launch, one block per row (b, t, h):
-// dq and dk as the sums of their dv / 64 partial planes (vd = 0, 1, ... in
-// turn) and dv of its dk / 64 planes (kd = 0, 1, ...), each rounded once to
-// bf16; dli = k . dk and dcum = q . dq - dli from the f32 sums over the whole
-// dk: each thread's four-column groups in order, then the lanes by a shuffle
-// tree, then the warps in order (a fixed order: the same bits each run).
-__global__ void __launch_bounds__(SUM_THREADS) mamba_scan_bwd_tile_sum_kernel(Args a) {
-  __shared__ float part[2][SUM_THREADS / 32];
-  const size_t row = blockIdx.x, rows = gridDim.x;
-  const int nk = a.kdim / D, nv = a.vdim / D, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const size_t pk = rows * a.kdim, pv = rows * a.vdim;  // one plane
-  float qdq = 0.f, kdk = 0.f;
-  for (int i = threadIdx.x * 4; i < a.kdim; i += SUM_THREADS * 4) {
-    const size_t o = row * a.kdim + i;
-    float4 dq = *reinterpret_cast<const float4*>(a.dqpart + o);
-    float4 dk = *reinterpret_cast<const float4*>(a.dkpart + o);
-    for (int vd = 1; vd < nv; ++vd) {
-      const float4 x = *reinterpret_cast<const float4*>(a.dqpart + vd * pk + o);
-      const float4 y = *reinterpret_cast<const float4*>(a.dkpart + vd * pk + o);
-      dq.x += x.x;
-      dq.y += x.y;
-      dq.z += x.z;
-      dq.w += x.w;
-      dk.x += y.x;
-      dk.y += y.y;
-      dk.z += y.z;
-      dk.w += y.w;
-    }
-    const uint2 qr = *reinterpret_cast<const uint2*>(a.q + o);
-    const uint2 kr = *reinterpret_cast<const uint2*>(a.k + o);
-    const float2 q0 = bf16x2_to_float2(qr.x), q1 = bf16x2_to_float2(qr.y);
-    const float2 k0 = bf16x2_to_float2(kr.x), k1 = bf16x2_to_float2(kr.y);
-    qdq += ((q0.x * dq.x + q0.y * dq.y) + q1.x * dq.z) + q1.y * dq.w;
-    kdk += ((k0.x * dk.x + k0.y * dk.y) + k1.x * dk.z) + k1.y * dk.w;
-    *reinterpret_cast<uint2*>(a.dq + o) = make_uint2(pack_bf16(dq.x, dq.y), pack_bf16(dq.z, dq.w));
-    *reinterpret_cast<uint2*>(a.dk + o) = make_uint2(pack_bf16(dk.x, dk.y), pack_bf16(dk.z, dk.w));
-  }
-  for (int i = threadIdx.x * 4; i < a.vdim; i += SUM_THREADS * 4) {
-    const size_t o = row * a.vdim + i;
-    float4 dv = *reinterpret_cast<const float4*>(a.dvpart + o);
-    for (int kd = 1; kd < nk; ++kd) {
-      const float4 x = *reinterpret_cast<const float4*>(a.dvpart + kd * pv + o);
-      dv.x += x.x;
-      dv.y += x.y;
-      dv.z += x.z;
-      dv.w += x.w;
-    }
-    *reinterpret_cast<uint2*>(a.dv + o) = make_uint2(pack_bf16(dv.x, dv.y), pack_bf16(dv.z, dv.w));
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    qdq += __shfl_xor_sync(0xffffffffu, qdq, off);
-    kdk += __shfl_xor_sync(0xffffffffu, kdk, off);
-  }
-  if (lane == 0) {
-    part[0][warp] = qdq;
-    part[1][warp] = kdk;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float sq = 0.f, sk = 0.f;
-    for (int w = 0; w < SUM_THREADS / 32; ++w) {
-      sq += part[0][w];
-      sk += part[1][w];
-    }
-    a.dli[row] = sk;
-    a.dcum[row] = sq - sk;
-  }
+  bwd_chunk_body(a, smem_raw);
 }
 
 // ---- state backward -------------------------------------------------------------
@@ -1401,27 +1246,689 @@ __global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_state_tiled_ker
   bwd_state_body<true>(a, smem_raw);
 }
 
-enum class Kind { kFwd, kBwdState, kBwdChunk, kFwdTiled, kBwdStateTiled, kBwdChunkTiled };
+// ---- the tiled scan at a large state: scores, states, outputs ----------------
 
-// the kernel of a kind, its dynamic shared memory (one layout for the
-// six) and block size; the attributes it launches with are set
+// the tiled kernels' chunk vectors (what chunk_prologue fills, no qdq)
+constexpr size_t kVecBytes = 4 * QMAX * sizeof(float) + QMAX * sizeof(int) + 4 * sizeof(int) +
+                             (MAX_ITEMS + 4) * sizeof(int);
+
+__device__ Smem carve_vectors(unsigned char* base) {
+  Smem s{};
+  s.cum = reinterpret_cast<float*>(base);
+  s.gain = s.cum + QMAX;
+  s.ec = s.gain + QMAX;
+  s.w = s.ec + QMAX;
+  s.seg = reinterpret_cast<int*>(s.w + QMAX);
+  s.wseg = s.seg + QMAX;
+  s.items = s.wseg + 4;
+  return s;
+}
+
+// -- scores: wgmma on a warpgroup, B through a cp.async ring in the 128-byte swizzle
+
+constexpr int SC_STAGES = 4;                              // the scores' ring of key tiles
+constexpr size_t kSwTile = sizeof(bf16) * TR * D;         // a 64 x 64 bf16 tile, swizzled
+constexpr size_t kScoresSmem = 1024 + SC_STAGES * kSwTile + kVecBytes;  // + the tiles' alignment
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma descriptor of a K-major bf16 tile in the 128-byte swizzle: rows of
+// 64 bf16 (128 bytes), 8-row groups 1024 bytes apart (as quant_matmul.cu)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[i][e])::"memory");
+}
+
+// d (64 x 64 f32: warp w's rows 16 w + g and + 8, columns 8 j + 2 t4 and
+// + 1 in d[j], the layout of mma.m16n8k16's accumulators) = a (64 x 16 bf16
+// in registers, mma.m16n8k16's A layout per warp) times B (16 x 64 bf16 in
+// shared memory, K-major, 128-byte swizzle, by its descriptor), plus d when
+// `accumulate`
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// rows r0 .. r0 + 63 of a chunk's [rows, stride] bf16 matrix, the 64
+// columns at src, into a K-major tile in the 128-byte swizzle (16-byte
+// chunk c of row r at r * 128 + (c ^ r % 8) * 16 bytes), rows at or past Q 0
+__device__ __forceinline__ void load_sw_tile(bf16* dst, const bf16* src, size_t stride, int r0,
+                                             int Q) {
+  for (int i = threadIdx.x; i < TR * 8; i += MMA_THREADS) {
+    const int r = i >> 3, c = i & 7, row = r0 + r;
+    const bool ok = row < Q;
+    cp_async16(dst + r * D + ((c ^ (r & 7)) << 3), ok ? src + row * stride + c * 8 : src, ok);
+  }
+}
+
+// sum (64 x 64 f32, the warpgroup's accumulators) = A B^T over `nsl` slices
+// of 64 columns: A the chunk's rows from ia (this warp's 16) of a [rows,
+// stride] bf16 matrix, straight from device memory into registers a slice
+// ahead; B its rows j0 .. j0 + 63 of another, through a ring of SC_STAGES
+// swizzled tiles that cp.async fills SC_STAGES - 1 slices ahead.  Each
+// slice's four wgmma go into a fresh accumulator (the first with scale-d 0),
+// which is then added to sum in f32 round-to-nearest (the tensor cores
+// truncate their own sums).  Ends with every cp.async landed.
+__device__ void score_product(float (&sum)[8][4], const bf16* A, const bf16* Bm, size_t stride,
+                              int nsl, int ia, int j0, int Q, bf16* ring) {
+  zero(sum);
+#pragma unroll
+  for (int sl = 0; sl < SC_STAGES - 1; ++sl) {
+    if (sl < nsl) load_sw_tile(ring + sl * TR * D, Bm + sl * D, stride, j0, Q);
+    cp_async_commit();
+  }
+  uint32_t an[4][4], af[4][4];
+  load_a_rows(an, A, stride, ia, Q);
+  float t[8][4];
+  zero(t);
+  for (int sl = 0; sl < nsl; ++sl) {
+    take(af, an);
+    if (sl + 1 < nsl) load_a_rows(an, A + (sl + 1) * D, stride, ia, Q);
+    cp_async_wait<SC_STAGES - 2>();
+    fence_proxy_async();  // the tile's cp.async writes, seen by wgmma's reads
+    __syncthreads();      // slice sl has landed; every warp is done with slice sl - 1
+    const int next = sl + SC_STAGES - 1;
+    if (next < nsl) load_sw_tile(ring + (next % SC_STAGES) * TR * D, Bm + next * D, stride, j0, Q);
+    cp_async_commit();
+    const bf16* tile = ring + (sl % SC_STAGES) * TR * D;
+    fence_acc(t);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_m64n64k16(t, af[kk], desc_sw128(tile + kk * 16), kk);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) add4(sum[j], t[j]);
+  }
+  cp_async_wait<0>();  // (only empty groups are left)
+}
+
+// X[i][j] = dec(i, j) sum[i][j] on live pairs (j <= i < Q in one segment),
+// 0 elsewhere: this warp's rows i0 + g (+ 8) of key columns j0 .., into the
+// chunk's f32 [Qp][Qp] scores X (rows ld apart).  dec as the bodies take it.
+__device__ __forceinline__ void store_scores(const float (&sum)[8][4], const Smem& s, float* X,
+                                             size_t ld, int i0, int j0, int Q) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int ri = 0; ri < 2; ++ri) {
+    const int i = i0 + g + 8 * ri;
+    const float ci = s.cum[i];
+    const int si = s.seg[i];
+#pragma unroll
+    for (int nt8 = 0; nt8 < 8; ++nt8) {
+      float x[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + nt8 * 8 + 2 * t4 + e;
+        const bool live = i < Q && j <= i && s.seg[j] == si;
+        x[e] = live ? sum[nt8][2 * ri + e] * (exp2_fast((ci - s.cum[j]) * LOG2E) * s.gain[j]) : 0.f;
+      }
+      *reinterpret_cast<float2*>(X + static_cast<size_t>(i) * ld + j0 + nt8 * 8 + 2 * t4) =
+          make_float2(x[0], x[1]);
+    }
+  }
+}
+
+// flags[vd] = whether tile vd of a 64-row band of an f32 state (rows vdim
+// apart; vdim / 64 <= 64 tiles) holds a value that is not 0: each thread's
+// 16-byte loads in a 64-bit mask, then the warps' masks OR-ed
+__device__ void flag_band(const float* band, int vdim, int* flags) {
+  __shared__ unsigned long long part[MMA_THREADS / 32];
+  const int nv = vdim / D, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long mask = 0;
+  for (int vd = 0; vd < nv; ++vd) {
+    bool nz = false;
+#pragma unroll
+    for (int i = 0; i < D * D / 4 / MMA_THREADS; ++i) {
+      const int idx = threadIdx.x + i * MMA_THREADS, r = idx >> 4, c4 = idx & 15;
+      const float4 x =
+          *reinterpret_cast<const float4*>(band + static_cast<size_t>(r) * vdim + vd * D + c4 * 4);
+      nz |= x.x != 0.f || x.y != 0.f || x.z != 0.f || x.w != 0.f;
+    }
+    if (nz) mask |= 1ull << vd;
+  }
+  const unsigned lo = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(mask));
+  const unsigned hi = __reduce_or_sync(0xffffffffu, static_cast<unsigned>(mask >> 32));
+  if (lane == 0) part[warp] = lo | static_cast<unsigned long long>(hi) << 32;
+  __syncthreads();
+  if (threadIdx.x < nv) {
+    const unsigned long long m = part[0] | part[1] | part[2] | part[3];
+    flags[threadIdx.x] = static_cast<int>((m >> threadIdx.x) & 1);
+  }
+}
+
+// One block per (64 x 64 tile (it, jt) of a chunk's Q x Q scores, jt <= it;
+// b * H + h; chunk): s~ = dec (x) q k^T over the whole dk and, BWD, p~ = dec
+// (x) dy v^T over the whole dv, each once, into planes 0 and 1 of `scores`;
+// a tile with no live pair is skipped and never read.  BWD: blocks past the
+// chunk's tiles flag one 64-row band of its H_in (then of its G_exit) each,
+// a flag per 64 x 64 tile, into planes 0 and 1 of `flags`.
+template <bool BWD>
+__device__ __forceinline__ void scores_body(const Args& a, unsigned char* smem_raw) {
+  const int Q = a.Q, nt = (Q + TR - 1) / TR, npair = nt * (nt + 1) / 2;
+  const int bh = blockIdx.y, c = blockIdx.z, b = bh / a.H, h = bh % a.H;
+  const int nk = a.kdim / D, nv = a.vdim / D;
+  const size_t nst = static_cast<size_t>(gridDim.y) * a.n;  // the (b, h, chunk) states
+  const size_t st = static_cast<size_t>(bh) * a.n + c;       // this one
+  if (BWD && static_cast<int>(blockIdx.x) >= npair) {
+    const int f = blockIdx.x - npair, which = f / nk, kd = f % nk;
+    const float* state = (which ? a.gexit : a.hin) + (st * a.kdim + kd * D) * a.vdim;
+    flag_band(state, a.vdim, a.flags + ((which * nst + st) * nk + kd) * nv);
+    return;
+  }
+  int it = 0;
+  while ((it + 1) * (it + 2) / 2 <= static_cast<int>(blockIdx.x)) ++it;
+  const int jt = blockIdx.x - it * (it + 1) / 2;
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  const Smem s = carve_vectors(base + SC_STAGES * kSwTile);
+  const int t0 = c * Q;
+  chunk_prologue(a, b, t0, h, s, nt, false, nullptr);
+  if (!tile_live(s.seg, it, jt)) return;
+  const int i0 = it * TR + (threadIdx.x >> 5) * 16, j0 = jt * TR;
+  const size_t ro = row_off(a, b, t0, h), Qp = static_cast<size_t>(nt) * TR;
+  float* X = a.scores + st * Qp * Qp;
+  float sum[8][4];
+  score_product(sum, a.q + ro * a.kdim, a.k + ro * a.kdim, static_cast<size_t>(a.H) * a.kdim, nk,
+                i0, j0, Q, ring);
+  store_scores(sum, s, X, Qp, i0, j0, Q);
+  if (BWD) {
+    __syncthreads();  // every warp is done with the ring
+    score_product(sum, a.dy + ro * a.vdim, a.v + ro * a.vdim, static_cast<size_t>(a.H) * a.vdim,
+                  nv, i0, j0, Q, ring);
+    store_scores(sum, s, X + nst * Qp * Qp, Qp, i0, j0, Q);
+  }
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 3) mamba_scan_scores_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  scores_body<false>(a, smem_raw);
+}
+
+__global__ void __launch_bounds__(MMA_THREADS, 3) mamba_scan_bwd_scores_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  scores_body<true>(a, smem_raw);
+}
+
+// -- states: each 64 x 64 tile of the state carried over the chunks alone
+
+constexpr size_t kStatesSmem = kRingBytes + kVecBytes;
+
+// One block per (64 x 64 tile (kd, vd) of the [dk, dv] state, b * H + h):
+// H <- cdec H + sum_j w_j k_j[kd] (x) v_j[vd] over the chunks from that tile
+// of h0, which is exact alone (an outer product a tile).  Warp w carries rows
+// 16 w .. + 15 of the tile in f32 registers; the update runs as the (64, 64)
+// forward's (w_j k_j as three bf16 terms by ldmatrix.trans, the k and v tiles
+// of the rows in the chunk's last segment through the ring), rounded as the
+// plain version rounds (the product, then the sum).  It writes each chunk's
+// entry tile to hin (when not null) and its flag (not all 0) to `flags`
+// [B * H, n, dk / 64, dv / 64], and the final tile to hout; no y.
+__global__ void __launch_bounds__(MMA_THREADS, 3) mamba_scan_states_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem s = carve_vectors(smem_raw + kRingBytes);
+  s.ring = reinterpret_cast<bf16*>(smem_raw);
+  const int nk = a.kdim / D, nv = a.vdim / D;
+  const int kd = blockIdx.x / nv, vd = blockIdx.x % nv, bh = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int Q = a.Q, nt = (Q + TR - 1) / TR, d0 = warp * 16;
+  const size_t stride = static_cast<size_t>(a.H) * a.kdim;
+  const size_t vstride = static_cast<size_t>(a.H) * a.vdim;
+  const size_t sstate = static_cast<size_t>(a.kdim) * a.vdim;
+  const size_t soff = static_cast<size_t>(kd) * D * a.vdim + vd * D;  // the tile's
+  float hs[8][4];  // H [d0 + g (+ 8)][nt8 * 8 + 2 t4 (+ 1)]
+  {
+    const float* src = a.h0 + static_cast<size_t>(bh) * sstate + soff;
+#pragma unroll
+    for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 x =
+            *reinterpret_cast<const float2*>(src + (d0 + g + 8 * i) * a.vdim + nt8 * 8 + 2 * t4);
+        hs[nt8][2 * i] = x.x;
+        hs[nt8][2 * i + 1] = x.y;
+      }
+  }
+  for (int c = 0; c < a.n; ++c) {
+    const int t0 = c * Q;
+    const size_t ro = row_off(a, b, t0, h);
+    __syncthreads();  // the previous chunk's vectors and ring are no longer read
+    chunk_prologue(a, b, t0, h, s, nt, false, nullptr);
+    const int last = s.seg[Q - 1];
+    float* hin =
+        a.hin != nullptr ? a.hin + (static_cast<size_t>(bh) * a.n + c) * sstate + soff : nullptr;
+    bool nonzero = false;
+#pragma unroll
+    for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (hin != nullptr)
+          *reinterpret_cast<float2*>(hin + (d0 + g + 8 * i) * a.vdim + nt8 * 8 + 2 * t4) =
+              make_float2(hs[nt8][2 * i], hs[nt8][2 * i + 1]);
+        nonzero |= hs[nt8][2 * i] != 0.f || hs[nt8][2 * i + 1] != 0.f;
+      }
+    if (threadIdx.x == 0) {  // the ring's work: the key tiles with a row in the last segment
+      int n = 0;
+      for (int kt = 0; kt < nt; ++kt)
+        if (s.seg[kt * TR + TR - 1] == last) s.items[n++] = kt;
+      s.items[MAX_ITEMS] = n;
+    }
+    const bool live = __syncthreads_or(nonzero);
+    if (threadIdx.x == 0)
+      a.flags[((static_cast<size_t>(bh) * a.n + c) * nk + kd) * nv + vd] = live;
+    const RingT<true> ring{s,       a.k + ro * a.kdim + kd * D, a.v + ro * a.vdim + vd * D,
+                           nullptr, nullptr,                    stride,
+                           Q,       s.items[MAX_ITEMS],         vstride};
+    ring.start();
+    float upd[8][4];  // sum_j w_j k_j (x) v_j over the chunk, this warp's rows
+    zero(upd);
+    for (int it = 0; it < ring.n; ++it) {
+      ring.advance(it);
+      const int kt = s.items[it] & 7;
+      const bf16* kt_s = ring.tile(it, 0);
+      const bf16* vt_s = ring.tile(it, 1);
+#pragma unroll 1
+      for (int sb = 0; sb < 4; ++sb) {
+        const int j0 = kt * TR + sb * 16;
+        if (s.seg[j0 + 15] != last) continue;  // w is 0 on every row
+        uint32_t kr[4];
+        ldmatrix_x4_trans(kr, kt_s + (sb * 16 + (lane & 7) + ((lane >> 4) & 1) * 8) * DP + d0 +
+                                  ((lane >> 3) & 1) * 8);
+        const float wa = s.w[j0 + 2 * t4], wb = s.w[j0 + 2 * t4 + 1];
+        const float wc = s.w[j0 + 8 + 2 * t4], wd = s.w[j0 + 9 + 2 * t4];
+        uint32_t ka[3][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 x = bf16x2_to_float2(kr[j]);
+          const bool hi8 = j >> 1;  // k index 8 + 2 t4 (a2, a3)
+          split3(x.x * (hi8 ? wc : wa), x.y * (hi8 ? wd : wb), ka[0][j], ka[1][j], ka[2][j]);
+        }
+        slab_apply(upd, ka, vt_s + sb * 16 * DP);
+      }
+    }
+    cp_async_wait<0>();  // (only empty groups are left)
+    const float cdec = last == 0 ? expf(s.cum[Q - 1]) : 0.f;
+#pragma unroll
+    for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hs[nt8][e] = __fadd_rn(__fmul_rn(cdec, hs[nt8][e]), upd[nt8][e]);
+  }
+  float* hout = a.hout + static_cast<size_t>(bh) * sstate + soff;
+#pragma unroll
+  for (int nt8 = 0; nt8 < 8; ++nt8)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(hout + (d0 + g + 8 * i) * a.vdim + nt8 * 8 + 2 * t4) =
+          make_float2(hs[nt8][2 * i], hs[nt8][2 * i + 1]);
+}
+
+// -- outputs: a block per (64-wide output column tile, b * H + h, chunk, 64-row tile)
+
+constexpr int NSLOT = QMAX / TR + 1;  // the chunk's row tiles of one or two operands
+constexpr size_t kSlotBytes = sizeof(bf16) * NSLOT * TR * DP;
+constexpr size_t kOutSmem = kSlotBytes + kSplitBytes + kVecBytes;
+static_assert(kStageBytes <= kSplitBytes, "the outputs' stage in the split's room");
+
+// rows r0 .. r0 + 63 of a chunk's [rows, stride] bf16 matrix, the 64
+// columns at src, into a [TR][DP] tile by cp.async, rows at or past Q 0
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t stride, int r0,
+                                          int Q) {
+  for (int i = threadIdx.x; i < TR * 8; i += MMA_THREADS) {
+    const int r = i >> 3, c = i & 7, row = r0 + r;
+    const bool ok = row < Q;
+    cp_async16(dst + r * DP + c * 8, ok ? src + row * stride + c * 8 : src, ok);
+  }
+}
+
+__device__ __forceinline__ void scale_rows(float (&acc)[8][4], float e0, float e1) {
+#pragma unroll
+  for (int nt8 = 0; nt8 < 8; ++nt8) {
+    acc[nt8][0] *= e0;
+    acc[nt8][1] *= e0;
+    acc[nt8][2] *= e1;
+    acc[nt8][3] *= e1;
+  }
+}
+
+// A state term, taken first into acc (zeroed by the caller): the sum over
+// the tiles t < ntl of a [dk, dv] f32 state whose flag (flag[t * fstep]) is
+// set, in order, of this warp's 16 rows at r0 of A (a chunk's [rows,
+// astride] bf16 matrix, its columns t * 64 ..) times tile t (at m + t *
+// mstep, rows mrow apart) as three bf16 terms, entering as state_product
+// takes it; `want`: this warp's rows read the state.  Called alike by every
+// thread; ends with a barrier (the split's room is free again).
+template <bool TRANS>
+__device__ void state_term(float (&acc)[8][4], const bf16* A, size_t astride, int r0, int Q,
+                           const float* m, size_t mrow, size_t mstep, const int* flag,
+                           size_t fstep, int ntl, bool want, bf16* split) {
+  for (int t = 0; t < ntl; ++t) {
+    if (!flag[t * fstep]) continue;  // a tile of zeros adds nothing
+    uint32_t af[4][4];
+    if (want) load_a_rows(af, A + t * D, astride, r0, Q);
+    const float* mt = m + t * mstep;
+    __syncthreads();  // the previous tile's split is no longer read
+    for (int i = threadIdx.x; i < D * D / 2; i += MMA_THREADS)
+      split_pair(split, i, *reinterpret_cast<const float2*>(mt + (2 * i / D) * mrow + 2 * i % D));
+    __syncthreads();
+    if (want) state_product<TRANS>(acc, af, split);
+  }
+  __syncthreads();
+}
+
+// acc (this warp's 16 rows at i0 of row tile rt) += the sum over the live
+// key tiles jt <= rt of X[i][j] (a chunk's f32 scores, rows ld apart, as
+// three bf16 terms) times the rows of tile jt (at tiles + jt * TR * DP, the
+// rows the contraction), 16 keys at a time; each tile's scores are loaded
+// before its products
+__device__ void row_pass(float (&acc)[8][4], const float* X, size_t ld, const bf16* tiles,
+                         const int* seg, int rt, int i0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  for (int jt = 0; jt <= rt; ++jt) {
+    if (!tile_live(seg, rt, jt)) continue;
+    float x[4][8];
+    bool on[4];
+#pragma unroll
+    for (int sb = 0; sb < 4; ++sb) {
+      const int j0 = jt * TR + sb * 16;
+      on[sb] = j0 <= i0 && slab_kind(seg, i0, j0) != 0;
+      if (on[sb]) {  // A (g, 2 t4 ..), (g + 8, ..), (g, 2 t4 + 8 ..), (g + 8, ..)
+        const float* p = X + static_cast<size_t>(i0 + g) * ld + j0 + 2 * t4;
+        const float2 x0 = *reinterpret_cast<const float2*>(p);
+        const float2 x1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+        const float2 x2 = *reinterpret_cast<const float2*>(p + 8);
+        const float2 x3 = *reinterpret_cast<const float2*>(p + 8 * ld + 8);
+        x[sb][0] = x0.x, x[sb][1] = x0.y, x[sb][2] = x1.x, x[sb][3] = x1.y;
+        x[sb][4] = x2.x, x[sb][5] = x2.y, x[sb][6] = x3.x, x[sb][7] = x3.y;
+      }
+    }
+#pragma unroll
+    for (int sb = 0; sb < 4; ++sb)
+      if (on[sb]) {
+        uint32_t pa[3][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split3(x[sb][2 * j], x[sb][2 * j + 1], pa[0][j], pa[1][j], pa[2][j]);
+        slab_apply(acc, pa, tiles + (jt * TR + sb * 16) * DP);
+      }
+  }
+}
+
+// acc (this warp's 16 key rows at j0 of row tile kt) += the sum over the
+// live query tiles it >= kt of X[i][j]^T (the scores transposed: A[t][i] =
+// X[i][t]) times the rows of tile it (at tiles + it * TR * DP)
+__device__ void col_pass(float (&acc)[8][4], const float* X, size_t ld, const bf16* tiles,
+                         const int* seg, int kt, int nt, int j0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  for (int it = kt; it < nt; ++it) {
+    if (!tile_live(seg, it, kt)) continue;
+    float x[4][8];
+    bool on[4];
+#pragma unroll
+    for (int sb = 0; sb < 4; ++sb) {
+      const int i0 = it * TR + sb * 16;
+      on[sb] = i0 >= j0 && slab_kind(seg, i0, j0) != 0;
+      if (on[sb]) {  // A[m][k] = X[i0 + k][j0 + m]
+        const float* p = X + static_cast<size_t>(i0 + 2 * t4) * ld + j0 + g;
+        x[sb][0] = p[0], x[sb][1] = p[ld], x[sb][2] = p[8], x[sb][3] = p[ld + 8];
+        x[sb][4] = p[8 * ld], x[sb][5] = p[9 * ld];
+        x[sb][6] = p[8 * ld + 8], x[sb][7] = p[9 * ld + 8];
+      }
+    }
+#pragma unroll
+    for (int sb = 0; sb < 4; ++sb)
+      if (on[sb]) {
+        uint32_t pa[3][4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          split3(x[sb][2 * j], x[sb][2 * j + 1], pa[0][j], pa[1][j], pa[2][j]);
+        slab_apply(acc, pa, tiles + (it * TR + sb * 16) * DP);
+      }
+  }
+}
+
+// this warp's per-row dots (`row_dots`: x's bf16 rows with acc, both the
+// same 16 rows x 64 columns) of the chunk's rows r0 .. into out, a [B, S, H]
+// plane
+__device__ __forceinline__ void store_row_dots(const Args& a, const uint32_t (&x)[4][4],
+                                               const float (&acc)[8][4], float* out, int b, int t0,
+                                               int h, int r0) {
+  const int g = (threadIdx.x & 31) >> 2;
+  float d[2];
+  row_dots(x, acc, d);
+  if ((threadIdx.x & 3) == 0)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (r0 + g + 8 * i < a.Q) out[row_off(a, b, t0 + r0 + g + 8 * i, h)] = d[i];
+}
+
+// The outputs' layout: the operand tiles, the split (whose room is the
+// warps' stage once the state terms are done), the chunk's vectors
+struct OutSmem {
+  bf16* tiles;
+  bf16* split;
+  Smem s;
+};
+
+__device__ OutSmem carve_out(unsigned char* base) {
+  OutSmem o;
+  o.tiles = reinterpret_cast<bf16*>(base);
+  o.split = o.tiles + NSLOT * TR * DP;
+  o.s = carve_vectors(base + kSlotBytes + kSplitBytes);
+  return o;
+}
+
+// The forward's outputs, one block per (64-wide column tile vc of y, b * H +
+// h, chunk * nt + row tile): y[:, vc] = ec (x) (q H_in[:, vc]) + s~ v[:, vc]
+// on the tile's 64 rows, the state term over the whole dk (tiles of H_in
+// flagged 0 skipped; H_in is hin, or h0 for a single chunk), s~ by rows;
+// rounded once to bf16.
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_outputs_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const OutSmem o = carve_out(smem_raw);
+  const Smem& s = o.s;
+  const int Q = a.Q, nt = (Q + TR - 1) / TR, nk = a.kdim / D, nv = a.vdim / D;
+  const int vc = blockIdx.x, bh = blockIdx.y, c = blockIdx.z / nt, rt = blockIdx.z % nt;
+  const int b = bh / a.H, h = bh % a.H, warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int t0 = c * Q, i0 = rt * TR + warp * 16;
+  const size_t ro = row_off(a, b, t0, h), st = static_cast<size_t>(bh) * a.n + c;
+  const size_t kstride = static_cast<size_t>(a.H) * a.kdim;
+  const size_t vstride = static_cast<size_t>(a.H) * a.vdim;
+  const size_t Qp = static_cast<size_t>(nt) * TR;
+  chunk_prologue(a, b, t0, h, s, nt, false, nullptr);
+  for (int jt = 0; jt <= rt; ++jt)
+    if (tile_live(s.seg, rt, jt))
+      load_tile(o.tiles + jt * TR * DP, a.v + ro * a.vdim + vc * D, vstride, jt * TR, Q);
+  cp_async_commit();
+  float acc[8][4];
+  zero(acc);
+  if (s.seg[rt * TR] == 0) {  // a row of the tile reads the entry state
+    const float* hin = (a.hin != nullptr ? a.hin : a.h0) + st * a.kdim * a.vdim + vc * D;
+    state_term<true>(acc, a.q + ro * a.kdim, kstride, i0, Q, hin, a.vdim,
+                     static_cast<size_t>(D) * a.vdim, a.flags + st * nk * nv + vc, nv, nk,
+                     s.seg[i0] == 0, o.split);
+    scale_rows(acc, s.ec[i0 + g], s.ec[i0 + g + 8]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  row_pass(acc, a.scores + st * Qp * Qp, Qp, o.tiles, s.seg, rt, i0);
+  store_rows(acc, o.split + warp * 16 * DP, a.y + ro * a.vdim + vc * D, vstride, i0, Q);
+}
+
+// The chunk backward's outputs, one block per (64-wide output column tile,
+// b * H + h, chunk * nt + row tile).  Column tiles x < dk / 64: dq[:, x] =
+// ec (x) (dy H_in[x, :]^T) + p~ k[:, x] (p~ by rows) and dk[:, x] = w (x)
+// (v G_exit[x, :]^T) + p~^T q[:, x] (p~ by columns), sharing the chunk's
+// tiles of q and k's columns x, and the rows' shares q . dq and k . dk over
+// those 64 columns (plane x of `rowq` and `rowk`, from the f32
+// values); column tiles x >= dk / 64: dv[:, vc] = w (x) (k G_exit[:, vc]) +
+// s~^T dy[:, vc], vc = x - dk / 64.  Each state term contracts over the
+// whole other dimension, skipping the tiles flagged 0; each output is
+// rounded once to bf16.
+__global__ void __launch_bounds__(MMA_THREADS, 2) mamba_scan_bwd_outputs_kernel(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const OutSmem o = carve_out(smem_raw);
+  const Smem& s = o.s;
+  const int Q = a.Q, nt = (Q + TR - 1) / TR, nk = a.kdim / D, nv = a.vdim / D;
+  const int x = blockIdx.x, bh = blockIdx.y, c = blockIdx.z / nt, rt = blockIdx.z % nt;
+  const int b = bh / a.H, h = bh % a.H, warp = threadIdx.x >> 5, g = (threadIdx.x & 31) >> 2;
+  const int t0 = c * Q, i0 = rt * TR + warp * 16;
+  const size_t ro = row_off(a, b, t0, h), st = static_cast<size_t>(bh) * a.n + c;
+  const size_t nst = static_cast<size_t>(gridDim.y) * a.n;  // the (b, h, chunk) states
+  const size_t rows = static_cast<size_t>(a.B) * a.S * a.H;
+  const size_t kstride = static_cast<size_t>(a.H) * a.kdim;
+  const size_t vstride = static_cast<size_t>(a.H) * a.vdim;
+  const size_t Qp = static_cast<size_t>(nt) * TR, sstate = static_cast<size_t>(a.kdim) * a.vdim;
+  const float* sc = a.scores + st * Qp * Qp;  // s~
+  const float* pc = sc + nst * Qp * Qp;       // p~
+  const float* gex = a.gexit + st * sstate;
+  const int* fh = a.flags + st * nk * nv;  // H_in's tiles
+  const int* fg = fh + nst * nk * nv;      // G_exit's
+  bf16* stage = o.split + warp * 16 * DP;
+  chunk_prologue(a, b, t0, h, s, nt, false, nullptr);
+  const int last = s.seg[Q - 1];
+  const bool ec_rows = s.seg[rt * TR] == 0, w_rows = s.seg[rt * TR + TR - 1] == last;
+  float acc[8][4];
+  if (x < nk) {
+    const size_t col = ro * a.kdim + x * D;  // the chunk's row 0 of q, k, dq, dk, columns x
+    for (int jt = 0; jt <= rt; ++jt)  // k's rows for dq: tiles 0 .. rt
+      if (tile_live(s.seg, rt, jt))
+        load_tile(o.tiles + jt * TR * DP, a.k + col, kstride, jt * TR, Q);
+    for (int it = rt; it < nt; ++it)  // q's rows for dk: tiles rt .. nt - 1, one slot on
+      if (tile_live(s.seg, it, rt))
+        load_tile(o.tiles + (it + 1) * TR * DP, a.q + col, kstride, it * TR, Q);
+    cp_async_commit();
+    zero(acc);
+    if (ec_rows) {
+      state_term<false>(acc, a.dy + ro * a.vdim, vstride, i0, Q,
+                        a.hin + st * sstate + static_cast<size_t>(x) * D * a.vdim, a.vdim, D,
+                        fh + x * nv, 1, nv, s.seg[i0] == 0, o.split);
+      scale_rows(acc, s.ec[i0 + g], s.ec[i0 + g + 8]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    row_pass(acc, pc, Qp, o.tiles, s.seg, rt, i0);
+    uint32_t xf[4][4];
+    load_a_rows(xf, a.q + col, kstride, i0, Q);
+    store_row_dots(a, xf, acc, a.rowq + x * rows, b, t0, h, i0);
+    store_rows(acc, stage, a.dq + col, kstride, i0, Q);
+    zero(acc);
+    if (w_rows) {
+      state_term<false>(acc, a.v + ro * a.vdim, vstride, i0, Q,
+                        gex + static_cast<size_t>(x) * D * a.vdim, a.vdim, D, fg + x * nv, 1, nv,
+                        s.seg[i0 + 15] == last, o.split);
+      scale_rows(acc, s.w[i0 + g], s.w[i0 + g + 8]);
+    }
+    col_pass(acc, pc, Qp, o.tiles + TR * DP, s.seg, rt, nt, i0);
+    load_a_rows(xf, a.k + col, kstride, i0, Q);
+    store_row_dots(a, xf, acc, a.rowk + x * rows, b, t0, h, i0);
+    store_rows(acc, stage, a.dk + col, kstride, i0, Q);
+  } else {
+    const int vc = x - nk;
+    const size_t col = ro * a.vdim + vc * D;
+    for (int it = rt; it < nt; ++it)
+      if (tile_live(s.seg, it, rt))
+        load_tile(o.tiles + it * TR * DP, a.dy + col, vstride, it * TR, Q);
+    cp_async_commit();
+    zero(acc);
+    if (w_rows) {
+      state_term<true>(acc, a.k + ro * a.kdim, kstride, i0, Q, gex + vc * D, a.vdim,
+                       static_cast<size_t>(D) * a.vdim, fg + vc, nv, nk, s.seg[i0 + 15] == last,
+                       o.split);
+      scale_rows(acc, s.w[i0 + g], s.w[i0 + g + 8]);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    col_pass(acc, sc, Qp, o.tiles, s.seg, rt, nt, i0);
+    store_rows(acc, stage, a.dv + col, vstride, i0, Q);
+  }
+}
+
+constexpr int ROWS_THREADS = 256;
+
+// dli = k . dk and dcum = q . dq - dli of each row (b, t, h): the rows'
+// shares over the dk tiles summed in order x = 0, 1, ... (the same bits each
+// run)
+__global__ void __launch_bounds__(ROWS_THREADS) mamba_scan_bwd_rows_kernel(Args a) {
+  const size_t rows = static_cast<size_t>(a.B) * a.S * a.H;
+  const size_t i = static_cast<size_t>(blockIdx.x) * ROWS_THREADS + threadIdx.x;
+  if (i >= rows) return;
+  const int nk = a.kdim / D;
+  float qdq = 0.f, kdk = 0.f;
+  for (int x = 0; x < nk; ++x) {
+    qdq += a.rowq[x * rows + i];
+    kdk += a.rowk[x * rows + i];
+  }
+  a.dli[i] = kdk;
+  a.dcum[i] = qdq - kdk;
+}
+
+enum class Kind {
+  kFwd, kBwdState, kBwdChunk, kScores, kBwdStateTiled, kStates, kOutputs, kBwdScores, kBwdOutputs,
+  kBwdRows
+};
+
+// the kernel of a kind, its dynamic shared memory (one layout for the four
+// (64, 64) bodies, one for each of the tiled scan's kernels) and block
+// size; the attributes it launches with are set
 cudaError_t prepare(Kind kind, void (**fn)(Args), size_t* smem, int* threads) {
+  *smem = kMmaSmem;
+  *threads = MMA_THREADS;
   switch (kind) {
     case Kind::kFwd: *fn = mamba_scan_fwd_kernel; break;
     case Kind::kBwdState: *fn = mamba_scan_bwd_state_kernel; break;
     case Kind::kBwdChunk: *fn = mamba_scan_bwd_chunk_kernel; break;
-    case Kind::kFwdTiled: *fn = mamba_scan_fwd_tiled_kernel; break;
     case Kind::kBwdStateTiled: *fn = mamba_scan_bwd_state_tiled_kernel; break;
-    default: *fn = mamba_scan_bwd_chunk_tiled_kernel;
+    case Kind::kScores: *fn = mamba_scan_scores_kernel; *smem = kScoresSmem; break;
+    case Kind::kBwdScores: *fn = mamba_scan_bwd_scores_kernel; *smem = kScoresSmem; break;
+    case Kind::kStates: *fn = mamba_scan_states_kernel; *smem = kStatesSmem; break;
+    case Kind::kOutputs: *fn = mamba_scan_outputs_kernel; *smem = kOutSmem; break;
+    case Kind::kBwdOutputs: *fn = mamba_scan_bwd_outputs_kernel; *smem = kOutSmem; break;
+    default:
+      *fn = mamba_scan_bwd_rows_kernel;
+      *smem = 0;
+      *threads = ROWS_THREADS;
+      return cudaSuccess;
   }
-  *smem = kMmaSmem;
-  *threads = MMA_THREADS;
   cudaError_t err = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(*smem));
   if (err != cudaSuccess) return err;
-  // room for two blocks' tiles per SM
+  // room for as many blocks' tiles per SM as fit
   return cudaFuncSetAttribute(*fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                               cudaSharedmemCarveoutMaxShared);
+}
+
+cudaError_t launch_kind(Kind kind, const Args& a, dim3 grid, cudaStream_t st) {
+  void (*fn)(Args);
+  size_t smem;
+  int threads;
+  cudaError_t err = prepare(kind, &fn, &smem, &threads);
+  if (err != cudaSuccess) return err;
+  fn<<<grid, threads, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 int launch(Kind kind, Args a, int B, int dk, int dv, void* stream) {
@@ -1429,49 +1936,25 @@ int launch(Kind kind, Args a, int B, int dk, int dv, void* stream) {
       a.S % a.Q != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   a.n = a.S / a.Q;
-  void (*fn)(Args);
-  size_t smem;
-  int threads;
-  cudaError_t err = prepare(kind, &fn, &smem, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  a.B = B;
   dim3 grid(B * a.H);
   if (kind == Kind::kBwdChunk) grid.y = a.n;
-  fn<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_kind(kind, a, grid, static_cast<cudaStream_t>(stream)));
 }
 
-// A tiled kernel: one block per (64 x 64 tile of the state, b, h) (and
-// chunk, for the chunk backward); then the forward's sum of the partial y
-// over the dk tiles, or the chunk backward's sum of the partial dq, dk, dv
+// The tiled kernels' shapes: dk, dv multiples of 64 (dv / 64 <= 64, the
+// flag masks' width), the grids' y and z within 65,535, the rows' indices
+// within 2^31
 constexpr long long kMaxRows = 2147483647;
 
-int launch_tiled(Kind kind, Args a, int B, void* stream) {
+bool tiled_ok(Args& a, int B) {
   if (B <= 0 || a.S <= 0 || a.H <= 0 || a.kdim <= 0 || a.vdim <= 0 || a.kdim % D || a.vdim % D ||
-      a.Q <= 0 || a.Q > QMAX || a.S % a.Q != 0 || B * a.H > 65535 || a.S / a.Q > 65535 ||
-      static_cast<long long>(B) * a.S * a.H > kMaxRows)
-    return static_cast<int>(cudaErrorInvalidValue);
+      a.vdim / D > 64 || a.Q <= 0 || a.Q > QMAX || a.S % a.Q != 0 || B * a.H > 65535 ||
+      a.S / a.Q * ((a.Q + TR - 1) / TR) > 65535 || static_cast<long long>(B) * a.S * a.H > kMaxRows)
+    return false;
   a.n = a.S / a.Q;
-  void (*fn)(Args);
-  size_t smem;
-  int threads;
-  cudaError_t err = prepare(kind, &fn, &smem, &threads);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  fn<<<dim3((a.kdim / D) * (a.vdim / D), B * a.H, kind == Kind::kBwdChunkTiled ? a.n : 1), threads,
-       smem, st>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t rows = static_cast<size_t>(B) * a.S * a.H;
-  if (kind == Kind::kFwdTiled) {
-    const size_t plane = rows * a.vdim;
-    const int sum_threads = 256;
-    const size_t blocks = (plane / 4 + sum_threads - 1) / sum_threads;
-    mamba_scan_tile_sum_kernel<<<static_cast<unsigned>(blocks), sum_threads, 0, st>>>(
-        a.ypart, a.y, plane, a.kdim / D);
-  } else if (kind == Kind::kBwdChunkTiled) {
-    mamba_scan_bwd_tile_sum_kernel<<<static_cast<unsigned>(rows), SUM_THREADS, 0, st>>>(a);
-  }
-  return static_cast<int>(cudaGetLastError());
+  a.B = B;
+  return true;
 }
 
 Args make_args(int S, int H, int Q) {
@@ -1545,15 +2028,18 @@ extern "C" int mamba_scan_fwd(const void* q, const void* k, const void* v, const
 }
 
 // The forward at a [dk, dv] state of 64 x 64 tiles (dk, dv multiples of
-// 64): q, k [B, S, H, dk] bf16, v [B, S, H, dv] bf16, la, li, r as above,
-// h0 [B, H, dk, dv] f32 -> y [B, S, H, dv] bf16 (through ypart, scratch of
-// dk / 64 x B x S x H x dv f32), hout [B, H, dk, dv] f32 and, when hin is
-// not null, hin [B * H, S / Q, dk, dv] f32.  Two launches on the stream:
-// the tiles, then their sum over dk.
+// 64, dv <= 4096): q, k [B, S, H, dk] bf16, v [B, S, H, dv] bf16, la, li, r
+// as above, h0 [B, H, dk, dv] f32 -> y [B, S, H, dv] bf16, hout
+// [B, H, dk, dv] f32 and hin [B * H, S / Q, dk, dv] f32, the entry states
+// (may be null only when S == Q: the chunk's entry state is then h0);
+// scratch: scores [B * H, S / Q, Qp, Qp] f32 (Qp = Q rounded up to 64) and
+// flags [B * H, S / Q, dk / 64, dv / 64] int32.  Three launches on the
+// stream: the scores, the states, the outputs.
 extern "C" int mamba_scan_fwd_tiled(const void* q, const void* k, const void* v,
                                     const void* la, const void* li, const void* r,
-                                    const void* h0, void* y, void* ypart, void* hout, void* hin,
-                                    int B, int S, int H, int dk, int dv, int Q, void* stream) {
+                                    const void* h0, void* y, void* hout, void* hin, void* scores,
+                                    void* flags, int B, int S, int H, int dk, int dv, int Q,
+                                    void* stream) {
   Args a = make_args(S, H, Q);
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
@@ -1563,12 +2049,21 @@ extern "C" int mamba_scan_fwd_tiled(const void* q, const void* k, const void* v,
   a.r = static_cast<const int*>(r);
   a.h0 = static_cast<const float*>(h0);
   a.y = static_cast<bf16*>(y);
-  a.ypart = static_cast<float*>(ypart);
   a.hout = static_cast<float*>(hout);
   a.hin = static_cast<float*>(hin);
+  a.scores = static_cast<float*>(scores);
+  a.flags = static_cast<int*>(flags);
   a.kdim = dk;
   a.vdim = dv;
-  return launch_tiled(Kind::kFwdTiled, a, B, stream);
+  if (!tiled_ok(a, B) || (hin == nullptr && a.n != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nt = (Q + TR - 1) / TR;
+  cudaError_t err = launch_kind(Kind::kScores, a, dim3(nt * (nt + 1) / 2, B * H, a.n), st);
+  if (err == cudaSuccess)
+    err = launch_kind(Kind::kStates, a, dim3((dk / D) * (dv / D), B * H), st);
+  if (err == cudaSuccess) err = launch_kind(Kind::kOutputs, a, dim3(dv / D, B * H, a.n * nt), st);
+  return static_cast<int>(err);
 }
 
 // q [B, S, H, 64] bf16, la [B, S, H] f32, r or null, dy [B, S, H, 64] bf16,
@@ -1596,7 +2091,9 @@ extern "C" int mamba_scan_bwd_state_tiled(const void* q, const void* la, const v
   Args a = state_args(q, la, r, dy, dhf, gexit, dh0, S, H, Q, want_dh0);
   a.kdim = dk;
   a.vdim = dv;
-  return launch_tiled(Kind::kBwdStateTiled, a, B, stream);
+  if (!tiled_ok(a, B)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_kind(Kind::kBwdStateTiled, a, dim3((dk / D) * (dv / D), B * H),
+                                      static_cast<cudaStream_t>(stream)));
 }
 
 // The forward's inputs, dy, hin and gexit -> dq, dk, dv [B, S, H, 64] bf16 and
@@ -1612,31 +2109,47 @@ extern "C" int mamba_scan_bwd_chunk(const void* q, const void* k, const void* v,
 }
 
 // The chunk backward at a [dk, dv] state of 64 x 64 tiles: the arguments of
-// mamba_scan_bwd_chunk at (dk, dv) (dy like v), and the f32 scratches
-// dqpart, dkpart [dv / 64, B, S, H, dk] and dvpart [dk / 64, B, S, H, dv].
-// Two launches on the stream: the tiles, then the sums and dcum, dli.
+// mamba_scan_bwd_chunk at (dk, dv) (dy like v; dv <= 4096), and the
+// scratch: scores [2, B * H, S / Q, Qp, Qp] f32 (s~ and p~), flags
+// [2, B * H, S / Q, dk / 64, dv / 64] int32 (H_in's tiles and G_exit's) and
+// rowpart [2, dk / 64, B, S, H] f32 (the rows' q . dq and k . dk per column
+// tile).  Three launches on the stream: the scores (and the flags), the
+// outputs, the rows.
 extern "C" int mamba_scan_bwd_chunk_tiled(const void* q, const void* k, const void* v,
                                           const void* la, const void* li, const void* r,
                                           const void* dy, const void* hin, const void* gexit,
                                           void* dq, void* dk, void* dv, void* dcum, void* dli,
-                                          void* dqpart, void* dkpart, void* dvpart, int B, int S,
+                                          void* scores, void* flags, void* rowpart, int B, int S,
                                           int H, int dkdim, int dvdim, int Q, void* stream) {
   Args a = chunk_args(q, k, v, la, li, r, dy, hin, gexit, dq, dk, dv, dcum, dli, S, H, Q);
-  a.dqpart = static_cast<float*>(dqpart);
-  a.dkpart = static_cast<float*>(dkpart);
-  a.dvpart = static_cast<float*>(dvpart);
+  a.scores = static_cast<float*>(scores);
+  a.flags = static_cast<int*>(flags);
   a.kdim = dkdim;
   a.vdim = dvdim;
-  return launch_tiled(Kind::kBwdChunkTiled, a, B, stream);
+  if (!tiled_ok(a, B)) return static_cast<int>(cudaErrorInvalidValue);
+  a.rowq = static_cast<float*>(rowpart);
+  a.rowk = a.rowq + static_cast<size_t>(a.kdim / D) * B * S * H;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nt = (Q + TR - 1) / TR, nk = dkdim / D, nv = dvdim / D;
+  const long long rows = static_cast<long long>(B) * S * H;
+  cudaError_t err =
+      launch_kind(Kind::kBwdScores, a, dim3(nt * (nt + 1) / 2 + 2 * nk, B * H, a.n), st);
+  if (err == cudaSuccess)
+    err = launch_kind(Kind::kBwdOutputs, a, dim3(nk + nv, B * H, a.n * nt), st);
+  if (err == cudaSuccess)
+    err = launch_kind(Kind::kBwdRows, a,
+                      dim3(static_cast<unsigned>((rows + ROWS_THREADS - 1) / ROWS_THREADS)), st);
+  return static_cast<int>(err);
 }
 
-// kind 0 forward, 1 state backward, 2 chunk backward, 3 tiled forward, 4
-// tiled state backward, 5 tiled chunk backward, at chunk length Q: the
-// dynamic shared memory of a block and how many blocks an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the launch's
-// attributes set).
+// kind 0 forward, 1 state backward, 2 chunk backward, 3 the tiled forward's
+// scores, 4 tiled state backward, 5 the tiled forward's states, 6 its
+// outputs, 7 the tiled chunk backward's scores, 8 its outputs, 9 its rows,
+// at chunk length Q: the dynamic shared memory of a block and how many
+// blocks an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor, with the
+// launch's attributes set).
 extern "C" int mamba_scan_occupancy(int kind, int Q, int* smem_bytes, int* blocks_per_sm) {
-  if (kind < 0 || kind > 5 || Q <= 0 || Q > QMAX) return static_cast<int>(cudaErrorInvalidValue);
+  if (kind < 0 || kind > 9 || Q <= 0 || Q > QMAX) return static_cast<int>(cudaErrorInvalidValue);
   void (*fn)(Args);
   size_t smem;
   int threads;

@@ -33,15 +33,18 @@ kernels, as the JAX package takes it outside its Pallas kernels.
 The three kernels are built for (dk, dv) = (64, 64) (zamba2's heads).  A
 larger state (xlstm's mLSTM: (1024, 1025), padded by ``ops.tile_padded``
 to (1024, 1088)), which the Pallas kernels hold in a ``VMEM((dk, dv),
-f32)`` scratch of any size, runs their tiled versions, one block per 64 x
-64 tile of the state: :func:`mamba_scan_tiled_cuda` (the (64, 64) forward
-on its columns of q / k and v, then a fixed-order sum of the tiles' partial
-y over dk), :func:`mamba_scan_bwd_state_tiled_cuda` (the (64, 64) state
-backward on its tile of G: the update is an outer product, so each tile is
-exact alone) and :func:`mamba_scan_bwd_chunk_tiled_cuda` (the (64, 64)
-chunk backward on its tiles of H_in and G_exit, then a fixed-order sum of
-the partial dq and dk over dv and of dv over dk, with dcum and dli from
-the f32 sums).  :class:`MambaScanFunction` takes either set by the shape.
+f32)`` scratch of any size, runs the tiled kernels, which keep the Pallas
+bodies' order (each chunk's scores once, over the whole state width) and
+cut the state and the outputs' columns into 64 x 64 tiles:
+:func:`mamba_scan_tiled_cuda` (the chunks' decay-masked scores once, the
+state tile by tile -- the update is an outer product, so each tile is
+exact alone -- then y by 64-wide column tile),
+:func:`mamba_scan_bwd_state_tiled_cuda` (the (64, 64) state backward on its
+tile of G) and :func:`mamba_scan_bwd_chunk_tiled_cuda` (both chunks'
+scores once, then dq, dk and dv by 64-wide column tile with their state
+terms over the whole other dimension, and dcum and dli from the rows'
+per-tile shares summed in order).  :class:`MambaScanFunction` takes either
+set by the shape.
 """
 from __future__ import annotations
 
@@ -52,9 +55,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-# launches of the CUDA kernels (plain calls are not counted); a
-# ``mamba_scan_tiled`` or ``mamba_scan_bwd_chunk_tiled`` call is two launches on
-# its stream (the tiles, their sum)
+# calls of the CUDA kernels (plain calls are not counted); a
+# ``mamba_scan_tiled`` call is three launches on its stream (scores, states,
+# outputs), a ``mamba_scan_bwd_chunk_tiled`` call three (scores with the
+# states' flags, outputs, rows)
 launch_counts = {"mamba_scan": 0, "mamba_scan_bwd_state": 0, "mamba_scan_bwd_chunk": 0,
                  "mamba_scan_tiled": 0, "mamba_scan_bwd_state_tiled": 0,
                  "mamba_scan_bwd_chunk_tiled": 0}
@@ -62,6 +66,7 @@ launch_counts = {"mamba_scan": 0, "mamba_scan_bwd_state": 0, "mamba_scan_bwd_chu
 _QMAX = 256          # largest chunk the kernels take
 _DIMS = ((64, 64),)  # (dk, dv) of the three kernels; the tiled ones take multiples of
 TILE = 64            # TILE x TILE tiles of the state
+_MAX_TILES = 64      # dv / TILE of the tiled kernels (the width of their tile flags' masks)
 
 
 def _gates(rc: torch.Tensor):
@@ -245,24 +250,40 @@ def mamba_scan_backward_plain(q, k, v, la, li, r, hin, hfin, dy, dhf, chunk: int
 # ---------------------------------------------------------------------------
 
 
-# the C source's kernel kinds (``mamba_scan_occupancy``)
+# the C source's kernel kinds (``mamba_scan_occupancy``): the four (64, 64)
+# bodies, then the tiled forward's and the tiled chunk backward's launches
 _KINDS = {"mamba_scan_fwd": 0, "mamba_scan_bwd_state": 1, "mamba_scan_bwd_chunk": 2,
-          "mamba_scan_fwd_tiled": 3, "mamba_scan_bwd_state_tiled": 4,
-          "mamba_scan_bwd_chunk_tiled": 5}
+          "mamba_scan_scores": 3, "mamba_scan_bwd_state_tiled": 4, "mamba_scan_states": 5,
+          "mamba_scan_outputs": 6, "mamba_scan_bwd_scores": 7, "mamba_scan_bwd_outputs": 8,
+          "mamba_scan_bwd_rows": 9}
 
 
 def smem_bytes(kernel: str, chunk: int) -> int:
     """Dynamic shared memory of one block of ``kernel`` (a key of
-    ``_KINDS``) at chunk length ``chunk``, as the C source sizes it.  The
-    six kernels share one fixed layout: a ring of three stages of two
-    64 x 72 bf16 tiles, the state's three bf16 terms (3 x 64 x 72; the
-    state backward's f32 output stage, 4 x 16 x 72, in their room), a
-    16 x 72 stage for each of 4 warps, six per-row vectors of 256 and 40
-    ints."""
+    ``_KINDS``) at chunk length ``chunk``, as the C source sizes it (fixed
+    layouts, the same at any chunk).  The four (64, 64) bodies (the tiled
+    state backward among them) share one: a ring of three stages of two
+    64 x 72 bf16 tiles, the state's three bf16 terms (3 x 64 x 72; the state
+    backward's f32 output stage, 4 x 16 x 72, in their room), a 16 x 72
+    stage for each of 4 warps, six per-row vectors of 256 and 40 ints.  The
+    tiled kernels keep the chunk's vectors (four of 256 floats, 256 + 40
+    ints) after: the scores a ring of four 64 x 64 bf16 tiles in the
+    128-byte swizzle and 1024 bytes to align them, the states the bodies'
+    ring, the outputs five 64 x 72 bf16 tiles and the state's three terms
+    (the warps' stage in their room); the rows kernel none."""
     if kernel not in _KINDS or not 1 <= chunk <= _QMAX:
         raise ValueError(f"smem_bytes: kernel in {sorted(_KINDS)} and chunk 1..{_QMAX}; got "
                          f"{kernel!r}, {chunk}")
     tile = 64 * 72 * 2
+    vectors = 4 * _QMAX * 4 + _QMAX * 4 + 40 * 4
+    if kernel in ("mamba_scan_scores", "mamba_scan_bwd_scores"):
+        return 1024 + 4 * 64 * 64 * 2 + vectors
+    if kernel == "mamba_scan_states":
+        return 3 * 2 * tile + vectors
+    if kernel in ("mamba_scan_outputs", "mamba_scan_bwd_outputs"):
+        return (_QMAX // 64 + 1) * tile + 3 * tile + vectors
+    if kernel == "mamba_scan_bwd_rows":
+        return 0
     return 3 * 2 * tile + 3 * tile + 4 * 16 * 72 * 2 + 6 * _QMAX * 4 + 40 * 4
 
 
@@ -290,9 +311,10 @@ def _check(q, k, v, la, li, r, chunk, state=None, tiled=False):
                          f"q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
     B, S, H, dk = q.shape
     dv = v.shape[-1]
-    if tiled and (dk % TILE or dv % TILE or B * H > 65535):
-        raise ValueError(f"the tiled mamba_scan kernel takes dk, dv multiples of {TILE} and "
-                         f"B * H <= 65535; got (dk, dv) = {(dk, dv)}, B * H = {B * H}")
+    if tiled and (dk % TILE or dv % TILE or dv > _MAX_TILES * TILE or B * H > 65535):
+        raise ValueError(f"the tiled mamba_scan kernel takes dk, dv multiples of {TILE}, dv <= "
+                         f"{_MAX_TILES * TILE} and B * H <= 65535; got (dk, dv) = {(dk, dv)}, "
+                         f"B * H = {B * H}")
     if not tiled and (dk, dv) not in _DIMS:
         raise ValueError(f"mamba_scan kernel takes (dk, dv) in {_DIMS}, got {(dk, dv)}")
     if not (1 <= chunk <= _QMAX and S % chunk == 0):
@@ -348,30 +370,47 @@ def mamba_scan_cuda(q, k, v, la, li, r, h0, chunk: int, save_states: bool = Fals
     return (y, hout, hin) if save_states else (y, hout)
 
 
+def _scores(planes: int, B: int, H: int, n: int, chunk: int, device) -> torch.Tensor:
+    """The tiled kernels' scratch of chunk scores, [planes, B * H, n, Qp, Qp]
+    f32 (Qp: the chunk rounded up to ``TILE``)."""
+    qp = -(-chunk // TILE) * TILE
+    return torch.empty((planes, B * H, n, qp, qp), dtype=torch.float32, device=device)
+
+
+def _flags(planes: int, B: int, H: int, n: int, dk: int, dv: int, device) -> torch.Tensor:
+    """Whether each ``TILE`` x ``TILE`` tile of a chunk's state is not 0:
+    [planes, B * H, n, dk / TILE, dv / TILE] int32."""
+    return torch.empty((planes, B * H, n, dk // TILE, dv // TILE), dtype=torch.int32,
+                       device=device)
+
+
 def mamba_scan_tiled_cuda(q, k, v, la, li, r, h0, chunk: int, save_states: bool = False):
     """The forward at a large state, on the arguments of
     :func:`mamba_scan_plain` with dk and dv multiples of ``TILE``
-    (``ops.mamba_scan`` pads xlstm's dv = 1025 to 1088).  Two launches: one
-    block per (``TILE`` x ``TILE`` tile of the [dk, dv] state, batch row,
-    head) runs the (64, 64) forward's chunk loop on its dk columns of q / k
-    and dv columns of v from its tile of h0, carrying that tile; its f32
-    share of y goes to plane kd of a [dk / TILE, B, S, H, dv] scratch, and
-    the second kernel sums the planes in order kd = 0, 1, ... and rounds
-    once to bf16."""
+    (``ops.mamba_scan`` pads xlstm's dv = 1025 to 1088).  Three launches:
+    each chunk's decay-masked scores q k^T once over the whole dk, into a
+    [B * H, n, Qp, Qp] f32 scratch (a block per 64 x 64 tile of them); the
+    state, a block per (``TILE`` x ``TILE`` tile, batch row, head) carrying
+    that tile over the chunks, writing the entry states (``hin``; a scratch
+    of them when more than one chunk and not ``save_states``), a flag per
+    tile that is not 0 and the final state; y by 64-wide column tile and
+    64-row tile, its state term over the whole dk, rounded once to bf16."""
     _check(q, k, v, la, li, r, chunk, h0, tiled=True)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     n = S // chunk
     y = torch.empty_like(v)
-    ypart = torch.empty((dk // TILE, B, S, H, dv), dtype=torch.float32, device=q.device)
     hout = torch.empty((B, H, dk, dv), dtype=torch.float32, device=q.device)
     hin = torch.empty((B * H, n, dk, dv), dtype=torch.float32, device=q.device) \
-        if save_states else None
+        if save_states or n > 1 else None
+    scores = _scores(1, B, H, n, chunk, q.device)
+    flags = _flags(1, B, H, n, dk, dv, q.device)
     fn = _build.function("mamba_scan", "mamba_scan_fwd_tiled",
-                         [_build.P] * 11 + [_build.I] * 6 + [_build.P])
+                         [_build.P] * 12 + [_build.I] * 6 + [_build.P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), li.data_ptr(),
-             _rptr(r), h0.data_ptr(), y.data_ptr(), ypart.data_ptr(), hout.data_ptr(),
-             hin.data_ptr() if save_states else None, B, S, H, dk, dv, chunk, _stream(q))
+             _rptr(r), h0.data_ptr(), y.data_ptr(), hout.data_ptr(),
+             hin.data_ptr() if hin is not None else None, scores.data_ptr(), flags.data_ptr(),
+             B, S, H, dk, dv, chunk, _stream(q))
     _build.check("mamba_scan", err)
     launch_counts["mamba_scan_tiled"] += 1
     return (y, hout, hin) if save_states else (y, hout)
@@ -459,27 +498,28 @@ def mamba_scan_bwd_chunk_cuda(q, k, v, la, li, r, dy, hin, gexit, chunk: int):
 
 def mamba_scan_bwd_chunk_tiled_cuda(q, k, v, la, li, r, dy, hin, gexit, chunk: int):
     """:func:`mamba_scan_bwd_chunk_cuda` at a large state, dk and dv
-    multiples of ``TILE`` (v and dy padded to dv).  Two launches: one block
-    per (``TILE`` x ``TILE`` tile of the state, batch row, head, chunk) runs
-    the (64, 64) kernel on its dk columns of q / k, dv columns of v / dy and
-    tiles of H_in and G_exit, writing its f32 shares of dq and dk to plane vd
-    of [dv / TILE, B, S, H, dk] scratches and of dv to plane kd of a
-    [dk / TILE, B, S, H, dv] one; the second kernel sums each row's planes in
-    order, rounds once to q's type and forms dcum and dli from the f32 sums
-    over the whole dk."""
+    multiples of ``TILE`` (v and dy padded to dv).  Three launches: both
+    chunk scores, dec (x) q k^T and dec (x) dy v^T, once over the whole dk
+    and dv into a [2, B * H, n, Qp, Qp] f32 scratch, with a flag per
+    ``TILE`` x ``TILE`` tile of H_in and G_exit that is not 0; dq, dk and dv
+    by 64-wide column tile and 64-row tile (each rounded once to q's type;
+    the state terms over the whole other dimension, skipping tiles flagged
+    0), with the rows' q . dq and k . dk over each dk tile's columns into a
+    [2, dk / TILE, B, S, H] f32 scratch; then dcum and dli from those shares
+    summed over the tiles in order."""
     outs = _chunk_outputs(q, k, v, la, li, r, dy, hin, gexit, chunk, True)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dqpart = torch.empty((dv // TILE, B, S, H, dk), **f32)
-    dkpart = torch.empty((dv // TILE, B, S, H, dk), **f32)
-    dvpart = torch.empty((dk // TILE, B, S, H, dv), **f32)
+    n = S // chunk
+    scores = _scores(2, B, H, n, chunk, q.device)
+    flags = _flags(2, B, H, n, dk, dv, q.device)
+    rowpart = torch.empty((2, dk // TILE, B, S, H), dtype=torch.float32, device=q.device)
     fn = _build.function("mamba_scan", "mamba_scan_bwd_chunk_tiled",
                          [_build.P] * 17 + [_build.I] * 6 + [_build.P])
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), li.data_ptr(),
              _rptr(r), dy.data_ptr(), hin.data_ptr(), gexit.data_ptr(),
-             *(t.data_ptr() for t in outs), dqpart.data_ptr(), dkpart.data_ptr(),
-             dvpart.data_ptr(), B, S, H, dk, dv, chunk, _stream(q))
+             *(t.data_ptr() for t in outs), scores.data_ptr(), flags.data_ptr(),
+             rowpart.data_ptr(), B, S, H, dk, dv, chunk, _stream(q))
     _build.check("mamba_scan", err)
     launch_counts["mamba_scan_bwd_chunk_tiled"] += 1
     return outs

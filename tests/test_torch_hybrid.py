@@ -12,9 +12,11 @@ attention+MLP block) against the JAX package, on the CPU.
   use ``attn_q_block = 128`` (ROADMAP Queue 3: the tiers' tile rules agree
   there).
 * The tiled kernels' arithmetic in plain PyTorch at (dk, dv) = (128, 129)
-  (64 x 64 tiles, dv padded with zero columns): the forward and the state
-  and chunk backward, each against the plain version over the whole state
-  within 1e-5; ``ops.tile_padded``; the card branch of ``ops.mamba_scan``
+  (64 x 64 tiles, dv padded with zero columns; chunks of 16, and of 80 with
+  a partial 64-row tile): each chunk's scores once over the whole width,
+  the state tile by tile, the outputs by 64-wide column tile, dcum and dli
+  from the rows' per-tile shares, each against the plain version over the
+  whole state within 1e-5; ``ops.tile_padded``; the card branch of ``ops.mamba_scan``
   (forced on CPU tensors, the tiled entry points replaced by recording
   plain stand-ins) routing a gradient at (64, 65) through the tiled op,
   equal to autograd of the unpadded plain scan, and raising when a tiled
@@ -262,49 +264,136 @@ def test_mamba_scan_backward_kernels_plain_match_autograd(case):
         np.testing.assert_allclose(y2.numpy(), y1[:, c * Q_:(c + 1) * Q_].numpy(), **F32)
 
 
-def _tiled_inputs(dk, dv, h0=True):
-    """A two-chunk scan at (dk, dv) with resets and a non-zero h0, f32."""
+def _tiled_inputs(dk, dv, h0=True, ragged=False):
+    """A two-chunk scan at (dk, dv) with resets and a non-zero h0, f32: S = 32
+    (chunks of 16), or, ``ragged``, S = 160 (chunks of 80: a 64-row tile and
+    a partial one), with resets inside the chunks and a row that opens with
+    no reset, so that h0 reaches its first chunk's rows."""
     rs = np.random.RandomState(11)
-    B, S, H = 2, 32, 2
+    B, S, H = 2, 160 if ragged else 32, 2
     q = torch.from_numpy(rs.randn(B, S, H, dk).astype(np.float32))
     k = torch.from_numpy((rs.randn(B, S, H, dk) * 0.3).astype(np.float32))
     v = torch.from_numpy(rs.randn(B, S, H, dv).astype(np.float32))
     la = torch.from_numpy((-np.log1p(np.exp(rs.randn(B, S, H)))).astype(np.float32))
     li = torch.from_numpy((rs.randn(B, S, H) * 0.3).astype(np.float32))
     r = torch.zeros((B, S), dtype=torch.int32)
-    r[0, [0, 7, 16]] = 1
-    r[1, 21] = 1
+    if ragged:  # row 0: tile (1, 0) of its first chunk has no live pair
+        r[0, [0, 5, 64, 70, 100]] = 1
+        r[1, [30, 90, 150]] = 1
+    else:
+        r[0, [0, 7, 16]] = 1
+        r[1, 21] = 1
     la = torch.where(r[:, :, None] > 0, torch.zeros_like(la), la)
     h0_ = torch.from_numpy((rs.randn(B, H, dk, dv) * 0.5).astype(np.float32)) if h0 \
         else torch.zeros((B, H, dk, dv))
     return q, k, v, la, li, r, h0_
 
 
-def test_tiled_scan_decomposition_equals_the_plain_scan():
-    """What the tiled forward kernel computes, in plain PyTorch at (dk, dv)
-    = (128, 129): v and h0 padded with zero columns to 192 = 3 x 64, one
-    scan per (64-wide dk tile, 64-wide dv tile) from that tile of h0, the
-    f32 y of each dk tile summed over the dk tiles in order, the tiles'
-    final states side by side; y and the final state within f32 rounding
-    (1e-5 of the largest |value|) of ``mamba_scan_plain`` over the whole
-    state, the padded columns exactly 0."""
+TILED_CASES = {"two_chunks": 16, "ragged_chunk": 80}  # case: chunk
+
+
+def _tile_live(seg, it, jt):
+    """The kernels' rule: key tile jt <= query tile it of a chunk holds a
+    live pair (seg: the row's inclusive reset counts, padded rows carrying
+    the last)."""
+    return jt == it or seg[jt * 64 + 63] == seg[it * 64]
+
+
+def _tiled_chunks(la, li, r, Q):
+    """Per chunk c: (rows slice, dec [B, Qp, Qp, H] (zero past Q), ec, w
+    [B, Qp, H], cdec [B, H], seg [B, Qp]) as the kernels take them, Qp = Q
+    rounded up to 64."""
     from repro_torch.kernels import mamba_scan as ms
 
-    T = ms.TILE
-    q, k, v, la, li, r, h0 = _tiled_inputs(128, 129)
-    y_ref, h_ref = ms.mamba_scan_plain(q, k, v, la, li, r, h0, 16)
+    qp = -(-Q // 64) * 64
+    out = []
+    for c in range(la.shape[1] // Q):
+        sl = slice(c * Q, (c + 1) * Q)
+        dec, ec, w, cdec = ms._chunk_terms(la[:, sl], li[:, sl], r[:, sl], Q)
+        seg = torch.cumsum(r[:, sl], dim=1)
+        seg = torch.cat([seg, seg[:, -1:].expand(-1, qp - Q)], dim=1)
+        pad = qp - Q
+        out.append((sl, torch.nn.functional.pad(dec, (0, 0, 0, pad, 0, pad)),
+                    torch.nn.functional.pad(ec, (0, 0, 0, pad)),
+                    torch.nn.functional.pad(w, (0, 0, 0, pad)), cdec, seg))
+    return out
+
+
+def _tiled_scores(a, b, dec, seg):
+    """The scores kernel in plain PyTorch: X = dec (x) a b^T ([B, H, Qp, Qp])
+    over the whole width, once, on the 64 x 64 tiles (it, jt <= it) with a
+    live pair; the other tiles NaN (the kernel never writes them, and no
+    product may read them).  a, b: one chunk's [B, Q, H, d]."""
+    B, Q, H, _ = a.shape
+    qp = dec.shape[1]
+    ap, bp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, qp - Q)) for t in (a, b))
+    X = torch.full((B, H, qp, qp), float("nan"))
+    for bb in range(B):
+        for it in range(qp // 64):
+            for jt in range(it + 1):
+                if _tile_live(seg[bb], it, jt):
+                    rs_, cs = slice(it * 64, it * 64 + 64), slice(jt * 64, jt * 64 + 64)
+                    X[bb, :, rs_, cs] = torch.einsum("ihd,jhd->hij", ap[bb, rs_], bp[bb, cs]) \
+                        * dec[bb, rs_, cs].permute(2, 0, 1)
+    return X
+
+
+def _by_rows(X, t, seg, transposed=False):
+    """The outputs kernels' intra-chunk products on one 64-wide column tile
+    t ([B, Qp, H, 64]): per 64-row output tile, the live score tiles only --
+    X t by rows (key tiles jt <= the row tile), or X^T t by columns (query
+    tiles it >= it) -- in f32 -> [B, Qp, H, 64]."""
+    B, H, qp, _ = X.shape
+    out = torch.zeros(B, qp, H, t.shape[-1])
+    for bb in range(B):
+        for rt in range(qp // 64):
+            rows = slice(rt * 64, rt * 64 + 64)
+            for ot in (range(rt, qp // 64) if transposed else range(rt + 1)):
+                it, jt = (ot, rt) if transposed else (rt, ot)
+                if not _tile_live(seg[bb], it, jt):
+                    continue
+                other = slice(ot * 64, ot * 64 + 64)
+                xt = X[bb, :, other, rows].transpose(1, 2) if transposed else X[bb, :, rows, other]
+                out[bb, rows] += torch.einsum("hij,jhv->ihv", xt, t[bb, other])
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+def test_tiled_scan_decomposition_equals_the_plain_scan(case):
+    """What the tiled forward kernels compute, in plain PyTorch at (dk, dv) =
+    (128, 129), v and h0 padded with zero columns to 192 = 3 x 64: each
+    chunk's scores s~ = dec (x) q k^T once over the whole dk (live 64 x 64
+    tiles only, the rest NaN and never read); the state per 64 x 64 tile,
+    carried over the chunks from that tile of h0; y by 64-wide column tile
+    and 64-row tile, ec (x) (q H_in[:, c]) over the whole dk plus s~ v[:, c]
+    on the live tiles.  y and the final state within f32 rounding (1e-5 of
+    the largest |value|) of ``mamba_scan_plain`` over the whole state, the
+    padded columns exactly 0.  ``ragged_chunk``: chunks of 80 (a partial
+    64-row tile), resets inside them, a tile with no live pair, h0 reaching
+    a first chunk's rows."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    T, Q = ms.TILE, TILED_CASES[case]
+    q, k, v, la, li, r, h0 = _tiled_inputs(128, 129, ragged=case == "ragged_chunk")
+    y_ref, h_ref = ms.mamba_scan_plain(q, k, v, la, li, r, h0, Q)
     vp = torch.nn.functional.pad(v, (0, 192 - 129))
-    h0p = torch.nn.functional.pad(h0, (0, 192 - 129))
+    h = torch.nn.functional.pad(h0, (0, 192 - 129)).clone()
     y = torch.zeros(vp.shape)
-    h = torch.zeros(h0p.shape)
-    for kd in range(128 // T):
-        ks = slice(kd * T, (kd + 1) * T)
-        for vd in range(192 // T):
-            vs = slice(vd * T, (vd + 1) * T)
-            y_t, h_t = ms.mamba_scan_plain(q[..., ks], k[..., ks], vp[..., vs], la, li, r,
-                                           h0p[:, :, ks, vs].contiguous(), 16)
-            y[..., vs] += y_t  # f32 (q is f32): the tile sum's order, kd = 0, 1
-            h[:, :, ks, vs] = h_t
+    for sl, dec, ec, w, cdec, seg in _tiled_chunks(la, li, r, Q):
+        X = _tiled_scores(q[:, sl], k[:, sl], dec, seg)
+        hin = h.clone()
+        for kd in range(128 // T):  # the states kernel: each tile alone
+            ks = slice(kd * T, (kd + 1) * T)
+            for vd in range(192 // T):
+                vs = slice(vd * T, (vd + 1) * T)
+                upd = torch.einsum("bjhd,bjhv->bhdv", k[:, sl, :, ks] * w[:, :Q, :, None],
+                                   vp[:, sl, :, vs])
+                h[:, :, ks, vs] = cdec[:, :, None, None] * h[:, :, ks, vs] + upd
+        vc = torch.nn.functional.pad(vp[:, sl], (0, 0, 0, 0, 0, dec.shape[1] - Q))
+        for c in range(192 // T):  # the outputs kernel: y by column tile
+            cs = slice(c * T, (c + 1) * T)
+            inter = ec[:, :Q, :, None] * torch.einsum("bihd,bhdv->bihv", q[:, sl], hin[:, :, :, cs])
+            y[:, sl, :, cs] = inter + _by_rows(X, vc[..., cs], seg)[:, :Q]
     assert torch.count_nonzero(y[..., 129:]) == 0 and torch.count_nonzero(h[..., 129:]) == 0
     for name, got, want in (("y", y[..., :129], y_ref), ("h", h[..., :129], h_ref)):
         err = (got - want).abs().max().item()
@@ -328,23 +417,29 @@ def test_tile_padded_equals_the_unpadded_scan_bit_for_bit(dims):
         assert torch.equal(y1, y2) and torch.equal(h1, h2), dt
 
 
-@pytest.mark.parametrize("want_dh0", [True, False])
-def test_tiled_backward_decomposition_equals_the_plain_backward(want_dh0):
+@pytest.mark.parametrize("case,want_dh0", [("two_chunks", True), ("two_chunks", False),
+                                           ("ragged_chunk", True)])
+def test_tiled_backward_decomposition_equals_the_plain_backward(case, want_dh0):
     """What the tiled backward kernels compute, in plain PyTorch at (dk, dv)
     = (128, 129), dv padded with zero columns to 192 = 3 x 64 (v, dy, the
     final state's gradient, the saved states): the state backward per
     (64-wide dk tile, 64-wide dv tile) from that tile of dhf, alone (its
-    update is an outer product); the chunk backward per tile from its tiles
-    of hin and gexit, dq and dk summed over the dv tiles in order, dv over
-    the dk tiles, then dcum and dli from the f32 sums over the whole dk and
-    dla as ``_backward`` takes it.  Every output within f32 rounding (1e-5 of
-    the largest |value|) of ``mamba_scan_backward_plain`` over the whole
-    state, two chunks with resets and a non-zero h0 and dhf; the padded
-    columns exactly 0."""
+    update is an outer product); the chunk backward with each chunk's scores
+    s~ = dec (x) q k^T over the whole dk and p~ = dec (x) dy v^T over the
+    whole dv once (live 64 x 64 tiles only, the rest NaN and never read),
+    then by 64-wide column tile: dq[:, c] = ec (x) (dy H_in[c, :]^T) + p~
+    k[:, c] (p~ by rows), dk[:, c] = w (x) (v G_exit[c, :]^T) + p~^T q[:, c]
+    (p~ by columns), dv[:, c] = w (x) (k G_exit[:, c]) + s~^T dy[:, c], the
+    rows' q . dq and k . dk over each dk tile's columns, dcum and dli from
+    those shares summed over the tiles in order, and dla as ``_backward``
+    takes it.  Every output within f32 rounding (1e-5 of the largest
+    |value|) of ``mamba_scan_backward_plain`` over the whole state, the
+    padded columns exactly 0.  ``ragged_chunk``: chunks of 80, resets inside
+    them, a score tile with no live pair, h0 reaching a first chunk's rows."""
     from repro_torch.kernels import mamba_scan as ms
 
-    T, Q, pad = ms.TILE, 16, 192 - 129
-    q, k, v, la, li, r, h0 = _tiled_inputs(128, 129)
+    T, Q, pad = ms.TILE, TILED_CASES[case], 192 - 129
+    q, k, v, la, li, r, h0 = _tiled_inputs(128, 129, ragged=case == "ragged_chunk")
     rs = np.random.RandomState(12)
     dy = torch.from_numpy(rs.randn(*v.shape).astype(np.float32))
     dhf = torch.from_numpy((rs.randn(*h0.shape) * 0.3).astype(np.float32))
@@ -352,30 +447,48 @@ def test_tiled_backward_decomposition_equals_the_plain_backward(want_dh0):
     ref = ms.mamba_scan_backward_plain(q, k, v, la, li, r, hin, h, dy, dhf, Q, want_dh0)
     vp, dyp, dhfp, hinp, hp = (torch.nn.functional.pad(t, (0, pad))
                                for t in (v, dy, dhf, hin, h))
-    gexit = torch.zeros(hinp.shape)
+    B, S, H = la.shape
+    hinp = hinp.reshape(B, H, S // Q, 128, 192)
+    gexit = torch.zeros(B * H, S // Q, 128, 192)
     dh0 = torch.zeros(dhfp.shape) if want_dh0 else None
+    for kd in range(128 // T):
+        ks = slice(kd * T, (kd + 1) * T)
+        for vd in range(192 // T):
+            vs = slice(vd * T, (vd + 1) * T)
+            g_t, d_t = ms.mamba_scan_bwd_state_plain(q[..., ks], la, r, dyp[..., vs],
+                                                     dhfp[:, :, ks, vs].contiguous(), Q, want_dh0)
+            gexit[:, :, ks, vs] = g_t
+            if want_dh0:
+                dh0[:, :, ks, vs] = d_t
+    gex = gexit.reshape(B, H, S // Q, 128, 192)
     dq, dk, dv = torch.zeros(q.shape), torch.zeros(k.shape), torch.zeros(vp.shape)
-    tiles = [(slice(kd * T, (kd + 1) * T), slice(vd * T, (vd + 1) * T))
-             for kd in range(128 // T) for vd in range(192 // T)]  # kd-major: dv tiles in order
-    for ks, vs in tiles:
-        g_t, d_t = ms.mamba_scan_bwd_state_plain(q[..., ks], la, r, dyp[..., vs],
-                                                 dhfp[:, :, ks, vs].contiguous(), Q, want_dh0)
-        gexit[:, :, ks, vs] = g_t
-        if want_dh0:
-            dh0[:, :, ks, vs] = d_t
-    for vd in range(192 // T):  # dq and dk: the dv tiles in order, vd = 0, 1, 2
-        for ks, vs in tiles[vd::192 // T]:
-            dq_t, dk_t, _, _, _ = ms.mamba_scan_bwd_chunk_plain(
-                q[..., ks], k[..., ks], vp[..., vs], la, li, r, dyp[..., vs],
-                hinp[:, :, ks, vs].contiguous(), gexit[:, :, ks, vs].contiguous(), Q)
-            dq[..., ks] += dq_t
-            dk[..., ks] += dk_t
-    for ks, vs in tiles:  # dv: the dk tiles in order, kd = 0, 1
-        dv[..., vs] += ms.mamba_scan_bwd_chunk_plain(
-            q[..., ks], k[..., ks], vp[..., vs], la, li, r, dyp[..., vs],
-            hinp[:, :, ks, vs].contiguous(), gexit[:, :, ks, vs].contiguous(), Q)[2]
-    dli = (k * dk).sum(-1)
-    dcum = (q * dq).sum(-1) - dli
+    qdq, kdk = torch.zeros(128 // T, B, S, H), torch.zeros(128 // T, B, S, H)
+    for ci, (sl, dec, ec, w, _, seg) in enumerate(_tiled_chunks(la, li, r, Q)):
+        qp = dec.shape[1]
+        s_x = _tiled_scores(q[:, sl], k[:, sl], dec, seg)
+        p_x = _tiled_scores(dyp[:, sl], vp[:, sl], dec, seg)
+        qc, kc, dyc = (torch.nn.functional.pad(t[:, sl], (0, 0, 0, 0, 0, qp - Q))
+                       for t in (q, k, dyp))
+        e_q, w_q = ec[:, :Q, :, None], w[:, :Q, :, None]
+        for c in range(128 // T):  # a dk tile: dq and dk, and the rows' shares
+            cs = slice(c * T, (c + 1) * T)
+            dq_t = e_q * torch.einsum("bihv,bhdv->bihd", dyp[:, sl], hinp[:, :, ci, cs]) \
+                + _by_rows(p_x, kc[..., cs], seg)[:, :Q]
+            dk_t = w_q * torch.einsum("bjhv,bhdv->bjhd", vp[:, sl], gex[:, :, ci, cs]) \
+                + _by_rows(p_x, qc[..., cs], seg, transposed=True)[:, :Q]
+            dq[:, sl, :, cs], dk[:, sl, :, cs] = dq_t, dk_t
+            qdq[c, :, sl] = (q[:, sl, :, cs] * dq_t).sum(-1)
+            kdk[c, :, sl] = (k[:, sl, :, cs] * dk_t).sum(-1)
+        for c in range(192 // T):  # a dv tile
+            cs = slice(c * T, (c + 1) * T)
+            dv[:, sl, :, cs] = w_q * torch.einsum("bjhd,bhdv->bjhv", k[:, sl], gex[:, :, ci, :, cs]) \
+                + _by_rows(s_x, dyc[..., cs], seg, transposed=True)[:, :Q]
+    dli = torch.zeros(B, S, H)
+    dcum_q = torch.zeros(B, S, H)
+    for c in range(128 // T):  # the rows kernel: the tiles in order
+        dcum_q += qdq[c]
+        dli += kdk[c]
+    dcum = dcum_q - dli
     dcum[:, -1, :] += torch.einsum("bhkv,bhkv->bh", dhfp, hp)
     dla = ms.seg_rev_cumsum(dcum, r)
     zero = [dv[..., 129:], gexit[..., 129:]] + ([dh0[..., 129:]] if want_dh0 else [])
@@ -471,19 +584,30 @@ def test_mamba_scan_tiled_backward_failure_raises(monkeypatch):
     assert calls == ["fwd"] and q.grad is None
 
 
-@pytest.mark.parametrize("kernel", ["mamba_scan_fwd", "mamba_scan_bwd_state",
-                                    "mamba_scan_bwd_chunk", "mamba_scan_fwd_tiled",
-                                    "mamba_scan_bwd_state_tiled", "mamba_scan_bwd_chunk_tiled"])
+# kernel: (dynamic shared memory, blocks an H100 SM holds by it)
+SCAN_SMEM = {"mamba_scan_fwd": (98464, 2), "mamba_scan_bwd_state": (98464, 2),
+             "mamba_scan_bwd_chunk": (98464, 2), "mamba_scan_bwd_state_tiled": (98464, 2),
+             "mamba_scan_scores": (39072, 5), "mamba_scan_bwd_scores": (39072, 5),
+             "mamba_scan_states": (60576, 3), "mamba_scan_outputs": (79008, 2),
+             "mamba_scan_bwd_outputs": (79008, 2), "mamba_scan_bwd_rows": (0, None)}
+
+
+@pytest.mark.parametrize("kernel", sorted(SCAN_SMEM))
 def test_mamba_scan_smem_bytes_follow_the_cuda_source(kernel):
     """``smem_bytes`` (which chip_smoke holds the card's own report,
-    ``occupancy``, to) against the C source: the constants its formula
-    assumes are the source's; the six kernels (the tiled ones at a large
-    state among them: the (64, 64) bodies on one 64 x 64 tile, kinds 3-5
-    of ``mamba_scan_occupancy``) share one layout of 98,464
-    bytes at any chunk, so two blocks share an H100 SM (233,472 bytes, 1 KB
-    reserved a block), and the state backward's f32 output stages fit in
-    the room of the state's three bf16 terms.  Bad arguments are refused
-    here, before any build."""
+    ``occupancy``, to) against the C source: the constants its formulas
+    assume are the source's, and every kernel kind of
+    ``mamba_scan_occupancy`` (0-9) has its entry.  The four (64, 64) bodies
+    (the tiled state backward among them) share one layout of 98,464 bytes
+    at any chunk (two blocks an H100 SM: 233,472 bytes, 1 KB reserved a
+    block), the state backward's f32 output stages in the room of the
+    state's three bf16 terms; the tiled scan's kernels keep the chunk's
+    vectors (5,280 bytes) after their own: the scores a ring of four
+    swizzled 64 x 64 bf16 tiles and 1 KB to align them (39,072: five), the
+    states the bodies' ring (60,576: three), the outputs five 64 x 72 tiles
+    and the state's three terms, the warps' stage in their room (79,008:
+    two), the rows kernel none.  Bad arguments are refused here, before any
+    build."""
     import re
 
     from repro_torch.kernels import mamba_scan as ms
@@ -491,18 +615,22 @@ def test_mamba_scan_smem_bytes_follow_the_cuda_source(kernel):
     src = (Path(ms.__file__).parent.parent / "csrc" / "mamba_scan.cu").read_text()
     consts = dict(re.findall(r"constexpr int (\w+) = ([^;]+);", src))
     assert {k: consts[k] for k in ("D", "MMA_THREADS", "TR", "DP", "STAGES", "QMAX",
-                                   "MAX_ITEMS")} == {
+                                   "MAX_ITEMS", "SC_STAGES", "NSLOT", "ROWS_THREADS")} == {
         "D": "64", "MMA_THREADS": "128", "TR": "64", "DP": "D + 8", "STAGES": "3",
-        "QMAX": "256", "MAX_ITEMS": "32"}
+        "QMAX": "256", "MAX_ITEMS": "32", "SC_STAGES": "4", "NSLOT": "QMAX / TR + 1",
+        "ROWS_THREADS": "256"}
     assert "TP" not in consts and "SB" not in consts  # the CUDA-core kernel's tiles are gone
-    assert ms.TILE == int(consts["D"]) and ms._KINDS[kernel] <= 5
-    assert "kind < 0 || kind > 5" in src and kernel + "_kernel" in src
+    assert ms.TILE == int(consts["D"]) and sorted(ms._KINDS.values()) == list(range(10))
+    assert "kind < 0 || kind > 9" in src and kernel + "_kernel(Args a)" in src
     assert "static_assert(4 * 16 * (D + 8) * sizeof(float) <= kSplitBytes" in src
-    assert 4 * 16 * (64 + 8) * 4 <= 3 * 64 * 72 * 2
+    assert "static_assert(kStageBytes <= kSplitBytes" in src
+    assert 4 * 16 * (64 + 8) * 4 <= 3 * 64 * 72 * 2 and 4 * 16 * 72 * 2 <= 3 * 64 * 72 * 2
+    want, blocks = SCAN_SMEM[kernel]
     got = {Q: ms.smem_bytes(kernel, Q) for Q in (1, 40, 64, 65, 256)}
-    assert set(got.values()) == {98464}
-    assert 2 * (98464 + 1024) <= 233472 < 3 * (98464 + 1024)
-    for bad in ((kernel, 0), (kernel, 257), ("mamba_scan", 64)):
+    assert set(got.values()) == {want}
+    if blocks is not None:
+        assert blocks * (want + 1024) <= 233472 < (blocks + 1) * (want + 1024)
+    for bad in ((kernel, 0), (kernel, 257), ("mamba_scan", 64), ("mamba_scan_fwd_tiled", 64)):
         with pytest.raises(ValueError):
             ms.smem_bytes(*bad)
         with pytest.raises(ValueError):
