@@ -12,7 +12,8 @@ biases, the GELU MLP), serving of yi-34b, training and serving of the vlm
 family (qwen2-vl-7b: M-RoPE, qkv biases) and of the audio family
 (whisper-large-v3: the encoder, cross-attention, LayerNorm), and training
 and serving of the ssm family (xlstm-1.3b: mLSTM and sLSTM blocks, the
-three mamba_scan kernels tiled for its [1024, 1025] state) at full size.
+three mamba_scan kernels tiled for its [1024, 1025] state; bf16 and int8)
+at full size.
 
     python3 chip_smoke.py        # from the repository root, one CUDA card
 
@@ -295,6 +296,17 @@ part's wall seconds:
                     and grouped-LoRA call of one step to its plain version
                     (on this model's random weights the gradient gate cannot
                     tell a fault from chaos).
+28. serve_xlstm_int8, train_xlstm_int8 -- phases 26-27 on xlstm-1.3b's int8
+                    backbone (the mLSTM's up, q, k, v and down and the
+                    sLSTM's in and out int8, 3.77 GB at full depth where
+                    Eq. 5 prices 1.01 GB, JAX's clamp): every BaseOp through
+                    quant_matmul, 37 products a super-block (serve at 24
+                    blocks: 111 a decode step and in the forward; train at
+                    48: 222 a micro step), the second plain path
+                    ``plain_scale_first``, gates from each path's own
+                    spread (train: XLSTM_INT8_GRAD_PATH_TOL), and the audit
+                    holding every quant_matmul call too.  The xlstm_kernels
+                    lines hold quant_matmul at this model's four (K, N).
 
 The whole script is held to ``TIME_BUDGET_S`` (1,200 s) on one card.
 Every line of phases 11-25 and of their kernel cases carries the card's
@@ -561,6 +573,19 @@ WHISPER_GRAD_PATH_TOL = 0.10
 # max(10%, 2 S') rounded up to 0.005: 2 S' = 4.6560 -> 4.66.
 XLSTM_GRAD_PATH_TOL = 4.66
 XLSTM_DATA_SEED = 0
+# train_check_xlstm_int8 (xlstm-1.3b on the int8 backbone): set, as the bf16
+# gate was, from its own second plain paths before the kernel path was gated.
+# Over token seeds 0-9 (``PYTHONHASHSEED=0 python3 train_check_spread.py . 10
+# xlstm_int8``, numpy-seeded streams, seed 0 the state this path checks;
+# NVIDIA H100 80GB HBM3, 700.00 W) ``plain_scale_first`` came 1.6784-3.7601
+# (S') of a leaf's largest f32 |g| from the plain path, ``plain_reordered``
+# 1.0460-2.0774, the plain path 1.5164-2.3449 from the f32 run, and the
+# kernel path 1.8521-2.8687 from the plain one (1.8521 on seed 0): as chaotic
+# as on bf16, so the audit, which now holds every quant_matmul call too, is
+# the check that counts (none over on any seed; the int8 products' worst
+# 0.0065 against 0.0078).  max(10%, 2 S') rounded up to 0.005: 2 S' = 7.5203
+# -> 7.525.
+XLSTM_INT8_GRAD_PATH_TOL = 7.525
 # The int8 backbone's bytes against the cost model's Eq. 5 term, which
 # counts the BaseOp weights at one byte and the rest at two but not the f32
 # scales (0.1% of the backbone at full width).
@@ -1495,11 +1520,12 @@ def starcoder2_plan():
     return _retargeted_plan(STARCODER2_ARCH, STARCODER2_TARGETS)
 
 
-def xlstm_plan():
+def xlstm_plan(backbone_dtype="bfloat16"):
     """The ssm family's training path: xlstm-1.3b at full width and depth
-    (bf16), the training tenants on the mLSTM's ssm_in, q and v (the
-    sLSTM's ssm_in too: its only site of the three), and their plan."""
-    return _retargeted_plan(XLSTM_ARCH, XLSTM_TARGETS)
+    (on a ``backbone_dtype`` backbone), the training tenants on the mLSTM's
+    ssm_in, q and v (the sLSTM's ssm_in too: its only site of the three),
+    their plan, and the seed of its batches (``XLSTM_DATA_SEED``)."""
+    return _retargeted_plan(XLSTM_ARCH, XLSTM_TARGETS, backbone_dtype) + (XLSTM_DATA_SEED,)
 
 
 def step_launches(cfg, adapters):
@@ -2483,7 +2509,7 @@ def _xlstm_train_kernels(torch, timer, g, ptxas):
 
     resources = _scan_resources(ms, ptxas, ("mamba_scan_bwd_state_tiled", "mamba_scan_bwd_scores",
                                             "mamba_scan_bwd_outputs", "mamba_scan_bwd_rows"))
-    cfg, _, plan = xlstm_plan()
+    cfg, _, plan, _ = xlstm_plan()
     ht = plan.htasks[0]
     H, dk, dv = XLSTM_HEADS, XLSTM_DK, XLSTM_DK + 1
     pad = -dv % ms.TILE
@@ -2616,10 +2642,15 @@ def xlstm_kernel_phase(torch, timer):
     (scores, states, outputs) may spill.  Each case's line has the call's
     device ms, each launch's (``launch_device_ms``) and its scratch
     (``memory``).  Then grouped LoRA at M = 8 on the tenants'
-    sites (ssm_in 2048 -> 8192, attn_q / attn_v 4096 -> 4096).  Then the
-    tiled state and chunk backward (``_xlstm_train_kernels``).  Entries
-    ``mamba_scan_tiled_xlstm`` (the serve forward) with the others as
-    variants, ``grouped_lora_xlstm``, ``grouped_lora_bwd_xlstm_decode``,
+    sites (ssm_in 2048 -> 8192, attn_q / attn_v 4096 -> 4096).  Then
+    quant_matmul (the int8 paths) at the four (K, N) of a super-block's 37
+    BaseOp products (``xlstm_qmm_layer``: (2048, 8192) for the mLSTM's up
+    and the sLSTM's in, (4096, 4096) for q / k / v, (4096, 2048) for the
+    mLSTM's down, (2048, 2048) for the sLSTM's out) at M = 8, 4096 and 2816
+    (``quant_kernel_phase``).  Then the tiled state and chunk backward
+    (``_xlstm_train_kernels``).  Entries ``mamba_scan_tiled_xlstm`` (the
+    serve forward) with the others as variants, ``grouped_lora_xlstm``,
+    ``grouped_lora_bwd_xlstm_decode``, ``quant_matmul_xlstm``,
     ``mamba_scan_bwd_state_tiled_xlstm``, ``mamba_scan_bwd_chunk_tiled_xlstm``."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build, ops
@@ -2683,8 +2714,13 @@ def xlstm_kernel_phase(torch, timer):
     own = dict(results["serve_forward"])
     own["train_variant"], own["carry_variant"] = results["train"], results["carry"]
     out = {"mamba_scan_tiled_xlstm": own}
-    out.update(_lora_decode_kernels(torch, timer, g, get_config(XLSTM_ARCH), XLSTM_TARGETS,
-                                    "xlstm"))
+    cfg = get_config(XLSTM_ARCH)
+    out.update(_lora_decode_kernels(torch, timer, g, cfg, XLSTM_TARGETS, "xlstm"))
+    layer = xlstm_qmm_layer(cfg)
+    with torch.no_grad():
+        out.update(quant_kernel_phase(
+            torch, timer, tuple(dict.fromkeys(layer)), layer, model="xlstm",
+            layer_what=f"the {len(layer)} BaseOp products of one super-block"))
     out.update(_xlstm_train_kernels(torch, timer, g, ptxas))
     return out
 
@@ -2716,16 +2752,31 @@ def path_suffix(cfg) -> str:
 
 
 def base_op_calls(cfg) -> int:
-    """BaseOp products of one forward over a token: every layer's sites, or
-    on the hybrid family each Mamba2 block's two and the shared block's
-    seven in each super-block."""
+    """BaseOp products of one forward over a token: every layer's sites; on
+    the hybrid family each Mamba2 block's two and the shared block's seven
+    in each super-block; on the ssm family each super-block's
+    ``xlstm_qmm_layer``."""
     from repro_torch.peft.methods import base_op_dims
 
+    if cfg.family == "ssm":
+        return cfg.num_layers // cfg.slstm_period * len(xlstm_qmm_layer(cfg))
     dims = base_op_dims(cfg)
     if cfg.family != "hybrid":
         return len(dims) * cfg.num_layers
     n_super, per = cfg.num_layers // cfg.hybrid_period, cfg.hybrid_period - 1
     return n_super * (2 * per + len(dims) - 2)
+
+
+def xlstm_qmm_layer(cfg):
+    """(K, N) of one ssm super-block's BaseOp products in the order they
+    run: each mLSTM block's up, q, k, v and down, then the sLSTM block's in
+    and out (its blocks run no MLP, in either package, whatever ``d_ff``
+    says)."""
+    from repro_torch.peft.methods import base_op_dims
+
+    dims, d = base_op_dims(cfg), cfg.d_model
+    mlstm = tuple(dims[s] for s in ("ssm_in", "attn_q", "attn_k", "attn_v", "ssm_out"))
+    return mlstm * (cfg.slstm_period - 1) + ((d, 4 * d), (d, d))
 
 
 def init_backbone(torch, gen):
@@ -2759,7 +2810,8 @@ def train_phase(torch, cfg, tasks, plan, data_seed=None):
     state."""
     import numpy as np
 
-    from repro_torch.core import ModelGenerator, PEFTEngine
+    from repro_torch.core import ModelGenerator, ParallelismSpec, PEFTEngine
+    from repro_torch.core.cost_model import CostModel
     from repro_torch.data import HTaskLoader
     from repro_torch.kernels import ops
     from repro_torch.models.quantize import tensor_bytes
@@ -2809,9 +2861,12 @@ def train_phase(torch, cfg, tasks, plan, data_seed=None):
     if counts != want:
         raise AssertionError(f"kernel launches {counts}, the plan implies {want}")
     secs = [m.wall_seconds for m, _ in iters]
+    eq5 = {"cost_model_backbone_bytes": CostModel(cfg, [], ParallelismSpec()).stage_memory([])
+           } if int8 else {}
     emit({"phase": "train" + suffix, "card": card(), "backbone_dtype": cfg.backbone_dtype,
           "model": cfg.name,
           "layers": L, "d_model": cfg.d_model, "backbone_bytes": tensor_bytes(engine.backbone),
+          **eq5,
           "tasks": TRAIN_TASKS, "micro_batch": TRAIN_MICRO_BATCH, "lr": TRAIN_LR,
           "warmup_seconds": warm.wall_seconds, "iterations": TRAIN_ITERS,
           "micro_steps_per_iteration": steps_per_iter, "launches": counts,
@@ -3113,7 +3168,9 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
             err = (grads[a][i].float() - grads[b][i].float()).abs().max().item() / scale
             if err > worst[f"{a}_vs_{b}"][0]:
                 worst[f"{a}_vs_{b}"] = (err, name)
-    if int8:
+    if cfg.name == XLSTM_ARCH:
+        tol = XLSTM_INT8_GRAD_PATH_TOL if int8 else XLSTM_GRAD_PATH_TOL
+    elif int8:
         tol = ZAMBA_INT8_GRAD_PATH_TOL if hybrid else INT8_GRAD_PATH_TOL
     elif hybrid:
         tol = ZAMBA_GRAD_PATH_TOL
@@ -3125,8 +3182,6 @@ def train_check(torch, engine, seed=3, extra=None, methods=False):
         tol = QWEN2VL_GRAD_PATH_TOL
     elif cfg.name == WHISPER_ARCH:
         tol = WHISPER_GRAD_PATH_TOL
-    elif cfg.name == XLSTM_ARCH:
-        tol = XLSTM_GRAD_PATH_TOL
     else:
         tol = METHODS_GRAD_PATH_TOL if methods else GRAD_PATH_TOL
     suffix = "_methods" if methods else path_suffix(cfg)
@@ -6009,24 +6064,26 @@ def serve_whisper_phase(torch):
 @contextlib.contextmanager
 def audited_calls(torch, records):
     """Each tiled mamba_scan kernel call (the forward, the state and the
-    chunk backward) and each grouped-LoRA kernel call (forward and
-    backward), as it runs, held to its plain version on the same operands
-    (autograd of it for the grouped-LoRA backward): a record per output,
-    ``(kernel_output, error as a share of the plain output's largest
-    magnitude, tolerance)``; y, dq, dk, dv and the LoRA outputs at
-    KERNEL_TOL (GRAD_TOL for the backwards), the f32 states and rows (h,
-    hin, gexit, dh0, dcum, dli) at F32_TOL.  The kernels' results are
-    returned unchanged.  On a model whose logits and gradients no
-    end-to-end comparison can hold (a bf16 unit anywhere grows to their
-    size over its depth) this holds every kernel call of the path on the
-    operands the path gave it."""
+    chunk backward), each grouped-LoRA kernel call (forward and backward)
+    and each quant_matmul kernel call, as it runs, held to its plain
+    version on the same operands (autograd of it for the grouped-LoRA
+    backward): a record per output, ``(kernel_output, error as a share of
+    the plain output's largest magnitude, tolerance)``; y, dq, dk, dv, the
+    LoRA outputs and the int8 products at KERNEL_TOL (GRAD_TOL for the
+    backwards), the f32 states and rows (h, hin, gexit, dh0, dcum, dli) at
+    F32_TOL.  The kernels' results are returned unchanged.  On a model
+    whose logits and gradients no end-to-end comparison can hold (a bf16
+    unit anywhere grows to their size over its depth) this holds every
+    kernel call of the path on the operands the path gave it."""
     from repro_torch.kernels import grouped_lora as gl
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import quant_matmul as qm
 
     names = ("mamba_scan_tiled_cuda", "mamba_scan_bwd_state_tiled_cuda",
              "mamba_scan_bwd_chunk_tiled_cuda")
     orig = {name: getattr(ms, name) for name in names}
     orig_lora = gl.grouped_lora_cuda, gl.grouped_lora_bwd_cuda
+    orig_qmm = qm.quant_matmul_cuda
     chunk_tol = GRAD_TOL["mamba_scan_bwd_chunk"]
 
     def rel(out, ref):
@@ -6074,15 +6131,23 @@ def audited_calls(torch, records):
             (GRAD_TOL["grouped_lora_bwd"],) * 3)
         return out
 
+    def qmm(x, q, scale):
+        out = orig_qmm(x, q, scale)
+        records.append(("quant_matmul", rel(out, qm.quant_matmul_plain(x, q, scale)),
+                        KERNEL_TOL))
+        return out
+
     for name, fn in zip(names, (scan, state, chunk_)):
         setattr(ms, name, fn)
     gl.grouped_lora_cuda, gl.grouped_lora_bwd_cuda = lora, lora_bwd
+    qm.quant_matmul_cuda = qmm
     try:
         yield
     finally:
         for name in names:
             setattr(ms, name, orig[name])
         gl.grouped_lora_cuda, gl.grouped_lora_bwd_cuda = orig_lora
+        qm.quant_matmul_cuda = orig_qmm
 
 
 def audit_summary(records):
@@ -6100,22 +6165,25 @@ def audit_summary(records):
 
 
 def train_check_xlstm(torch, engine, seed=3):
-    """``train_check`` on xlstm-1.3b (gate ``XLSTM_GRAD_PATH_TOL``) with one
-    more run of the kernel path, ``audit``, under ``audited_calls``: every
-    tiled scan (forward, state and chunk backward) and grouped-LoRA (forward
-    and backward) call of the step held to its plain version on its
-    operands.  Random weights make this model chaotic (a bf16 unit anywhere
-    grows to the logits' size over its 48 blocks, ``serve_xlstm``), so the
-    audit is the check that counts: it fails unless every output was
-    audited on every call the step makes (``step_launches``) and none is
-    over its tolerance.  The audit's line is printed even when a gate of
-    ``train_check`` fails."""
+    """``train_check`` on xlstm-1.3b (gate ``XLSTM_GRAD_PATH_TOL``, on an
+    int8 backbone ``XLSTM_INT8_GRAD_PATH_TOL``) with one more run of the
+    kernel path, ``audit``, under ``audited_calls``: every tiled scan
+    (forward, state and chunk backward), grouped-LoRA (forward and
+    backward) and, on int8, quant_matmul call of the step held to its plain
+    version on its operands.  Random weights make this model chaotic (a
+    bf16 unit anywhere grows to the logits' size over its 48 blocks,
+    ``serve_xlstm``), so the audit is the check that counts: it fails
+    unless every output was audited on every call the step makes
+    (``step_launches``, ``base_op_calls``) and none is over its tolerance.
+    The audit's line is printed even when a gate of ``train_check``
+    fails."""
     records = []
     try:
         train_check(torch, engine, seed, extra={"audit": lambda: audited_calls(torch, records)})
     finally:
         audit = audit_summary(records)
-        emit({"phase": "train_check_xlstm_audit", "seed": seed, "card": card(), "audit": audit})
+        emit({"phase": f"train_check{path_suffix(engine.model.cfg)}_audit", "seed": seed,
+              "card": card(), "audit": audit})
     n = step_launches(engine.model.cfg, engine.reg.adapter_params)
     scans, lora = n["mamba_scan_tiled"], n["grouped_lora"]
     want = {f"mamba_scan_tiled_{o}": scans for o in ("y", "h", "hin")}
@@ -6124,16 +6192,20 @@ def train_check_xlstm(torch, engine, seed=3):
                  for o in ("dq", "dk", "dv", "dcum", "dli")})
     want["grouped_lora"] = lora
     want.update({f"grouped_lora_bwd_{o}": lora for o in ("dx", "da", "db")})
+    cfg = engine.model.cfg
+    if cfg.backbone_dtype == "int8":  # every BaseOp of the forward (dx is a plain product)
+        want["quant_matmul"] = base_op_calls(cfg)
     calls = {name: e["calls"] for name, e in audit.items()}
     if calls != want or any(e["over"] for e in audit.values()):
-        raise AssertionError(f"train_check_xlstm: audit calls {calls}, the step implies {want}; "
-                             f"{audit}")
+        raise AssertionError(f"train_check{path_suffix(cfg)}: audit calls {calls}, the step "
+                             f"implies {want}; {audit}")
 
 
-def serve_xlstm_phase(torch):
+def serve_xlstm_phase(torch, backbone_dtype="bfloat16"):
     """The ssm family's serving path: xlstm-1.3b at full width and
     ``XLSTM_SERVE_LAYERS`` of its 48 blocks (3 of its 6 super-blocks of 7
-    mLSTM and 1 sLSTM; random bf16 weights from a seed), four LoRA tenants
+    mLSTM and 1 sLSTM; random bf16 weights from a seed) on a
+    ``backbone_dtype`` backbone, four LoRA tenants
     (``SERVE_TENANTS``' ranks and
     alphas) on the mLSTM's ssm_in, attn_q and attn_v and the sLSTM's ssm_in,
     two rows each, routed per row through ``ctx_factory_from_slots``;
@@ -6141,38 +6213,44 @@ def serve_xlstm_phase(torch):
     has no prefill), each row then greedy for 32 tokens, all rows stepping
     together (``XLSTM_SERVE_STEPS`` steps) over 2.82 GB of mLSTM states.
     Gates: the launches the path implies (per step grouped LoRA 66 = 3 x
-    (7 x 3 + 1), no other kernel: the recurrent steps are plain PyTorch, as
-    in the JAX package); a teacher-forced rerun of the fed tokens on the
-    plain versions and one on a second plain path, ``plain_reordered``
-    (grouped LoRA's f32 sums as two halves), whose spread sets the gate
-    (``_gate_from``), held to the served run's logits (``plain_split``, the
-    other second plain path, changes decode attention only, which this
-    path does not run: it is the plain path bit for bit, so it is not
-    rerun); ``Model.forward`` over the same tokens on the kernels: 21
+    (7 x 3 + 1); on int8 quant_matmul 111 = 3 x (7 x 5 + 2), every BaseOp;
+    no other kernel: the recurrent steps are plain PyTorch, as in the JAX
+    package); a teacher-forced rerun of the fed tokens on the plain versions
+    and one on a second plain path, ``plain_reordered`` (grouped LoRA's f32
+    sums as two halves; on int8 ``plain_scale_first``, the int8 product's
+    scale before the sum), whose spread sets the gate (``_gate_from``),
+    held to the served run's logits (``plain_split``, the other second
+    plain path, changes decode attention only, which this path does not
+    run: it is the plain path bit for bit, so it is not rerun);
+    ``Model.forward`` over the same tokens on the kernels: 21
     ``ops.mamba_scan`` calls, each one ``mamba_scan_tiled`` call (three CUDA
     launches: the chunk's scores, the 16 x 17 tiles of the padded [1024,
-    1088] state a (row, head), y by column tile), and 66 grouped LoRA,
-    nothing else; its
-    distance from the kernels' decode within twice the plain path's.  On
-    random weights this model carries a difference of one bf16 unit to
-    the logits' size over its blocks (the plain paths' spread is of that
-    order from the first step), so those gates cannot fail; the audit
-    (``audited_calls``) holds each of the forward's 21 tiled scans and
-    66 grouped-LoRA calls and each grouped-LoRA call of two decode steps
-    to its plain version on the operands the path gave it.  Prints the
-    decode step's device and host ms and the peak memory.  Returns the
-    launch counts of the decode and the forward."""
+    1088] state a (row, head), y by column tile), 66 grouped LoRA and on
+    int8 111 quant_matmul, nothing else; its distance from the kernels'
+    decode within twice the plain path's.  On random weights this model
+    carries a difference of one bf16 unit to the logits' size over its
+    blocks (the plain paths' spread is of that order from the first step),
+    so those gates cannot fail; the audit (``audited_calls``) holds each of
+    the forward's 21 tiled scans, 66 grouped-LoRA and (int8) 111
+    quant_matmul calls and each grouped-LoRA and quant_matmul call of two
+    decode steps to its plain version on the operands the path gave it.
+    Prints the decode step's device and host ms and the peak memory, on
+    int8 the backbone's bytes beside Eq. 5's price.  Returns the launch
+    counts of the decode and the forward."""
     import numpy as np
 
     from repro_torch.configs import get_config
-    from repro_torch.core import ModelGenerator, PEFTTask
+    from repro_torch.core import ModelGenerator, ParallelismSpec, PEFTTask
+    from repro_torch.core.cost_model import CostModel
     from repro_torch.kernels import ops
-    from repro_torch.models.quantize import tensor_bytes
+    from repro_torch.models.quantize import quantized_param_count, tensor_bytes
     from repro_torch.peft.methods import AdapterConfig
 
     t_phase = time.perf_counter()
-    cfg = get_config(XLSTM_ARCH).with_overrides(num_layers=XLSTM_SERVE_LAYERS)
-    suffix = "_xlstm"
+    int8 = backbone_dtype == "int8"
+    cfg = get_config(XLSTM_ARCH).with_overrides(num_layers=XLSTM_SERVE_LAYERS,
+                                                backbone_dtype=backbone_dtype)
+    suffix = path_suffix(cfg)
     n_super, per = cfg.num_layers // cfg.slstm_period, cfg.slstm_period - 1
     tenants = [AdapterConfig("lora", rank=rk, alpha=al, targets=XLSTM_TARGETS)
                for rk, al in SERVE_TENANTS]
@@ -6223,23 +6301,34 @@ def serve_xlstm_phase(torch):
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     lora_a_step = n_super * (per * len(XLSTM_TARGETS) + 1)
+    qmm_a_step = base_op_calls(cfg) if int8 else 0
     want = dict.fromkeys(counts, 0)
     want["grouped_lora"] = lora_a_step * T
+    if int8:
+        want["quant_matmul"] = qmm_a_step * T
     if counts != want:
         raise AssertionError(f"serve{suffix}: kernel launches {counts}, the path implies {want}")
     generated = [picked[i, lengths[i] - 1:lengths[i] - 1 + new].tolist() for i in range(rows)]
-    emit({"phase": "serve" + suffix, "card": card(), "model": cfg.name,
-          "layers": cfg.num_layers, "d_model": cfg.d_model, "super_blocks": n_super,
-          "backbone_bytes": tensor_bytes(backbone), "state_bytes": state_bytes,
-          "tenants": [{"rank": t.rank, "alpha": t.alpha} for t in tenants],
-          "rows": rows, "prompt_lengths": lengths.tolist(), "new_tokens": new, "steps": T,
-          "launches": counts, "step_ms_median": statistics.median(step_s) * 1e3,
-          "decode_tokens_per_s": rows * T / sum(step_s),
-          "max_memory_allocated": peak, "first_generated": generated[0][:8]})
+    nbytes = tensor_bytes(backbone)
+    line = {"phase": "serve" + suffix, "card": card(), "model": cfg.name,
+            "layers": cfg.num_layers, "d_model": cfg.d_model, "super_blocks": n_super,
+            "backbone_dtype": backbone_dtype, "backbone_bytes": nbytes,
+            "state_bytes": state_bytes,
+            "tenants": [{"rank": t.rank, "alpha": t.alpha} for t in tenants],
+            "rows": rows, "prompt_lengths": lengths.tolist(), "new_tokens": new, "steps": T,
+            "launches": counts, "step_ms_median": statistics.median(step_s) * 1e3,
+            "decode_tokens_per_s": rows * T / sum(step_s),
+            "max_memory_allocated": peak, "first_generated": generated[0][:8]}
+    if int8:  # Eq. 5 prices the clamped count at one byte (the JAX clamp)
+        eq5 = CostModel(cfg, [], ParallelismSpec()).stage_memory([])
+        line.update({"cost_model_backbone_bytes": eq5,
+                     "quantized_param_count": quantized_param_count(cfg),
+                     "param_count": cfg.param_count(), "backbone_bytes_over_eq5": nbytes / eq5})
+    emit(line)
     with torch.no_grad():
         prof = profile_device(torch, lambda: model.decode_step(
             backbone, st, fed[:, -1:], adapters=adapters, ctx_factory=ctxf), 3,
-            {"grouped_lora": ("grouped_lora",)})
+            {"grouped_lora": ("grouped_lora",), "quant_matmul": ("qmm_",)})
     emit({"phase": "profile", "path": "serve decode step" + suffix, "card": card(), **prof,
           "device_busy_share_unprofiled": prof["device_ms_per_call"] / (
               statistics.median(step_s) * 1e3) if prof["device_ms_per_call"] else None})
@@ -6269,7 +6358,8 @@ def serve_xlstm_phase(torch):
         seconds[name] = time.perf_counter() - t1
         return out
 
-    second = {"plain_reordered": plain_reordered}
+    second = {"plain_scale_first": plain_scale_first} if int8 else \
+        {"plain_reordered": plain_reordered}
     with torch.no_grad():
         with ops.force_plain():
             traj["plain"] = timed("plain", trajectory)
@@ -6278,10 +6368,11 @@ def serve_xlstm_phase(torch):
             with ctx():
                 traj[name] = timed(name, trajectory)
         spread = max(max(_rel_by_step(traj[n], traj["plain"])) for n in second)
-        tol = _gate_from(spread, LOGIT_TOL)
+        base = INT8_LOGIT_TOL if int8 else LOGIT_TOL
+        tol = _gate_from(spread, base)
         emit({"phase": "serve_check" + suffix + "_gate", "card": card(),
               "plain_paths_vs_plain_max_rel": spread, "two_s": 2 * spread,
-              "base_tol": LOGIT_TOL, "gate": tol})
+              "base_tol": base, "gate": tol})
         traj["kernel"] = served  # the served run is the kernel path's teacher-forced run
         ops.reset_launch_counts()
         fwd["kernel"] = timed("kernel_forward", forward)
@@ -6297,6 +6388,8 @@ def serve_xlstm_phase(torch):
     audit = audit_summary(records)
     want = dict.fromkeys(fwd_counts, 0)
     want.update({"grouped_lora": lora_a_step, "mamba_scan_tiled": n_super * per})
+    if int8:
+        want["quant_matmul"] = qmm_a_step
     if fwd_counts != want:
         raise AssertionError(f"serve{suffix} forward: kernel launches {fwd_counts}, the path "
                              f"implies {want}")
@@ -6324,9 +6417,13 @@ def serve_xlstm_phase(torch):
                              f"{top['kernel_decode_vs_forward']} from their forward, over twice "
                              f"the plain path's {top['plain_decode_vs_forward']}")
     calls = {name: e["calls"] for name, e in audit.items()}
-    if calls != {"mamba_scan_tiled_y": n_super * per, "mamba_scan_tiled_h": n_super * per,
-                 "grouped_lora": 3 * lora_a_step} or any(e["over"] for e in audit.values()):
-        raise AssertionError(f"serve_check{suffix}: audit {audit}")
+    want = {"mamba_scan_tiled_y": n_super * per, "mamba_scan_tiled_h": n_super * per,
+            "grouped_lora": 3 * lora_a_step}
+    if int8:  # the forward's and two decode steps'
+        want["quant_matmul"] = 3 * qmm_a_step
+    if calls != want or any(e["over"] for e in audit.values()):
+        raise AssertionError(f"serve_check{suffix}: audit calls {calls}, the path implies "
+                             f"{want}; {audit}")
     return {k: counts[k] + fwd_counts[k] for k in counts}
 
 
@@ -6336,18 +6433,21 @@ def serve_xlstm_phase(torch):
 # the script would pass its time limit run one after the other.  The
 # whisper paths (3.1 GB of weights, host-bound decode) join them, and
 # serve_xlstm (17.2 GB at its peak at full depth, host-bound decode: 19% busy) joins the
-# second, which ended first without it (395 s against 413).  The last
+# second, which ended first without it (395 s against 413); serve_xlstm_int8
+# (host-bound decode too) joins the first, whose paths took 315 s against the
+# second's 352 without it (NVIDIA H100 80GB HBM3, 700 W).  The last
 # group needs the card to itself (deepseek-moe-16b's 60 GB of training,
 # yi-34b's 79 GB, qwen2-vl-7b's 15.2 GB backbone beside its training
 # activations, xlstm-1.3b's 16.5 GB of saved mLSTM states beside 60 GB of
-# training), and runs alone after them.
+# training, on bf16 and on int8), and runs alone after them.
 PATHS_BESIDE = (
     ("serve", "serve_int8", "train", "train_methods", "train_int8", "train_zamba",
-     "train_zamba_int8", "train_whisper"),
+     "train_zamba_int8", "train_whisper", "serve_xlstm_int8"),
     ("serve_methods", "coserve", "fleet", "fleet_int8", "serve_zamba", "serve_zamba_int8",
      "serve_whisper", "serve_xlstm"))
 PATHS_ALONE = ("train_moe", "serve_moe", "serve_moe_int8", "train_starcoder2",
-               "serve_starcoder2", "serve_yi", "train_qwen2vl", "serve_qwen2vl", "train_xlstm")
+               "serve_starcoder2", "serve_yi", "train_qwen2vl", "serve_qwen2vl", "train_xlstm",
+               "train_xlstm_int8")
 
 
 def _timed(torch, laps, name, fn, *args, **kw):
@@ -6435,10 +6535,12 @@ def run_paths(torch, names, counts, laps, carry=None):
         "train_whisper": lambda: train("train_whisper", (), train_whisper_phase),
         "serve_whisper": lambda: serve("serve_whisper", serve_whisper_phase),
         # the ssm family (xlstm-1.3b): decode, and the forward on the tiled scan;
-        # training on the tiled scan's three kernels
+        # training on the tiled scan's three kernels; both on an int8 backbone
         "serve_xlstm": lambda: serve("serve_xlstm", serve_xlstm_phase),
-        "train_xlstm": lambda: train("train_xlstm", xlstm_plan() + (XLSTM_DATA_SEED,),
-                                     check=train_check_xlstm),
+        "train_xlstm": lambda: train("train_xlstm", xlstm_plan(), check=train_check_xlstm),
+        "serve_xlstm_int8": lambda: serve("serve_xlstm_int8", serve_xlstm_phase, "int8"),
+        "train_xlstm_int8": lambda: train("train_xlstm_int8", xlstm_plan("int8"),
+                                          check=train_check_xlstm),
     }
     for name in names:
         table[name]()
@@ -6624,7 +6726,8 @@ def main() -> int:
                               "whisper_variant": "decode_attention_whisper",
                               "whisper_cross_variant": "decode_attention_cross_whisper"}),
         ("quant_matmul", "quant_matmul.cu", "quant_matmul.py:36", "quant_matmul",
-         {"moe_variant": "quant_matmul_moe", "zamba2_variant": "quant_matmul_zamba2"}),
+         {"moe_variant": "quant_matmul_moe", "zamba2_variant": "quant_matmul_zamba2",
+          "xlstm_variant": "quant_matmul_xlstm"}),
         ("mamba_scan", "mamba_scan.cu", "mamba_scan.py:76", "mamba_scan_zamba2", {}),
         # the forward at xlstm's (1024, 1025) state, tiled 64 x 64 (row 8's variant)
         ("mamba_scan_tiled", "mamba_scan.cu", "mamba_scan.py:76", "mamba_scan_tiled_xlstm", {}),

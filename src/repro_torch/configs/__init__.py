@@ -14,8 +14,8 @@ from typing import Tuple
 @dataclass(frozen=True)
 class ArchConfig:
     """A backbone architecture: the fields of the JAX package's
-    ``ArchConfig`` that its families and the planner read (the TPU
-    execution fields and ``param_dtype`` are not ported)."""
+    ``ArchConfig`` that its families and the planner read, and its
+    ``param_dtype`` (the TPU execution fields are not ported)."""
 
     name: str
     family: str
@@ -64,11 +64,21 @@ class ArchConfig:
     # query block of packed attention: its tile-visibility rule uses
     # gcd(S, min(attn_q_block, S)) as the JAX package's model does
     attn_q_block: int = 512
+    # the JAX package's parameter type, declared there and read nowhere (its
+    # backbones take each ParamSpec's type, bf16): here it may only be that,
+    # so no config can ask for a parameter type it would not get
+    param_dtype: str = "bfloat16"
     # frozen-backbone storage ("bfloat16" | "float32" | "int8"): "int8"
     # quantizes every adapter-capable BaseOp weight at model build
     # (symmetric, per-output-channel scale), read by the quant_matmul kernel
     # (``repro_torch.models.quantize``, ``kernels/quant_matmul.py``)
     backbone_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.param_dtype != "bfloat16":
+            raise ValueError(f"{self.name}: param_dtype {self.param_dtype!r}: the "
+                             "backbone's parameters are bf16 (the field is inert, "
+                             "as in the JAX package)")
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)

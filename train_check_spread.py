@@ -22,9 +22,13 @@ down, ``chip_smoke.qwen2vl_plan``) or ``whisper`` (whisper-large-v3, the
 tenants on the decoder's q, v, fc1 and fc2: a ``chip_smoke.WhisperTrainer``
 whose batches, frames included, come from the seed, trained through
 ``launch.steps.build_train_step`` as chip_smoke's ``train_whisper`` does)
-or ``xlstm`` (xlstm-1.3b, the tenants on the mLSTM's ssm_in, q and v and
-the sLSTM's ssm_in, ``chip_smoke.xlstm_plan``; its mLSTM scans run the
-tiled kernels at (1024, 1025)).  One JSON line per
+or ``xlstm`` and ``xlstm_int8`` (xlstm-1.3b on a bf16 or an int8
+backbone, the tenants on the mLSTM's ssm_in, q and v and the sLSTM's
+ssm_in, ``chip_smoke.xlstm_plan``; its mLSTM scans run the tiled kernels at
+(1024, 1025)).  Where the plan names a data seed, as ``xlstm_plan``
+does, seed ``s`` trains on ``chip_smoke._seeded_stream(s + task)``'s tokens
+for chip_smoke's warm-up, timed and profiled iterations, so the plan's own
+seed is the state that chip_smoke's check holds.  One JSON line per
 seed with its distances (each the worst leaf's, as a share of that leaf's
 largest f32 |g|):
 
@@ -34,7 +38,9 @@ largest f32 |g|):
   ``plain_stored_o_vs_plain`` and ``plain_reordered_vs_plain``
   (``chip_smoke.plain_stored_o`` / ``plain_reordered``; on zamba2 this
   script adds the latter, which chip_smoke's check leaves out), on an int8
-  one ``plain_scale_first_vs_plain``;
+  one ``plain_scale_first_vs_plain`` (and on xlstm-1.3b's int8 backbone,
+  where grouped LoRA's kernel runs too, this script adds
+  ``plain_reordered_vs_plain``);
 * ``swap_<family>_vs_plain`` for each family of ``ops.FAMILIES`` that the
   path runs: the kernel path with that family's plain version swapped in
   alone (``ops.force_plain([family])``; packed attention also by
@@ -136,7 +142,7 @@ def main() -> int:
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     path = sys.argv[3] if len(sys.argv) > 3 else "train"
     paths = ("train", "methods", "moe", "zamba", "zamba_int8", "starcoder2", "qwen2vl",
-             "whisper", "xlstm")
+             "whisper", "xlstm", "xlstm_int8")
     if path not in paths:
         raise SystemExit(f"train_check_spread: unknown path {path!r} ({', '.join(paths)})")
     methods = path == "methods"
@@ -159,13 +165,14 @@ def main() -> int:
     if path == "whisper":
         from repro_torch.configs import get_config
 
-        cfg, tasks, plan = get_config(c.WHISPER_ARCH), None, None
+        cfg, tasks, plan, data_seed = get_config(c.WHISPER_ARCH), None, None, ()
     else:
-        cfg, tasks, plan = {"train": c.train_plan, "methods": c.methods_plan,
+        cfg, tasks, plan, *data_seed = {"train": c.train_plan, "methods": c.methods_plan,
                             "moe": c.moe_plan, "zamba": c.zamba_plan,
                             "zamba_int8": lambda: c.zamba_plan("int8"),
                             "starcoder2": c.starcoder2_plan,
-                            "qwen2vl": c.qwen2vl_plan, "xlstm": c.xlstm_plan}[path]()
+                            "qwen2vl": c.qwen2vl_plan, "xlstm": c.xlstm_plan,
+                            "xlstm_int8": lambda: c.xlstm_plan("int8")}[path]()
     int8 = cfg.backbone_dtype == "int8"
     # the families this path runs (decode attention runs in no training step,
     # packed attention in none of the ssm family's)
@@ -184,15 +191,26 @@ def main() -> int:
             c.init_backbone(torch, gen)
             gen.register_tasks(tasks)
             engine = PEFTEngine(gen, plan, lr=c.TRAIN_LR)
-            loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size, seed=seed)
+            streams = (lambda: {i: c._seeded_stream(seed + i, cfg.vocab_size)
+                                for i in range(len(tasks))}) if data_seed else (lambda: None)
+            loaders = {i: HTaskLoader(tasks, plan.alignment[i], cfg.vocab_size, seed=seed,
+                                      streams=streams())
                        for i in range(len(plan.htasks))}
-            for _ in range(1 + c.TRAIN_ITERS):
+            # (a seeded path also runs chip_smoke's profiled iteration: its state)
+            for _ in range(1 + c.TRAIN_ITERS + bool(data_seed)):
                 engine.run_iteration(loaders)
         records = []
-        extra = {f"swap_{f}": (lambda f=f: ops.force_plain([f])) for f in families}
+        # on the ssm family a run with a plain version in it recomputes each
+        # mLSTM block, as chip_smoke's plain runs do: autograd of the plain scan
+        # or of the plain int8 products (their f32 weights) keeps GBs a block
+        remat = c.recompute(engine.model, True) if cfg.family == "ssm" else \
+            contextlib.nullcontext
+        extra = {f"swap_{f}": (lambda f=f: c._stacked(remat, lambda: ops.force_plain([f])))
+                 for f in families}
         extra["audit"] = lambda: audited(torch, c, records)
-        if cfg.family == "hybrid" and not int8:  # (chip_smoke's check runs only S there)
-            extra["plain_reordered"] = c.plain_reordered
+        if (cfg.family == "hybrid" and not int8) or (cfg.family == "ssm" and int8):
+            # (chip_smoke's check leaves it out there)
+            extra["plain_reordered"] = lambda: c._stacked(remat, c.plain_reordered)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             try:
