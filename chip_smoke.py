@@ -261,17 +261,17 @@ part's wall seconds:
                     attention kernels with one segment a row), forward, dq
                     and dk/dv, and decode attention at its heads and over
                     the whole 1500-row cross cache.
-26. serve_xlstm  -- xlstm-1.3b at full width and 24 of its 48 blocks
-                    (``XLSTM_SERVE_LAYERS``: 3 of 6 super-blocks of 7 mLSTM
+26. serve_xlstm  -- xlstm-1.3b at full width and 16 of its 48 blocks
+                    (``XLSTM_SERVE_LAYERS``: 2 of 6 super-blocks of 7 mLSTM
                     and 1 sLSTM): four
                     LoRA tenants on the mLSTM's ssm_in, q and v and the
                     sLSTM's ssm_in, prompts of 16-64 fed through
                     Model.decode_step (no prefill, as in the JAX package),
-                    32 greedy tokens (95 steps) over 2.82 GB of mLSTM
+                    32 greedy tokens (95 steps) over 1.88 GB of mLSTM
                     states; launches per step, the teacher-forced logits
                     against the plain path's (gate from plain_reordered's
                     spread), Model.forward over the same tokens on the tiled
-                    mamba_scan (21 calls) against the decode, and every
+                    mamba_scan (14 calls) against the decode, and every
                     kernel call of that forward and of two decode steps held
                     to its plain version (``audited_calls``).  The kernel
                     phases (``xlstm_kernels``) hold the tiled forward at
@@ -300,13 +300,38 @@ part's wall seconds:
                     backbone (the mLSTM's up, q, k, v and down and the
                     sLSTM's in and out int8, 3.77 GB at full depth where
                     Eq. 5 prices 1.01 GB, JAX's clamp): every BaseOp through
-                    quant_matmul, 37 products a super-block (serve at 24
-                    blocks: 111 a decode step and in the forward; train at
+                    quant_matmul, 37 products a super-block (serve at 16
+                    blocks: 74 a decode step and in the forward; train at
                     48: 222 a micro step), the second plain path
                     ``plain_scale_first``, gates from each path's own
                     spread (train: XLSTM_INT8_GRAD_PATH_TOL), and the audit
                     holding every quant_matmul call too.  The xlstm_kernels
                     lines hold quant_matmul at this model's four (K, N).
+29. multi_rank   -- last and alone (``PATHS_LAST``): two processes on
+                    cuda:0 joined by gloo through a FileStore (NCCL refuses
+                    two ranks on one device), so it checks the sharded math
+                    at full width with the kernels inside each rank against
+                    one rank on the same card, and measures no NCCL
+                    behaviour, link bandwidth or multi-card speed.  The
+                    gloo probe (each ``GLOO_CUDA_OPS`` entry marked direct,
+                    run on CUDA tensors); ``ep_moe``: deepseek-moe-16b at 14
+                    of 28 layers, 32 of its 64 experts a rank, one
+                    run_iteration of train_moe's tenants under
+                    ``experts="model"`` against rank 0's single-rank one
+                    (losses at 1%, gradients at max(MOE_GRAD_PATH_TOL, 2 S),
+                    S plain_reordered's distance from plain), and the a2a
+                    branch and its int8 wire against the local branch with
+                    no token dropped; ``cp_attention``: llama3.2-3b's
+                    attention at B 2 x S 8192, striped over the ranks,
+                    against the packed-attention kernel on one rank (gates
+                    max(the kernel gate, 2 S), S from a second block size);
+                    ``pipeline``: llama3.2-3b as 2 stages of 14 layers, 4
+                    micro-batches, against pipeline_reference; ``psum_tree``
+                    of the train path's LoRA gradients with and without
+                    ``compress`` (the int8 formula exact).  Each rank's
+                    device ms, collective and staged bytes by op and peak
+                    memory; the kernels' launches of the multi-rank runs
+                    (the single-rank references not counted).
 
 The whole script is held to ``TIME_BUDGET_S`` (1,200 s) on one card.
 Every line of phases 11-25 and of their kernel cases carries the card's
@@ -360,11 +385,11 @@ XLSTM_SERVE_STEPS = ZAMBA_SERVE_STEPS
 # paths stays inside TIME_BUDGET_S on a slow host: zamba2's decode at 5 of its
 # 9 super-blocks (30 of 54 layers), deepseek-moe-16b's at 14 of 28 layers,
 # whisper's at 16 of its 32 decoder layers (the encoder whole), starcoder2-7b's
-# at 16 of 32, qwen2-vl-7b's at 14 of 28 and xlstm-1.3b's at 24 of 48 blocks (3
-# of 6 super-blocks; train_xlstm runs all 48); their gates come from each run's
-# own plain paths
+# at 16 of 32, qwen2-vl-7b's at 14 of 28 and xlstm-1.3b's at 16 of 48 blocks (2
+# of 6 super-blocks, cut from 3 to pay for the multi_rank phase; train_xlstm
+# runs all 48); their gates come from each run's own plain paths
 ZAMBA_SERVE_LAYERS, MOE_SERVE_LAYERS, WHISPER_SERVE_LAYERS = 30, 14, 16
-STARCODER2_SERVE_LAYERS, QWEN2VL_SERVE_LAYERS, XLSTM_SERVE_LAYERS = 16, 14, 24
+STARCODER2_SERVE_LAYERS, QWEN2VL_SERVE_LAYERS, XLSTM_SERVE_LAYERS = 16, 14, 16
 # starcoder2-7b (the GELU fc1 / fc2 MLP, attention biases): the training
 # tenants on q, v, fc1 and fc2; the serving tenants on all six sites
 STARCODER2_ARCH = "starcoder2-7b"
@@ -401,6 +426,11 @@ WHISPER_SERVE_STEPS = WHISPER_SERVE_PROMPTS[1] + WHISPER_SERVE_NEW - 1
 # width and half its depth: host-bound paths, cut to stay inside it (as
 # COSERVE_LAYERS).
 TIME_BUDGET_S = 1200
+# the whole script's seconds as predicted before the run that adds the
+# multi_rank phase (about 120 s) and cuts serve_xlstm / serve_xlstm_int8 to 16
+# blocks (about 45 s off their groups), from 783.8 s (a fast host) and 993.2 s
+# (a slow one) before them
+PREDICTED_TOTAL_S = {"fast_host": 860, "slow_host": 1070}
 METHODS_LAYERS = FLEET_LAYERS = 14
 # the kinds whose adapter delta runs through the grouped-LoRA kernel
 GROUPED_LORA_KINDS = ("lora", "dora")
@@ -6203,7 +6233,7 @@ def train_check_xlstm(torch, engine, seed=3):
 
 def serve_xlstm_phase(torch, backbone_dtype="bfloat16"):
     """The ssm family's serving path: xlstm-1.3b at full width and
-    ``XLSTM_SERVE_LAYERS`` of its 48 blocks (3 of its 6 super-blocks of 7
+    ``XLSTM_SERVE_LAYERS`` of its 48 blocks (2 of its 6 super-blocks of 7
     mLSTM and 1 sLSTM; random bf16 weights from a seed) on a
     ``backbone_dtype`` backbone, four LoRA tenants
     (``SERVE_TENANTS``' ranks and
@@ -6211,9 +6241,9 @@ def serve_xlstm_phase(torch, backbone_dtype="bfloat16"):
     two rows each, routed per row through ``ctx_factory_from_slots``;
     prompts of 16-64 tokens fed through ``Model.decode_step`` (the family
     has no prefill), each row then greedy for 32 tokens, all rows stepping
-    together (``XLSTM_SERVE_STEPS`` steps) over 2.82 GB of mLSTM states.
-    Gates: the launches the path implies (per step grouped LoRA 66 = 3 x
-    (7 x 3 + 1); on int8 quant_matmul 111 = 3 x (7 x 5 + 2), every BaseOp;
+    together (``XLSTM_SERVE_STEPS`` steps) over 1.88 GB of mLSTM states.
+    Gates: the launches the path implies (per step grouped LoRA 44 = 2 x
+    (7 x 3 + 1); on int8 quant_matmul 74 = 2 x (7 x 5 + 2), every BaseOp;
     no other kernel: the recurrent steps are plain PyTorch, as in the JAX
     package); a teacher-forced rerun of the fed tokens on the plain versions
     and one on a second plain path, ``plain_reordered`` (grouped LoRA's f32
@@ -6222,16 +6252,16 @@ def serve_xlstm_phase(torch, backbone_dtype="bfloat16"):
     held to the served run's logits (``plain_split``, the other second
     plain path, changes decode attention only, which this path does not
     run: it is the plain path bit for bit, so it is not rerun);
-    ``Model.forward`` over the same tokens on the kernels: 21
+    ``Model.forward`` over the same tokens on the kernels: 14
     ``ops.mamba_scan`` calls, each one ``mamba_scan_tiled`` call (three CUDA
     launches: the chunk's scores, the 16 x 17 tiles of the padded [1024,
-    1088] state a (row, head), y by column tile), 66 grouped LoRA and on
-    int8 111 quant_matmul, nothing else; its distance from the kernels'
+    1088] state a (row, head), y by column tile), 44 grouped LoRA and on
+    int8 74 quant_matmul, nothing else; its distance from the kernels'
     decode within twice the plain path's.  On random weights this model
     carries a difference of one bf16 unit to the logits' size over its
     blocks (the plain paths' spread is of that order from the first step),
     so those gates cannot fail; the audit (``audited_calls``) holds each of
-    the forward's 21 tiled scans, 66 grouped-LoRA and (int8) 111
+    the forward's 14 tiled scans, 44 grouped-LoRA and (int8) 74
     quant_matmul calls and each grouped-LoRA and quant_matmul call of two
     decode steps to its plain version on the operands the path gave it.
     Prints the decode step's device and host ms and the peak memory, on
@@ -6427,6 +6457,597 @@ def serve_xlstm_phase(torch, backbone_dtype="bfloat16"):
     return {k: counts[k] + fwd_counts[k] for k in counts}
 
 
+# ---------------------------------------------------------------------------
+# The multi_rank phase: two ranks on one card, joined by gloo
+# ---------------------------------------------------------------------------
+
+# Two processes on cuda:0 (NCCL refuses two ranks on one device), joined by
+# gloo through a FileStore: the port's sharded math at full width with its
+# kernels inside each rank, held to the single-rank path on the same card.
+# It measures no NCCL behaviour, no link bandwidth and no multi-card speed.
+MULTI_RANK_WORLD = 2
+MULTI_RANK_TIMEOUT_S = 300  # every collective; the world is killed after 2x
+MOE_EP_LAYERS = MOE_SERVE_LAYERS  # deepseek-moe-16b at 14 of 28 layers
+# a capacity factor at which neither MoE branch drops a token on the a2a
+# case's batch: the local branch's slots are 4x an expert's mean load, the
+# a2a branch's c_send holds a rank's every assignment and c_exp 9.5x the mean
+MOE_A2A_CF = 4.0
+CP_B, CP_S = 2, 8192  # llama3.2-3b's attention, striped over the two ranks
+CP_SECOND_BLOCK = 512  # the second plain path's block (the rule gives 256)
+PIPE_STAGES, PIPE_MICRO, PIPE_MB = 2, 4, (2, 256)  # 2 x 14 layers of llama3.2-3b
+# the EP gradient gate's base: the MoE training check's gate (kernel vs
+# plain, routing flips included, MOE_GRAD_PATH_TOL); the gate is
+# max(base, 2 S), S the distance between two plain single-rank paths
+EP_GRAD_BASE = MOE_GRAD_PATH_TOL
+
+
+def _rel_leaf_max(torch, a, b):
+    """The largest per-leaf ``max|a - b| / max|b|`` over two trees, and its
+    leaf."""
+    worst = (0.0, "")
+    for path in _leaf_paths(b):
+        x, y = _leaf(a, path), _leaf(b, path)
+        if x is None or not y.is_floating_point():
+            continue
+        scale = y.float().abs().max().item()
+        if scale == 0.0:
+            continue
+        err = (x.float() - y.float()).abs().max().item() / scale
+        if err > worst[0]:
+            worst = (err, ".".join(path))
+    return worst
+
+
+def _err(out, ref):
+    """(max abs error, its share of the reference's largest |value|)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    return err, (err / scale if scale else 0.0)
+
+
+class _Lines:
+    """A rank's lines, each written to its file as it comes (the calling
+    process prints them when the world ends, whether or not it failed)."""
+
+    def __init__(self, path):
+        self.path = path
+
+    def append(self, line) -> None:
+        with open(self.path, "a") as f:
+            f.write(json.dumps(line) + "\n")
+
+
+def _raise_if(failures, what: str) -> None:
+    if failures:
+        raise AssertionError(f"{what}: " + "; ".join(failures))
+
+
+def _rank_stats(torch, ms: float) -> dict:
+    """This rank's device ms, collective and staged bytes by op, and peak."""
+    from repro_torch.distributed import collectives as C
+
+    return {"device_ms": ms, "collective_bytes": dict(C.collective_bytes),
+            "staged_bytes": dict(C.staged_bytes),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+class _Span:
+    """CUDA events around a block on this rank's stream (device ms), the
+    ranks of ``mesh`` lined up first by a barrier (so that no rank's time
+    holds another's preceding work)."""
+
+    def __init__(self, torch, mesh):
+        self.torch, self.mesh = torch, mesh
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from repro_torch.distributed import collectives as C
+
+        self.torch.cuda.synchronize()
+        dist.barrier(group=self.mesh.group(self.mesh.axis_names)[0])
+        C.reset_counters()
+        self.torch.cuda.reset_peak_memory_stats()
+        self.start = self.torch.cuda.Event(enable_timing=True)
+        self.end = self.torch.cuda.Event(enable_timing=True)
+        self.start.record()
+        return self
+
+    def __exit__(self, *exc):
+        self.end.record()
+        self.end.synchronize()
+        self.ms = self.start.elapsed_time(self.end)
+
+
+def gloo_probe(torch, mesh) -> dict:
+    """Each primitive that ``collectives.GLOO_CUDA_OPS`` marks direct, run by
+    gloo on CUDA tensors of both ranks and checked; a primitive that raises
+    or gives other values fails the phase (the table is wrong).  Entries
+    marked False are staged through host memory and not probed here."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives as C
+
+    pg, ranks = mesh.group("model")
+    r, n = mesh.rank, len(ranks)
+    dev = torch.device("cuda")
+    got = {}
+    for op, direct in C.GLOO_CUDA_OPS.items():
+        if not direct:
+            got[op] = "staged (not probed)"
+            continue
+        try:  # reports each primitive; the route is the table's, never this
+            ok = _probe_op(torch, dist, op, pg, ranks, r, n, dev)
+        except Exception as exc:  # noqa: BLE001
+            ok = f"raised {type(exc).__name__}: {str(exc)[:200]}"
+        got[op] = "direct" if ok is True else (ok or "other values")
+    line = {"phase": "multi_rank_gloo_probe", "rank": r, "gloo_cuda_ops": got}
+    if any(v not in ("direct", "staged (not probed)") for v in got.values()):
+        raise AssertionError(f"gloo_probe: GLOO_CUDA_OPS is wrong on this card: {line}")
+    return line
+
+
+def _probe_op(torch, dist, op, pg, ranks, r, n, dev) -> bool:
+    """One primitive on CUDA tensors of every rank: whether it gave the
+    values it should."""
+    if op == "all_reduce":
+        x = torch.full((1000,), float(r + 1), device=dev)
+        dist.all_reduce(x, group=pg)
+        return bool((x == n * (n + 1) / 2).all())
+    if op == "all_gather":
+        x = torch.full((1000,), float(r), device=dev)
+        parts = [torch.empty_like(x) for _ in ranks]
+        dist.all_gather(parts, x, group=pg)
+        return all(bool((p == i).all()) for i, p in enumerate(parts))
+    if op == "all_to_all":  # rank j's block r is r + 10 j
+        x = torch.arange(n, dtype=torch.float32, device=dev).repeat_interleave(4) + 10 * r
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=pg)
+        return bool((out.view(n, 4) == (torch.arange(n, device=dev) * 10 + r)[:, None]).all())
+    raise AssertionError(f"gloo_probe: no probe for {op}")
+
+
+def moe_ep_plan():
+    """train_moe's tenants on deepseek-moe-16b cut to ``MOE_EP_LAYERS``."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import ExecutionPlanner, ParallelismSpec
+    from repro_torch.launch.train import parse_tasks
+
+    cfg = get_config(MOE_ARCH).with_overrides(num_layers=MOE_EP_LAYERS)
+    tasks = [dataclasses.replace(t, adapter=dataclasses.replace(t.adapter, targets=MOE_TARGETS))
+             for t in parse_tasks(TRAIN_TASKS, TRAIN_MICRO_BATCH)]
+    plan = ExecutionPlanner(cfg, ParallelismSpec(num_stages=1)).plan(tasks, n_micro=1)
+    return cfg, tasks, plan
+
+
+def _fill_adapters(torch, tree, seed):
+    """The zero-initialised leaves (LoRA b, Adapter up, IA3 s) filled from
+    ``seed`` (train_check's fill), so that every leaf takes a gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill(node):
+        return {k: fill(t) if isinstance(t, dict) else
+                ((torch.randn(t.shape, generator=g, device="cuda") * 0.02).to(t.dtype)
+                 if k in ZERO_INIT_LEAVES else t)
+                for k, t in node.items()}
+    return fill(tree)
+
+
+def _ep_moe_case(torch, mesh, out):
+    """deepseek-moe-16b (14 layers) under EP over the two ranks: one
+    run_iteration against rank 0's single-rank one, the a2a branch's and
+    the int8 wire's forwards against the local branch.  Returns the EP
+    iteration's launch counts."""
+    import copy
+    import itertools
+
+    from repro_torch.core import ModelGenerator, PEFTEngine
+    from repro_torch.data import HTaskLoader
+    from repro_torch.distributed.sharding import ShardingRules, activate_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import local_tree, param_shardings
+    from repro_torch.models import moe
+    from repro_torch.models.quantize import tensor_bytes
+
+    rank = mesh.rank
+    cfg, tasks, plan = moe_ep_plan()
+    rules = ShardingRules.replicated().with_updates(experts="model")
+    gen = ModelGenerator(cfg, seed=0)
+    full = init_backbone(torch, gen)
+    specs = param_shardings(gen.model, mesh, rules)
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.expert_d_ff
+    routed_layer = 3 * e * d * f * 2  # bf16 bytes of a layer's routed experts
+    full_bytes = tensor_bytes(full)
+    predicted = full_bytes - cfg.num_layers * routed_layer // MULTI_RANK_WORLD
+    local = local_tree(full, specs, mesh)
+    if rank != 0:  # rank 0 keeps the whole tree for the single-rank reference
+        full = None
+    gen.backbone_params = local
+    reg = gen.register_tasks(tasks)
+    engine = PEFTEngine(gen, plan, lr=TRAIN_LR)
+    reg.adapter_params = _fill_adapters(torch, reg.adapter_params, 11)
+    vocab = cfg.vocab_size
+    fixed = {h: itertools.repeat(next(HTaskLoader(
+        plan.tasks, plan.alignment[h], vocab,
+        streams={i: _seeded_stream(151 + i, vocab) for i in range(len(plan.tasks))})))
+        for h in range(len(plan.htasks))}
+    snap = copy.deepcopy((reg.adapter_params, reg.opt_state, engine._slot_steps))
+    torch.cuda.synchronize()
+    memory = {"rank": rank, "predicted_local_bytes": predicted,
+              "routed_experts_bytes_per_layer": routed_layer // MULTI_RANK_WORLD,
+              "local_backbone_bytes": tensor_bytes(local),
+              "full_backbone_bytes_held": full_bytes if full is not None else 0,
+              "memory_allocated_before_run": torch.cuda.memory_allocated()}
+    if tensor_bytes(local) != predicted:
+        raise AssertionError(f"ep_moe: rank {rank} holds {tensor_bytes(local)} bytes, "
+                             f"reckoned {predicted}")
+
+    def iteration(backbone, ctx):
+        (reg.adapter_params, reg.opt_state, engine._slot_steps) = copy.deepcopy(snap)
+        engine.backbone = backbone
+        with ctx():
+            m = engine.run_iteration(fixed)
+        return m, reg.opt_state.m
+
+    ops.reset_launch_counts()
+    with _Span(torch, mesh) as span:
+        m_ep, g_ep = iteration(local, lambda: activate_rules(mesh, rules))
+    counts = ops.launch_counts()
+    line = {"phase": "multi_rank_ep_moe", "card": CARD, "rank": rank, "model": cfg.name,
+            "layers": cfg.num_layers,
+            "experts_held": int(local["layers"]["moe"]["w_gate"].shape[1]),
+            "loss_ep": m_ep.loss, "per_task_loss_ep": m_ep.per_task_loss.tolist(),
+            "launches": counts, "memory": memory, **_rank_stats(torch, span.ms)}
+    # the a2a branch and the int8 wire, forward, on layer 0's experts
+    g = torch.Generator(device="cuda").manual_seed(23)
+    rows = plan.htasks[0].rows
+    x = torch.randn((rows, 256, d), generator=g, device="cuda").to(torch.bfloat16)
+    cfg_a2a = cfg.with_overrides(capacity_factor=MOE_A2A_CF)
+    p_loc = {k: v[0] for k, v in local["layers"]["moe"].items()}
+    a2a = {}
+    with torch.no_grad():
+        for wire in ("f32", "int8"):
+            over = {"moe_impl": "a2a", **({"moe_wire": "int8"} if wire == "int8" else {})}
+            moe.a2a_drops = []
+            try:
+                with _Span(torch, mesh) as sp, activate_rules(mesh, rules.with_updates(**over)):
+                    y, _ = moe.moe_apply(p_loc, x, cfg_a2a)
+            finally:
+                drops, moe.a2a_drops = moe.a2a_drops, None
+            a2a[wire] = (y, drops, _rank_stats(torch, sp.ms))
+    line["a2a"] = {w: {"drops": dr, **st} for w, (_, dr, st) in a2a.items()}
+    failures = []
+    if rank == 0:  # the single-rank references
+        res, failures = _ep_moe_reference(torch, cfg, cfg_a2a, full, x, a2a, iteration, m_ep,
+                                          g_ep, engine.model)
+        line.update(res)
+    if any(dd["send"] or dd["expert"] for _, dr, _ in a2a.values() for dd in dr):
+        failures.append(f"the a2a branch dropped tokens at capacity factor {MOE_A2A_CF}")
+    out.append(line)
+    _raise_if(failures, "ep_moe")
+    return counts
+
+
+def _ep_moe_reference(torch, cfg, cfg_a2a, full, x, a2a, iteration, m_ep, g_ep, model):
+    """Rank 0: the single-rank iteration (kernels; plain; plain_reordered)
+    against the EP one, and the local branch against the a2a forwards, each
+    gate max(base, 2 S) with S from a second right answer.  Returns the
+    line's fields and the failed checks."""
+    import contextlib
+
+    from repro_torch.models import moe
+
+    m_1, g_1 = iteration(full, contextlib.nullcontext)
+    plain = plain_path(torch, model, remat=True)
+    m_p, g_p = iteration(full, plain)
+    m_r, g_r = iteration(full, lambda: _stacked(plain, plain_reordered))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(m_ep.per_task_loss, m_1.per_task_loss))
+    grad_err, grad_leaf = _rel_leaf_max(torch, g_ep, g_1)
+    spread, spread_leaf = _rel_leaf_max(torch, g_r, g_p)
+    gate = max(EP_GRAD_BASE, 2 * spread)
+    p0 = {k: v[0] for k, v in full["layers"]["moe"].items()}
+    with torch.no_grad():
+        flat = x.reshape(-1, cfg.d_model)
+        ids, gates, _ = moe._route(flat, p0["router"], cfg.top_k)
+        cap = moe._capacity(flat.shape[0], cfg.top_k, cfg.num_experts, cfg_a2a.capacity_factor)
+        local_drops = moe.dropped_tokens(ids, cfg.num_experts, cap)
+        y_local, _ = moe.moe_apply(p0, x, cfg_a2a)
+        xf = flat.float()
+        absmax = xf.abs().amax(dim=-1, keepdim=True) / 127.0
+        xq = (torch.clamp(torch.round(xf / torch.clamp(absmax, min=1e-12)), -127, 127)
+              * absmax).to(x.dtype)
+        y_round = moe._expert_core(xq, p0, ids, gates, cap).reshape(x.shape)
+        # the second right answers: the local branch in f32 (the same routing),
+        # on x and on the round-tripped tokens; the bf16 local branch's distance
+        # from them is the forward gates' spread
+        p32 = {k: v.float() for k, v in p0.items()}
+        y32 = moe._expert_core(xf, p32, ids, gates, cap).reshape(x.shape)
+        y32_round = moe._expert_core(xq.float(), p32, ids, gates, cap).reshape(x.shape)
+    spread_fwd = _err(y_local, y32)[1]
+    spread_round = _err(y_round, y32_round)[1]
+    err_a2a, err_int8 = _err(a2a["f32"][0], y_local), _err(a2a["int8"][0], y_round)
+    gate_a2a, gate_int8 = max(KERNEL_TOL, 2 * spread_fwd), max(KERNEL_TOL, 2 * spread_round)
+    res = {"loss_single": m_1.loss, "per_task_loss_single": m_1.per_task_loss.tolist(),
+           "loss_max_rel_err": loss_rel, "loss_tol_rel": LOSS_TOL,
+           "grad_err_rel_to_leaf_max": {"max": grad_err, "leaf": grad_leaf},
+           "grad_spread_plain_reordered_vs_plain": {"max": spread, "leaf": spread_leaf},
+           "grad_gate": gate, "grad_gate_base": EP_GRAD_BASE,
+           "local_branch_drops": local_drops, "capacity_factor": MOE_A2A_CF,
+           "a2a_vs_local": err_a2a, "a2a_gate": gate_a2a, "local_vs_f32_spread": spread_fwd,
+           "int8_wire_vs_round_trip": err_int8, "int8_gate": gate_int8,
+           "round_trip_vs_f32_spread": spread_round,
+           "int8_wire_vs_f32_wire_rel": _err(a2a["int8"][0], a2a["f32"][0])[1],
+           "gate_base": KERNEL_TOL}
+    failures = []
+    if local_drops:
+        failures.append(f"the local branch dropped {local_drops} assignments")
+    if not loss_rel <= LOSS_TOL:
+        failures.append(f"per-task losses {m_ep.per_task_loss} vs single rank "
+                        f"{m_1.per_task_loss}: relative {loss_rel} > {LOSS_TOL}")
+    if not grad_err <= gate:
+        failures.append(f"gradient {grad_leaf} off by {grad_err} of its max > {gate}")
+    if not err_a2a[1] <= gate_a2a:
+        failures.append(f"a2a vs local {err_a2a} > {gate_a2a}")
+    if not err_int8[1] <= gate_int8:
+        failures.append(f"int8 wire vs the round trip {err_int8} > {gate_int8}")
+    return res, failures
+
+
+def _cp_case(torch, mesh, out):
+    """llama3.2-3b's attention, B 2 x S 8192, striped over the two ranks
+    (plain PyTorch, no kernel), against the packed-attention kernel on the
+    unstriped sequence on rank 0; a second plain path (block 512) sets the
+    gate's spread."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import ops
+    from repro_torch.models.cp_attention import stripe_permutation, striped_cp_attention
+
+    cfg = get_config("llama3.2-3b")
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    P_sz, r = mesh.shape["model"], mesh.coord("model")
+    blk = max(min(cfg.attn_q_block, 256, CP_S // (4 * P_sz)), 16)  # attention's rule
+    g = torch.Generator(device="cuda").manual_seed(31)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+
+    q, k, v, do = rnd(CP_B, CP_S, H, dh), rnd(CP_B, CP_S, Hkv, dh), rnd(CP_B, CP_S, Hkv, dh), \
+        rnd(CP_B, CP_S, H, dh)
+    idx = torch.arange(CP_S, device="cuda")
+    cuts = torch.tensor([[3000], [5000]], device="cuda")  # two segments a row
+    seg = (idx[None] >= cuts).to(torch.int32)
+    pos = (idx[None] - torch.where(seg > 0, cuts, 0)).to(torch.int32)
+    S_l = CP_S // P_sz
+
+    def run(block):
+        perm = torch.from_numpy(stripe_permutation(CP_S, block, P_sz)).to("cuda")
+        mine = perm[r * S_l:(r + 1) * S_l]
+        ql, kl, vl = (t[:, mine].detach().requires_grad_(True) for t in (q, k, v))
+        with _Span(torch, mesh) as span:
+            o = striped_cp_attention(ql, kl, vl, pos[:, mine], seg[:, mine], mesh, "model",
+                                     block)
+            o.backward(do[:, mine])
+        stats = _rank_stats(torch, span.ms)
+        inv = torch.argsort(perm)
+        whole = [C.all_gather_nograd(t.contiguous(), "model", mesh, 1)[:, inv]
+                 for t in (o, ql.grad, kl.grad, vl.grad)]
+        return whole, stats
+
+    ours, stats = run(blk)
+    second, stats2 = run(CP_SECOND_BLOCK)
+    failures = []
+    line = {"phase": "multi_rank_cp_attention", "card": CARD, "rank": r,
+            "shape": {"B": CP_B, "S": CP_S, "H": H, "Hkv": Hkv, "dh": dh},
+            "block": blk, "second_block": CP_SECOND_BLOCK, **stats,
+            "second_path": stats2}
+    if r == 0:
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        o_ref = ops.packed_attention(qr, kr, vr, segment_ids=seg, positions=pos,
+                                     block_q=cfg.attn_q_block)
+        o_ref.backward(do)
+        names = ("o", "dq", "dk", "dv")
+        base = {"o": KERNEL_TOL, "dq": GRAD_TOL["packed_attention_dq"],
+                "dk": GRAD_TOL["packed_attention_dkv"], "dv": GRAD_TOL["packed_attention_dkv"]}
+        refs = (o_ref, qr.grad, kr.grad, vr.grad)
+        res = {}
+        for name, a, b, ref in zip(names, ours, second, refs):
+            spread = _err(a, b)[1]
+            gate = max(base[name], 2 * spread)
+            err, rel = _err(a, ref)
+            res[name] = {"max_abs_err": err, "rel": rel, "gate": gate, "base": base[name],
+                         "spread_second_block": spread}
+            if not rel <= gate:
+                failures.append(f"{name} vs the packed-attention kernel {rel} > {gate}")
+        line["vs_packed_attention_kernel"] = res
+    out.append(line)
+    _raise_if(failures, "cp_attention")
+
+
+def _pipeline_case(torch, mesh, gen, out):
+    """llama3.2-3b as 2 stages of 14 layers over the two ranks (the packed
+    attention kernels inside), 4 micro-batches of [2, 256, 3072]: the
+    outputs and the micro-batches' gradient against pipeline_reference on
+    rank 0.  Returns the pipeline's launch counts."""
+    from repro_torch.distributed.pipeline import pipeline_ranks, pipeline_reference
+    from repro_torch.distributed.sharding import local_block
+    from repro_torch.kernels import ops
+
+    model, cfg = gen.model, gen.cfg
+    per = cfg.num_layers // PIPE_STAGES
+    stacked = tree_map(lambda a: a.view(PIPE_STAGES, per, *a.shape[1:]),
+                       gen.backbone_params["layers"])
+    mine = tree_map(lambda a: local_block(a, ("stage",) + (None,) * (a.ndim - 1), mesh),
+                    stacked)
+
+    def stage_fn(p, x):
+        for i in range(per):
+            x, _ = model._block(tree_map(lambda a: a[i], p), x, positions=None,
+                                segment_ids=None, collect_kv=False)
+        return x
+
+    g = torch.Generator(device="cuda").manual_seed(37)
+    shape = (PIPE_MICRO,) + PIPE_MB + (cfg.d_model,)
+    micro = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    dout = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    mb = micro.clone().requires_grad_(True)
+    ops.reset_launch_counts()
+    with _Span(torch, mesh) as span:
+        outs = pipeline_ranks(stage_fn, mine, mb, mesh, "stage")
+        outs.backward(dout)
+    counts = ops.launch_counts()
+    line = {"phase": "multi_rank_pipeline", "card": CARD, "rank": mesh.rank,
+            "stages": PIPE_STAGES, "layers_per_stage": per, "micro_batches": PIPE_MICRO,
+            "micro_batch": list(PIPE_MB) + [cfg.d_model], "launches": counts,
+            **_rank_stats(torch, span.ms)}
+    failures = []
+    if mesh.rank == 0:
+        mr = micro.clone().requires_grad_(True)
+        ref = pipeline_reference(stage_fn, stacked, mr, PIPE_STAGES)
+        ref.backward(dout)
+        line["outputs_vs_reference"] = _err(outs, ref)
+        line["grad_vs_reference"] = _err(mb.grad, mr.grad)
+        line["same_bits"] = bool(torch.equal(outs, ref) and torch.equal(mb.grad, mr.grad))
+        line["tol_rel"] = KERNEL_TOL
+        failures = [f"{k} {line[k]} > {KERNEL_TOL}" for k in ("outputs_vs_reference",
+                                                             "grad_vs_reference")
+                    if not line[k][1] <= KERNEL_TOL]
+    out.append(line)
+    _raise_if(failures, "pipeline")
+    return counts
+
+
+def _psum_tree_case(torch, mesh, engine, out):
+    """The train path's LoRA adapter gradients (each rank its own seeded
+    batch), summed over the two ranks by psum_tree with and without
+    ``compress``; the compressed sum against the int8 formula on both
+    ranks' gradients.  Returns the gradient step's launch counts."""
+    from repro_torch.data import HTaskLoader
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import device_put_batch
+
+    r, vocab = mesh.rank, engine.model.cfg.vocab_size
+    plan = engine.plan
+    params = _fill_adapters(torch, engine.reg.adapter_params, 13)
+    batch = device_put_batch(next(HTaskLoader(
+        plan.tasks, plan.alignment[0], vocab,
+        streams={i: _seeded_stream(300 + 10 * r + i, vocab) for i in range(len(plan.tasks))})),
+        engine.device)
+    ops.reset_launch_counts()
+    _, _, grads = engine._loss_and_grads_fn(0)(params, engine.backbone, batch)
+    counts = ops.launch_counts()
+    lora = grads["lora"]
+    with _Span(torch, mesh) as exact_span:
+        exact = C.psum_tree(lora, "model", mesh=mesh)
+    exact_stats = _rank_stats(torch, exact_span.ms)
+    with _Span(torch, mesh) as comp_span:
+        comp = C.psum_tree(lora, "model", compress=True, mesh=mesh)
+    comp_stats = _rank_stats(torch, comp_span.ms)
+    paths = _leaf_paths(lora)
+    flat = torch.cat([_leaf(lora, p).reshape(-1).float() for p in sorted(paths)])
+    both = C.all_gather_nograd(flat[None], "model", mesh, 0)
+    qs = [C.quantize_int8(both[i]) for i in range(both.shape[0])]
+    formula = (sum(q.to(torch.int32) for q, _ in qs).float()
+               * (sum(s for _, s in qs) / both.shape[0])).reshape(-1)[:flat.shape[0]]
+    # the formula in each leaf's type (psum_tree casts the f32 sum back)
+    formula = torch.cat([part.to(_leaf(lora, p).dtype).float() for p, part in zip(
+        sorted(paths), formula.split([_leaf(lora, p).numel() for p in sorted(paths)]))])
+    got = torch.cat([_leaf(comp, p).reshape(-1).float() for p in sorted(paths)])
+    want = torch.cat([_leaf(exact, p).reshape(-1).float() for p in sorted(paths)])
+    formula_err = (got - formula).abs().max().item()
+    rel_l2 = (torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)).item()
+    line = {"phase": "multi_rank_psum_tree", "card": CARD, "rank": r, "leaves": len(paths),
+            "elements": int(flat.shape[0]),
+            "compression_error": C.compression_error(flat).item(),
+            "compressed_vs_exact_sum_rel_l2": rel_l2,
+            "compressed_vs_formula_max_abs": formula_err,
+            "exact": exact_stats, "compressed": comp_stats}
+    out.append(line)
+    _raise_if([f"the compressed sum is {formula_err} off the int8 formula"]
+              if formula_err != 0.0 else [], "psum_tree")
+    return counts
+
+
+def _multi_rank_worker(rank, world, card_info, lines_dir):
+    """One rank of the multi_rank phase: its lines (into
+    ``lines_dir/rank<r>.jsonl`` as they come) and its launch counts."""
+    import torch
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.mesh import make_mesh
+
+    CARD.update(card_info)
+    _build.build_all()  # the calling process built them: this loads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(backend="gloo", timeout_s=MULTI_RANK_TIMEOUT_S)
+    mesh = make_mesh((world,), ("model",), **kw)
+    stage = make_mesh((world,), ("stage",), **kw)
+    out = _Lines(os.path.join(lines_dir, f"rank{rank}.jsonl"))
+    out.append(gloo_probe(torch, mesh))
+    counts = dict.fromkeys(ops.launch_counts(), 0)
+
+    def add(c):
+        for k, v in c.items():
+            counts[k] += v
+
+    add(_ep_moe_case(torch, mesh, out))
+    gc.collect()
+    torch.cuda.empty_cache()
+    _cp_case(torch, mesh, out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.core import ModelGenerator, PEFTEngine
+
+    cfg, tasks, plan = train_plan()
+    gen = ModelGenerator(cfg, seed=0)
+    init_backbone(torch, gen)
+    gen.register_tasks(tasks)
+    engine = PEFTEngine(gen, plan, lr=TRAIN_LR)
+    add(_pipeline_case(torch, stage, gen, out))
+    add(_psum_tree_case(torch, mesh, engine, out))
+    return counts
+
+
+def multi_rank_phase(torch):
+    """The multi_rank path: ``MULTI_RANK_WORLD`` processes on cuda:0 joined
+    by gloo through a FileStore in a temporary directory (every collective
+    bounded by ``MULTI_RANK_TIMEOUT_S``; the world joined with a timeout,
+    killed on expiry: a rank that fails or hangs fails the phase).  Prints
+    each rank's lines (rank order) and returns the launch counts of the
+    multi-rank runs summed over the ranks (the single-rank references
+    excluded)."""
+    from repro_torch.launch.mesh import run_world
+
+    card()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            results = run_world(_multi_rank_worker, MULTI_RANK_WORLD,
+                                os.path.join(tmp, "store"), args=(dict(CARD), tmp),
+                                backend="gloo", timeout_s=MULTI_RANK_TIMEOUT_S)
+        finally:  # each rank's lines, in rank order, also when the world failed
+            for r in range(MULTI_RANK_WORLD):
+                path = os.path.join(tmp, f"rank{r}.jsonl")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        for line in f:
+                            print(line, end="", flush=True)
+    counts = {}
+    for res in results:
+        for k, v in res.items():
+            counts[k] = counts.get(k, 0) + v
+    for name in ("grouped_lora", "grouped_lora_bwd", "packed_attention", "packed_attention_dq",
+                 "packed_attention_dkv"):
+        if not counts.get(name):
+            raise AssertionError(f"multi_rank: {name} was not launched ({counts})")
+    return counts
+
+
 # The main paths in the order they run.  The first two groups run at once,
 # each in its own process on the one card: both are host-bound (the card
 # is 5-45% busy on them), they hold at most 43 and 17 GB, and on a slow host
@@ -6445,6 +7066,8 @@ PATHS_BESIDE = (
      "train_zamba_int8", "train_whisper", "serve_xlstm_int8"),
     ("serve_methods", "coserve", "fleet", "fleet_int8", "serve_zamba", "serve_zamba_int8",
      "serve_whisper", "serve_xlstm"))
+# and last the multi_rank phase, alone: its two ranks share the card
+PATHS_LAST = ("multi_rank",)
 PATHS_ALONE = ("train_moe", "serve_moe", "serve_moe_int8", "train_starcoder2",
                "serve_starcoder2", "serve_yi", "train_qwen2vl", "serve_qwen2vl", "train_xlstm",
                "train_xlstm_int8")
@@ -6541,6 +7164,8 @@ def run_paths(torch, names, counts, laps, carry=None):
         "serve_xlstm_int8": lambda: serve("serve_xlstm_int8", serve_xlstm_phase, "int8"),
         "train_xlstm_int8": lambda: train("train_xlstm_int8", xlstm_plan("int8"),
                                           check=train_check_xlstm),
+        # the multi-device tier: two ranks on the card, joined by gloo
+        "multi_rank": lambda: serve("multi_rank", multi_rank_phase),
     }
     for name in names:
         table[name]()
@@ -6653,9 +7278,10 @@ def main() -> int:
     t = time.perf_counter()
     run_beside(torch, PATHS_BESIDE[0], counts, laps, PATHS_BESIDE[1])
     laps["paths_beside"] = time.perf_counter() - t
-    run_paths(torch, PATHS_ALONE, counts, laps)
+    run_paths(torch, PATHS_ALONE + PATHS_LAST, counts, laps)
     emit({"phase": "seconds", "card": card(), "laps": laps,
-          "total": time.perf_counter() - t_start, "budget": TIME_BUDGET_S})
+          "total": time.perf_counter() - t_start, "predicted_total": PREDICTED_TOTAL_S,
+          "budget": TIME_BUDGET_S})
 
     # (name, source, Pallas kernel body, the entry's own measurement, variants)
     csrc, jax_k = "src/repro_torch/csrc/", "src/repro/kernels/"

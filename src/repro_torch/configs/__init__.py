@@ -3,6 +3,8 @@
 The port keeps its own copy of ``ArchConfig`` so it never imports the JAX
 package.  The registry lists every configuration of the JAX package's: the
 dense, vlm, audio, hybrid, MoE and ``ssm`` (xlstm-1.3b) families.
+``SHAPES`` holds the assigned input shapes (shared by every LM arch), which
+the sharding rules of ``repro_torch.launch.rules`` are chosen for.
 """
 from __future__ import annotations
 
@@ -10,6 +12,27 @@ import dataclasses
 import importlib
 from dataclasses import dataclass
 from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input shape: ``kind`` is the step it feeds (``train``:
+    forward, adapter backward and optimizer; ``prefill``: forward and
+    logits; ``decode``: one new token over a KV cache of ``seq_len``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
 
 @dataclass(frozen=True)
 class ArchConfig:
@@ -64,6 +87,8 @@ class ArchConfig:
     # query block of packed attention: its tile-visibility rule uses
     # gcd(S, min(attn_q_block, S)) as the JAX package's model does
     attn_q_block: int = 512
+    # kv block of the ``kvscan`` attention mode's scan (``models.attention``)
+    attn_kv_block: int = 1024
     # the JAX package's parameter type, declared there and read nowhere (its
     # backbones take each ParamSpec's type, bf16): here it may only be that,
     # so no config can ask for a parameter type it would not get
@@ -177,6 +202,7 @@ def smoke_config(name: str) -> ArchConfig:
         d_ff=128,
         vocab_size=256,
         attn_q_block=32,
+        attn_kv_block=32,
         remat=False,
     )
     if cfg.family == "moe":
@@ -193,3 +219,14 @@ def smoke_config(name: str) -> ArchConfig:
     if cfg.family == "vlm":
         over.update(mrope_sections=(2, 3, 3))  # sums to head_dim / 2 = 8
     return cfg.with_overrides(**over)
+
+
+def dryrun_cells(arch: str) -> list:
+    """The shapes a configuration is planned for: train, prefill and decode,
+    and ``long_500k`` on the families with sub-quadratic sequence mixing
+    (``ssm`` and ``hybrid``)."""
+    cfg = get_config(arch)
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in ("ssm", "hybrid"):
+        cells.append("long_500k")
+    return cells

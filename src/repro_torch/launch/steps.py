@@ -25,19 +25,33 @@ prompt's M-RoPE channels (:func:`prefill_batch`).
 the adapters on ``Model.forward``'s per-task loss for any batch the model
 takes, the audio family's ``audio_embed`` among them (``PEFTEngine``'s
 batches carry none, so this is the step that trains whisper).
+
+The placements (JAX ``steps.py:33-155``): ``BATCH_AXES`` and
+:func:`batch_specs` (meta tensors, no allocation), and the spec trees of
+:func:`batch_shardings`, :func:`tree_shardings`, :func:`param_shardings`,
+:func:`adapter_shardings` and :func:`opt_shardings`: one spec a leaf, a
+tuple of entries (``None``, a mesh axis or a tuple of axes; shorter than
+the leaf's rank pads with ``None``, ``()`` is replicated), where the JAX
+functions return ``NamedSharding``s.  :func:`local_tree` gives a rank its
+blocks of a tree under such specs: an EP rank holds only its experts.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, Iterable, Iterator
+from typing import Any, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.configs import ArchConfig, ShapeSpec
+from repro_torch.distributed.sharding import (ShardingRules, divisible, local_block,
+                                              logical_to_spec)
+from repro_torch.models.layers import spec_logical_axes
 from repro_torch.models.transformer import Model
-from repro_torch.peft.methods import get_method
+from repro_torch.peft.methods import get_method, shared_leaf
 from repro_torch.peft.multitask import MultiTaskAdapters, TaskSegments
-from repro_torch.train.optimizer import adamw_update, apply_updates, tree_leaves, tree_unflatten
+from repro_torch.train.optimizer import (AdamWState, adamw_update, apply_updates, tree_leaves,
+                                         tree_unflatten)
 
 _SEED_MAX = 2 ** 62
 
@@ -353,3 +367,154 @@ def build_train_step(model: Model, mta: MultiTaskAdapters, segments: TaskSegment
 
     train_step.loss_and_grads = loss_and_grads
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Placements: batch, parameter, adapter and optimizer specs
+# ---------------------------------------------------------------------------
+
+BATCH_AXES: Dict[str, Tuple] = {
+    "tokens": ("batch", "seq"),
+    "labels": ("batch", "seq"),
+    "loss_mask": ("batch", "seq"),
+    "segment_ids": ("batch", "seq"),
+    "positions": ("batch", "seq"),
+    "reset": ("batch", "seq"),
+    "mrope_positions": (None, "batch", "seq"),
+    "audio_embed": ("batch", None, None),
+}
+
+
+def batch_specs(cfg: ArchConfig, shape: ShapeSpec, with_labels: bool = True,
+                with_positions: bool = False) -> Dict[str, torch.Tensor]:
+    """The inputs of ``shape``'s step as meta tensors (shape and type, no
+    storage).  ``with_positions`` adds the striped-CP layout's global
+    positions."""
+    B, S = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": meta((B, 1), torch.int32)}
+    specs = {"tokens": meta((B, S), torch.int32)}
+    if with_positions:
+        specs["positions"] = meta((B, S), torch.int32)
+    if with_labels and shape.kind == "train":
+        specs["labels"] = meta((B, S), torch.int32)
+        specs["loss_mask"] = meta((B, S), torch.float32)
+    if cfg.mrope:
+        specs["mrope_positions"] = meta((3, B, S), torch.int32)
+    if cfg.family == "audio":
+        specs["audio_embed"] = meta((B, cfg.max_source_positions, cfg.d_model), torch.bfloat16)
+    return specs
+
+
+def batch_shardings(specs: Dict[str, Any], mesh, rules: ShardingRules) -> Dict[str, tuple]:
+    r = rules.mesh_axes(mesh)
+    return {k: logical_to_spec(BATCH_AXES[k], r) for k in specs}
+
+
+def _is_axes(x) -> bool:
+    return isinstance(x, tuple) and all(a is None or isinstance(a, str) for a in x)
+
+
+def tree_shardings(axes_tree: Any, mesh, rules: ShardingRules) -> Any:
+    """A tree of logical-axes tuples -> the tree of their specs."""
+    r = rules.mesh_axes(mesh)
+
+    def walk(node):
+        if _is_axes(node):
+            return logical_to_spec(node, r)
+        return {k: walk(v) for k, v in node.items()}
+
+    return walk(axes_tree)
+
+
+_EXPERT_LEAVES = {"w_gate": 1, "w_up": 1, "w_down": 2}  # each leaf's per-layer d_model dim
+
+
+def param_shardings(model: Model, mesh, rules: ShardingRules) -> Any:
+    """The backbone's specs.  Where the ``moe_fsdp`` rule names a mesh axis,
+    the routed experts' d_model dim is cut over it (the a2a branch's
+    just-in-time all-gather reads it so, JAX ``moe.py:317-322``)."""
+    specs = tree_shardings(spec_logical_axes(model.spec()), mesh, rules)
+    fsdp = rules.mesh_axes(mesh).lookup("moe_fsdp")
+    if fsdp is not None and "layers" in specs and "moe" in specs["layers"]:
+        for name, dim in _EXPERT_LEAVES.items():
+            spec = list(specs["layers"]["moe"][name])
+            spec[1 + dim] = fsdp  # after the stacked-layer dim
+            specs["layers"]["moe"][name] = tuple(spec)
+    return specs
+
+
+def adapter_shardings(mta: MultiTaskAdapters, mesh, rules: ShardingRules) -> Any:
+    return tree_shardings(spec_logical_axes(mta.spec()), mesh, rules)
+
+
+def opt_shardings(opt_abstract: AdamWState, mesh, mta: Optional[MultiTaskAdapters] = None,
+                  cfg: Optional[ArchConfig] = None,
+                  rules: Optional[ShardingRules] = None) -> AdamWState:
+    """AdamW moment specs.  With ``mta`` and ``cfg`` the moments are cut along
+    each leaf's adapter-stack TASK axis (logical ``adapter_tasks``, the DP
+    ranks): per-tenant optimizer state grows with the tenants, so cutting it
+    over the data-parallel ranks keeps a rank's moment bytes flat.  A leaf
+    whose task dim does not divide, a shared leaf and the step stay
+    replicated (``()``); without ``mta`` everything is."""
+    rep: tuple = ()
+
+    def map_tree(fn, tree):
+        if isinstance(tree, dict):
+            return {k: map_tree(fn, v) for k, v in tree.items()}
+        return None if tree is None else fn(tree)
+
+    if mta is None or cfg is None:
+        return AdamWState(rep, map_tree(lambda _: rep, opt_abstract.m),
+                          map_tree(lambda _: rep, opt_abstract.v))
+    from repro_torch.core.registry import _group_depths
+
+    r = (rules or ShardingRules()).mesh_axes(mesh)
+    target = r.lookup("adapter_tasks")
+    depths = _group_depths(cfg)
+
+    def leaf_spec(leaf, depth):
+        nd = leaf.ndim
+        if target is None or nd <= depth or not divisible(leaf.shape[depth], mesh, target):
+            return rep
+        axes = [None] * nd
+        axes[depth] = "adapter_tasks"
+        return logical_to_spec(axes, r)
+
+    def walk(tree, depth, kind=None, name=None):
+        if not isinstance(tree, dict):
+            if tree is None:
+                return None
+            if kind is None or (name is not None and shared_leaf(kind, name)):
+                return rep
+            return leaf_spec(tree, depth)
+        return {k: walk(v, depth, k if k in mta.kind_tasks else kind, k)
+                for k, v in tree.items()}
+
+    def moments(tree):
+        if "" in depths:
+            return walk(tree, depths[""])
+        return {gk: walk(tree.get(gk, {}), d) for gk, d in depths.items()}
+
+    return AdamWState(rep, moments(opt_abstract.m), moments(opt_abstract.v))
+
+
+def local_tree(tree: Any, specs: Any, mesh) -> Any:
+    """This rank's blocks of a backbone, adapter or optimizer tree under its
+    spec tree (``param_shardings`` and the others): each leaf cut with
+    ``sharding.local_block`` (its own storage, so the whole tree can be
+    freed); ``None`` leaves stay ``None``.  An ``AdamWState`` maps field by
+    field.  Under rules with ``experts`` on an axis, a backbone's routed
+    expert stacks come out as this rank's ``E / ep`` experts."""
+    if isinstance(tree, AdamWState):
+        return AdamWState(*(local_tree(t, s, mesh) for t, s in zip(tree, specs)))
+    if isinstance(tree, dict):
+        return {k: local_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if tree is None:
+        return None
+    spec = tuple(specs) + (None,) * (tree.ndim - len(specs))
+    return local_block(tree, spec, mesh)

@@ -18,15 +18,32 @@ import torch.nn.functional as F
 
 @dataclass(frozen=True)
 class ParamSpec:
-    """One parameter leaf: shape and init rule (the JAX ``ParamSpec``
-    without its sharding axes).  Leaves are bf16 at init; ``dtype`` names a
-    leaf stored in a type of its own (the int8 tier's ``q`` and ``scale``),
-    which a conversion keeps whatever type it is asked for."""
+    """One parameter leaf: shape, init rule and logical axes (the JAX
+    ``ParamSpec``).  Leaves are bf16 at init; ``dtype`` names a leaf stored
+    in a type of its own (the int8 tier's ``q`` and ``scale``), which a
+    conversion keeps whatever type it is asked for.  ``axes`` names each
+    dim's logical axis (``None``: replicated), from which
+    ``repro_torch.launch.steps`` derives a rank's block of the leaf."""
 
     shape: Tuple[int, ...]
     init: str = "normal"  # normal | zeros | ones | const (filled with ``scale``)
     scale: float = 0.02
     dtype: Optional[torch.dtype] = None
+    axes: Optional[Tuple[Optional[str], ...]] = None  # None: every dim replicated
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"ParamSpec: {len(self.axes)} logical axes for shape {self.shape}")
+
+    def logical_axes(self) -> Tuple[Optional[str], ...]:
+        return self.axes if self.axes is not None else (None,) * len(self.shape)
+
+
+def spec_logical_axes(spec_tree: Any) -> Any:
+    """The tree of each leaf's logical axes (a tuple per leaf)."""
+    if isinstance(spec_tree, ParamSpec):
+        return spec_tree.logical_axes()
+    return {k: spec_logical_axes(v) for k, v in spec_tree.items()}
 
 
 #: a normal leaf of more elements than this is drawn one slice of its leading
@@ -153,14 +170,15 @@ def mlp_spec(d: int, ff: int, gated: bool = True, bias: bool = False) -> Dict[st
     the audio family only, whisper's encoder and decoder)."""
     if gated:
         return {
-            "w_gate": ParamSpec((d, ff)),
-            "w_up": ParamSpec((d, ff)),
-            "w_down": ParamSpec((ff, d)),
+            "w_gate": ParamSpec((d, ff), axes=("embed", "ff")),
+            "w_up": ParamSpec((d, ff), axes=("embed", "ff")),
+            "w_down": ParamSpec((ff, d), axes=("ff", "embed")),
         }
-    s = {"w_fc1": ParamSpec((d, ff)), "w_fc2": ParamSpec((ff, d))}
+    s = {"w_fc1": ParamSpec((d, ff), axes=("embed", "ff")),
+         "w_fc2": ParamSpec((ff, d), axes=("ff", "embed"))}
     if bias:
-        s["b_fc1"] = ParamSpec((ff,), init="zeros")
-        s["b_fc2"] = ParamSpec((d,), init="zeros")
+        s["b_fc1"] = ParamSpec((ff,), init="zeros", axes=("ff",))
+        s["b_fc2"] = ParamSpec((d,), init="zeros", axes=("embed",))
     return s
 
 
@@ -195,9 +213,9 @@ def pad_vocab(v: int, multiple: int = 256) -> int:
 def embed_spec(vocab: int, d: int, tie: bool = True) -> Dict[str, ParamSpec]:
     """Embedding table; untied configs add the unembedding ``unembed``
     [d, vocab], tied ones read the table in both directions."""
-    s = {"tok": ParamSpec((vocab, d), scale=0.01)}
+    s = {"tok": ParamSpec((vocab, d), scale=0.01, axes=("vocab", "embed"))}
     if not tie:
-        s["unembed"] = ParamSpec((d, vocab), scale=0.01)
+        s["unembed"] = ParamSpec((d, vocab), scale=0.01, axes=("embed", "vocab"))
     return s
 
 

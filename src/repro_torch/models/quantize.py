@@ -138,9 +138,12 @@ def quantized_spec(spec: Any, path: Tuple[str, ...] = ()) -> Any:
         if isinstance(v, dict):
             out[k] = v if k in _SKIP_SUBTREES else quantized_spec(v, path + (k,))
         elif _quantizes(k, path):
-            out[k] = {"q": ParamSpec(v.shape, dtype=torch.int8),
-                      "scale": ParamSpec(_scale_shape(v.shape, _contract_axes(k, path)),
-                                         dtype=torch.float32)}
+            axes = _contract_axes(k, path)
+            scale_axes = tuple(None if i - len(v.shape) in axes else a
+                               for i, a in enumerate(v.logical_axes()))
+            out[k] = {"q": ParamSpec(v.shape, dtype=torch.int8, axes=v.axes),
+                      "scale": ParamSpec(_scale_shape(v.shape, axes), dtype=torch.float32,
+                                         axes=scale_axes)}
         else:
             out[k] = v
     return out

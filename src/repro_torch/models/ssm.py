@@ -73,13 +73,13 @@ def mamba2_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d_in, nh, st = mamba2_dims(cfg)
     # in-proj: [z (d_in), x (d_in), B (st), C (st), dt (nh)]
     return {
-        "w_in": ParamSpec((d, 2 * d_in + 2 * st + nh)),
-        "conv": ParamSpec((CONV_W, d_in + 2 * st), scale=0.1),
-        "dt_bias": ParamSpec((nh,), init="zeros"),
-        "a_log": ParamSpec((nh,), init="ones", scale=1.0),
-        "d_skip": ParamSpec((nh,), init="ones"),
-        "norm": ParamSpec((d_in,), init="ones"),
-        "w_out": ParamSpec((d_in, d)),
+        "w_in": ParamSpec((d, 2 * d_in + 2 * st + nh), axes=("embed", "ssm_inner")),
+        "conv": ParamSpec((CONV_W, d_in + 2 * st), scale=0.1, axes=(None, "ssm_inner")),
+        "dt_bias": ParamSpec((nh,), init="zeros", axes=(None,)),
+        "a_log": ParamSpec((nh,), init="ones", scale=1.0, axes=(None,)),
+        "d_skip": ParamSpec((nh,), init="ones", axes=(None,)),
+        "norm": ParamSpec((d_in,), init="ones", axes=("ssm_inner",)),
+        "w_out": ParamSpec((d_in, d), axes=("ssm_inner", "embed")),
     }
 
 
@@ -194,14 +194,14 @@ def mlstm_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     d = cfg.d_model
     d_in, nh, _ = mlstm_dims(cfg)
     return {
-        "w_up": ParamSpec((d, 2 * d_in)),
-        "w_q": ParamSpec((d_in, d_in)),
-        "w_k": ParamSpec((d_in, d_in)),
-        "w_v": ParamSpec((d_in, d_in)),
-        "w_gates": ParamSpec((d_in, 2 * nh), scale=0.01),
-        "gate_bias": ParamSpec((2 * nh,), init="zeros"),
-        "norm": ParamSpec((d_in,), init="ones"),
-        "w_down": ParamSpec((d_in, d)),
+        "w_up": ParamSpec((d, 2 * d_in), axes=("embed", "ssm_inner")),
+        "w_q": ParamSpec((d_in, d_in), axes=("ssm_inner", None)),
+        "w_k": ParamSpec((d_in, d_in), axes=("ssm_inner", None)),
+        "w_v": ParamSpec((d_in, d_in), axes=("ssm_inner", None)),
+        "w_gates": ParamSpec((d_in, 2 * nh), scale=0.01, axes=("ssm_inner", None)),
+        "gate_bias": ParamSpec((2 * nh,), init="zeros", axes=(None,)),
+        "norm": ParamSpec((d_in,), init="ones", axes=("ssm_inner",)),
+        "w_down": ParamSpec((d_in, d), axes=("ssm_inner", "embed")),
     }
 
 
@@ -258,10 +258,10 @@ def slstm_spec(cfg: ArchConfig) -> Dict[str, ParamSpec]:
     nh = cfg.num_heads
     hd = d // nh
     return {
-        "w_in": ParamSpec((d, 4 * d)),
-        "r": ParamSpec((nh, hd, 4 * hd), scale=0.01),
-        "norm": ParamSpec((d,), init="ones"),
-        "w_out": ParamSpec((d, d)),
+        "w_in": ParamSpec((d, 4 * d), axes=("embed", None)),
+        "r": ParamSpec((nh, hd, 4 * hd), scale=0.01, axes=(None, None, None)),
+        "norm": ParamSpec((d,), init="ones", axes=("embed",)),
+        "w_out": ParamSpec((d, d), axes=("embed", None)),
     }
 
 

@@ -63,6 +63,7 @@ return the state dict, with new ``pos`` tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -92,9 +93,9 @@ CtxFactory = Callable[[Any], Any]  # layer-adapter slice -> AdapterContext
 
 def _norm_spec(d: int, audio: bool) -> Dict[str, ParamSpec]:
     """RMSNorm's weight, or on the audio family LayerNorm's weight and bias."""
-    s = {"w": ParamSpec((d,), init="ones")}
+    s = {"w": ParamSpec((d,), init="ones", axes=("embed",))}
     if audio:
-        s["b"] = ParamSpec((d,), init="zeros")
+        s["b"] = ParamSpec((d,), init="zeros", axes=("embed",))
     return s
 
 
@@ -106,7 +107,8 @@ def _apply_norm(p: Dict[str, torch.Tensor], x: torch.Tensor, eps: float) -> torc
 
 def _stack_specs(spec: Any, n: int) -> Any:
     if isinstance(spec, ParamSpec):
-        return ParamSpec((n,) + spec.shape, spec.init, spec.scale)
+        return dataclasses.replace(spec, shape=(n,) + spec.shape,
+                                   axes=("layers",) + spec.logical_axes())
     return {k: _stack_specs(v, n) for k, v in spec.items()}
 
 
@@ -117,16 +119,23 @@ def _slice_layer(tree: Any, i: int) -> Any:
 
 
 class Model:
-    """Dense, vlm, audio, MoE, hybrid or ``ssm`` backbone on one device
-    (``device="cuda"`` by default; raises without CUDA unless the caller
-    passes ``device="cpu"``)."""
+    """Dense, vlm, audio, MoE, hybrid or ``ssm`` backbone (``device="cuda"``
+    by default; raises without CUDA unless the caller passes
+    ``device="cpu"``).  ``attn_mode`` is the attention mode of every
+    self-attention (``pairs``, ``kvscan`` or ``striped_cp``;
+    ``models.attention``): under an active mesh the last two run on this
+    rank's block of the sequence, and ``striped_cp`` reads the batch's
+    ``positions`` (the tokens' global positions in the striped layout)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", attn_mode: str = "pairs"):
+        if attn_mode not in ("pairs", "kvscan", "striped_cp"):
+            raise ValueError(f"attn_mode {attn_mode!r}: pairs, kvscan or striped_cp")
         if cfg.family not in ("dense", "vlm", "audio", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
                 f"repro_torch runs dense, vlm, audio, MoE, hybrid and ssm backbones; "
                 f"{cfg.name} ({cfg.family}) is not ported yet")
         self.cfg = cfg
+        self.attn_mode = attn_mode
         self.device = resolve_device(device)
         self.vocab_padded = pad_vocab(cfg.vocab_size)
 
@@ -174,7 +183,7 @@ class Model:
             spec["layers"] = _stack_specs(layer, cfg.num_layers)
             return spec
         n_super = cfg.num_layers // cfg.hybrid_period
-        mamba_layer = {"ln": {"w": ParamSpec((cfg.d_model,), init="ones")},
+        mamba_layer = {"ln": _norm_spec(cfg.d_model, False),
                        "mamba": ssm.mamba2_spec(cfg)}
         spec["blocks"] = {"mamba": _stack_specs(_stack_specs(mamba_layer, cfg.hybrid_period - 1),
                                                 n_super)}
@@ -210,7 +219,7 @@ class Model:
                mrope_positions=None):
         cfg = self.cfg
         h = _apply_norm(lp["ln1"], x, cfg.norm_eps)
-        a = attn.attention_apply(lp["attn"], h, cfg, positions=positions,
+        a = attn.attention_apply(lp["attn"], h, cfg, mode=self.attn_mode, positions=positions,
                                  mrope_positions=mrope_positions,
                                  segment_ids=segment_ids, return_kv=collect_kv)
         kv = None
@@ -374,7 +383,7 @@ class Model:
         for i in range(cfg.num_encoder_layers):
             lp = _slice_layer(params["encoder"], i)
             h = _apply_norm(lp["ln1"], x, cfg.norm_eps)
-            x = x + attn.attention_apply(lp["attn"], h, cfg, causal=False)
+            x = x + attn.attention_apply(lp["attn"], h, cfg, mode=self.attn_mode, causal=False)
             h = _apply_norm(lp["ln2"], x, cfg.norm_eps)
             x = x + mlp_apply(lp["mlp"], h, cfg.gated_mlp)
         return _apply_norm(params["enc_final_norm"], x, cfg.norm_eps)
@@ -395,7 +404,7 @@ class Model:
         the MLP."""
         cfg = self.cfg
         h = _apply_norm(lp["ln1"], x, cfg.norm_eps)
-        x = x + attn.attention_apply(lp["attn"], h, cfg, causal=True)
+        x = x + attn.attention_apply(lp["attn"], h, cfg, mode=self.attn_mode, causal=True)
         h = _apply_norm(lp["ln_cross"], x, cfg.norm_eps)
         x = x + attn.attention_apply(lp["cross"], h, cfg,
                                      kv_override=self._cross_kv(lp["cross"], enc))
@@ -612,3 +621,13 @@ class Model:
                                            mrope, cross(i) if cross else None)
         x = _apply_norm(params["final_norm"], x, cfg.norm_eps)
         return self._logits(params, x), new_state
+
+
+def build_model(cfg: ArchConfig, tp_size: int = 1, device="cuda") -> Model:
+    """The model with the attention mode for a TP degree: ``pairs`` when the
+    heads divide over ``tp_size`` (or the config has no attention), else
+    ``kvscan`` (the JAX ``build_model``)."""
+    if cfg.attention == "none":
+        return Model(cfg, device, attn_mode="pairs")
+    mode = "pairs" if (tp_size <= 1 or cfg.num_heads % tp_size == 0) else "kvscan"
+    return Model(cfg, device, attn_mode=mode)

@@ -17,8 +17,10 @@ class AdapterTuning(PEFTMethod):
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
         t = (capacity,)
         return {
-            "down": ParamSpec(t + (d_out, rank), scale=0.02),
-            "up": ParamSpec(t + (rank, d_out), init="zeros"),
+            "down": ParamSpec(t + (d_out, rank), scale=0.02,
+                              axes=(None, None, None)),
+            "up": ParamSpec(t + (rank, d_out), init="zeros",
+                            axes=(None, None, None)),
         }
 
     def param_count(self, rank, d_in, d_out) -> int:

@@ -15,7 +15,7 @@ class BitFit(PEFTMethod):
     category = "additive"
 
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
-        return {"b": ParamSpec((capacity, d_out), init="zeros")}
+        return {"b": ParamSpec((capacity, d_out), init="zeros", axes=(None, None))}
 
     def param_count(self, rank, d_in, d_out) -> int:
         return d_out

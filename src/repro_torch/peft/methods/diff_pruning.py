@@ -25,8 +25,10 @@ class DiffPruning(PEFTMethod):
         t = (capacity,)
         return {
             # fixed structured mask: ``rows`` selects rank input rows of W
-            "rows": ParamSpec(t + (rank,), init="zeros", dtype=torch.int32),
-            "delta": ParamSpec(t + (rank, d_out), init="zeros"),
+            "rows": ParamSpec(t + (rank,), init="zeros", dtype=torch.int32,
+                              axes=(None, None)),
+            "delta": ParamSpec(t + (rank, d_out), init="zeros",
+                               axes=(None, None, None)),
         }
 
     def post_init(self, params, site, d_in, d_out):

@@ -30,10 +30,10 @@ class DoRA(PEFTMethod):
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
         t = (capacity,)
         return {
-            "a": ParamSpec(t + (d_in, rank), scale=0.02),
-            "b": ParamSpec(t + (rank, d_out), init="zeros"),
+            "a": ParamSpec(t + (d_in, rank), scale=0.02, axes=(None, "embed", None)),
+            "b": ParamSpec(t + (rank, d_out), init="zeros", axes=(None, None, None)),
             # relative magnitude: effective m = ||W||_col * (1 + dm)
-            "dm": ParamSpec(t + (d_out,), init="zeros"),
+            "dm": ParamSpec(t + (d_out,), init="zeros", axes=(None, None)),
         }
 
     def param_count(self, rank, d_in, d_out) -> int:

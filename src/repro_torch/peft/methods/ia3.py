@@ -14,7 +14,7 @@ class IA3(PEFTMethod):
     category = "additive"
 
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
-        return {"s": ParamSpec((capacity, d_out), init="zeros")}
+        return {"s": ParamSpec((capacity, d_out), init="zeros", axes=(None, None))}
 
     def param_count(self, rank, d_in, d_out) -> int:
         return d_out

@@ -22,8 +22,8 @@ class LoRA(PEFTMethod):
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
         t = (capacity,)
         return {
-            "a": ParamSpec(t + (d_in, rank), scale=0.02),
-            "b": ParamSpec(t + (rank, d_out), init="zeros"),
+            "a": ParamSpec(t + (d_in, rank), scale=0.02, axes=(None, "embed", None)),
+            "b": ParamSpec(t + (rank, d_out), init="zeros", axes=(None, None, None)),
         }
 
     def param_count(self, rank, d_in, d_out) -> int:

@@ -35,8 +35,8 @@ class PrefixTuning(PEFTMethod):
 
     def param_specs(self, rank, d_in, d_out, capacity) -> Dict[str, ParamSpec]:
         t = (capacity,)
-        return {"pk": ParamSpec(t + (rank, d_out), scale=0.02),
-                "pv": ParamSpec(t + (rank, d_out), scale=0.02)}
+        return {"pk": ParamSpec(t + (rank, d_out), scale=0.02, axes=(None, None, None)),
+                "pv": ParamSpec(t + (rank, d_out), scale=0.02, axes=(None, None, None))}
 
     def param_count(self, rank, d_in, d_out) -> int:
         return 2 * rank * d_out

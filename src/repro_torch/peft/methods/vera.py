@@ -96,11 +96,11 @@ class VeRA(PEFTMethod):
         return {
             # shared frozen projections (no task axis; post_init overwrites
             # them with the site-keyed values)
-            "A": ParamSpec((d_in, rank), scale=0.02),
-            "B": ParamSpec((rank, d_out), scale=0.02),
+            "A": ParamSpec((d_in, rank), scale=0.02, axes=("embed", None)),
+            "B": ParamSpec((rank, d_out), scale=0.02, axes=(None, None)),
             # per-task trainable scaling vectors
-            "d": ParamSpec(t + (rank,), init="const", scale=0.1),
-            "b": ParamSpec(t + (d_out,), init="zeros"),
+            "d": ParamSpec(t + (rank,), init="const", scale=0.1, axes=(None, None)),
+            "b": ParamSpec(t + (d_out,), init="zeros", axes=(None, None)),
         }
 
     def post_init(self, params, site, d_in, d_out):

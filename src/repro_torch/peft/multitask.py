@@ -18,6 +18,7 @@ Soft-prompt kinds surface per-row k/v prefix rows to attention through
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -149,7 +150,8 @@ class MultiTaskAdapters:
     @staticmethod
     def _stack(spec: Any, *dims: int) -> Any:
         if isinstance(spec, ParamSpec):
-            return ParamSpec(tuple(dims) + spec.shape, spec.init, spec.scale, spec.dtype)
+            return dataclasses.replace(spec, shape=tuple(dims) + spec.shape,
+                                       axes=("layers",) * len(dims) + spec.logical_axes())
         return {k: MultiTaskAdapters._stack(v, *dims) for k, v in spec.items()}
 
     def spec(self) -> Dict[str, Any]:

@@ -18,7 +18,10 @@ def test_import_leaves_jax_and_repro_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.convert, "
             "repro_torch.distributed, repro_torch.launch.train, repro_torch.kernels.ops, "
             "repro_torch.serve, repro_torch.obs, repro_torch.obs.validate, "
-            "repro_torch.cluster, repro_torch.fleet, repro_torch.serve.replay; "
+            "repro_torch.cluster, repro_torch.fleet, repro_torch.serve.replay, "
+            "repro_torch.distributed.sharding, repro_torch.distributed.collectives, "
+            "repro_torch.distributed.pipeline, repro_torch.launch.mesh, "
+            "repro_torch.launch.rules, repro_torch.models.cp_attention; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')); "
             "print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
